@@ -1,0 +1,25 @@
+"""gsplat_tpu_torch: the PyTorch/CUDA port of gsplat_tpu for NVIDIA Hopper.
+
+Same layout as `gsplat_tpu`. Plain tensor code is PyTorch; the TPU's Pallas
+kernels become CUDA C++ kernels for sm_90a in `csrc/`, built on first use
+(`ops/cuda/_build.py`). Entry points default to `device="cuda"`; a kernel
+wrapper runs its plain PyTorch version only for a CPU tensor.
+
+This slice: the forward render (projection, SH, tiered binning through the
+cull kernel, gather, per-tile blend kernel). Training, the packed streams,
+I/O and multi-GPU come in later slices.
+"""
+
+from gsplat_tpu_torch.config import RenderConfig
+from gsplat_tpu_torch.models.gaussians import GaussianScene, random_scene
+from gsplat_tpu_torch.ops.camera import Camera
+from gsplat_tpu_torch.render.pipeline import RenderOutput, render
+
+__all__ = [
+    "Camera",
+    "GaussianScene",
+    "RenderConfig",
+    "RenderOutput",
+    "random_scene",
+    "render",
+]

@@ -1,0 +1,340 @@
+"""Tile binning, forward subset: duplicate Gaussians per covered tile, order
+by (tile, depth), compute per-tile ranges, gather the sorted feature stream.
+
+Port of `gsplat_tpu.ops.binning` for `binning='tiered'` (the production
+mode), with `'packed'` and `'sort'` as oracles. The exact ellipse-tile cull
+runs through kernel K3 (`ops/cuda/cull.py`). Differences from the JAX
+package:
+
+  - Keys are int64 with the values of the JAX u32 keys
+    (`tile << depth_bits | depth_q`, sentinel 0xFFFFFFFF), because PyTorch's
+    uint32 sort support on CUDA is not to be relied on.
+  - Sorts are `torch.sort(stable=False)` and ranges `torch.searchsorted`:
+    plain XLA ops in the JAX package, library calls here.
+  - Not yet ported: `'scatter'` binning, `_align_stream`, the jumbo tiers,
+    shard-local tile ranges and the gather's scatter-free backward.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from gsplat_tpu_torch.config import RenderConfig
+from gsplat_tpu_torch.ops.cuda.cull import tile_cull_mask
+from gsplat_tpu_torch.ops.projection import ProjectedGaussians
+
+# Feature-row indices of the gathered sorted stream (F, max_intersections).
+FEAT_GX = 0      # gaussian center x in pixels
+FEAT_GY = 1
+FEAT_CA = 2      # conic A
+FEAT_CB = 3      # conic B
+FEAT_CC = 4      # conic C
+FEAT_R = 5
+FEAT_G = 6
+FEAT_B = 7
+FEAT_OPACITY = 8
+NUM_FEATURES = 9
+
+# Low bits of the (gid << KBITS | k) sort value holding the candidate index.
+KBITS = 7
+SENTINEL_KEY = 0xFFFFFFFF
+
+
+def kmax_eff(cfg: RenderConfig) -> int:
+    """Largest candidate count any single Gaussian can emit."""
+    return cfg.max_tiles_jumbo or cfg.max_tiles_per_gaussian
+
+
+def _kbits(kmax: int) -> int:
+    """k-field width of the gidk packing for a given effective K."""
+    return max(KBITS, (kmax - 1).bit_length())
+
+
+@dataclasses.dataclass
+class BinnedGaussians:
+    sorted_tile: torch.Tensor   # (max_I,) int32, sentinel = num_tiles
+    sorted_gid: torch.Tensor    # (max_I,) int32 gaussian index per slot
+    ranges: torch.Tensor        # (num_tiles + 1,) int32; tile t spans
+    #                           #   [ranges[t], ranges[t+1])
+    num_intersections: torch.Tensor  # () int32 true total (may exceed capacity)
+    overflow: torch.Tensor      # () bool: capacity, K_max or a pool exceeded
+    sorted_gidk: torch.Tensor   # (max_I,) int32 gid << kbits | k (-1 = padding)
+    gauss_counts: torch.Tensor  # (N,) int32 surviving candidates per Gaussian
+
+
+def _rect_divmod(k: torch.Tensor, w: torch.Tensor):
+    """(k // w, k % w) via f32 division, exactly as the JAX package does it
+    ((k + 0.5) / w is never within f32 rounding of an integer)."""
+    q = torch.floor((k.float() + 0.5) / w.float()).to(torch.int32)
+    return q, k - q * w
+
+
+def depth_bits_for(n_tiles: int) -> int:
+    """Depth bits left in a 32-bit key after the tile id of an n_tiles grid."""
+    tile_bits = max(int(n_tiles + 1).bit_length(), 1)
+    return 32 - tile_bits
+
+
+def _check_depth_bits(n_tiles: int) -> int:
+    depth_bits = depth_bits_for(n_tiles)
+    if depth_bits < 12:
+        raise ValueError(
+            f"{n_tiles} tiles leave only {depth_bits} depth bits in a u32 key"
+        )
+    return depth_bits
+
+
+def _depth_q(depth: torch.Tensor, depth_bits: int) -> torch.Tensor:
+    """Top depth_bits of the float bits of depth (monotone for positive
+    depth), as int64: the logical right shift of the JAX u32 key."""
+    bits = depth.float().contiguous().view(torch.int32).to(torch.int64)
+    return (bits & 0xFFFFFFFF) >> (31 - depth_bits)
+
+
+def pack_tile_depth_key(tile, depth, n_tiles: int) -> torch.Tensor:
+    """int64 key = tile << depth_bits | quantized depth bits: the value of
+    the JAX package's u32 key."""
+    depth_bits = _check_depth_bits(n_tiles)
+    return (tile.to(torch.int64) << depth_bits) | _depth_q(depth, depth_bits)
+
+
+def _rect_cull_mask(proj, cfg: RenderConfig):
+    """(N, K_max) validity of the rect walk: k < counts, intersected with
+    the exact ellipse-tile cull (kernel K3) when enabled."""
+    if cfg.tile_culling:
+        return tile_cull_mask(proj, cfg)
+    k = torch.arange(cfg.max_tiles_per_gaussian, dtype=torch.int32,
+                     device=proj.counts.device)[None, :]
+    return k < proj.counts[:, None]
+
+
+def _normalize_tier_plan(spec, kmax: int, n: int):
+    """tier_spec -> [(k_lo, k_hi, budget_rows | None), ...].
+
+    Legacy form (K0, div1, div2): dense K0-slot tier + pools of N/div1 rows
+    over slots [K0, 4*K0) and N/div2 rows over [4*K0, K_max).
+    General form ((k_hi, div), ...): cumulative slot boundaries; div == 0
+    means a dense tier (all N rows), else a pool of N//div rows."""
+    if spec and isinstance(spec[0], (tuple, list)):
+        plan = []
+        k_lo = 0
+        for k_hi, div in spec:
+            k_hi = min(int(k_hi), kmax)
+            if k_hi <= k_lo:
+                continue
+            plan.append(
+                (k_lo, k_hi, None if div == 0 else max(n // int(div), 1))
+            )
+            k_lo = k_hi
+        if k_lo < kmax:  # implicit final tier to K_max, reuse last divisor
+            last_div = spec[-1][1] if spec else 0
+            plan.append(
+                (k_lo, kmax, None if last_div == 0 else max(n // int(last_div), 1))
+            )
+        return plan
+    k0, d1, d2 = spec
+    k1 = min(4 * k0, kmax)
+    plan = [(0, min(k0, kmax), None)]
+    if kmax > k0:
+        plan.append((k0, k1, max(n // d1, 1)))
+    if kmax > k1:
+        plan.append((k1, kmax, max(n // d2, 1)))
+    return plan
+
+
+def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig):
+    """Tiered candidate expansion straight to (key, gidk) sort operands:
+    every Gaussian gets a dense tier of candidate slots; Gaussians with more
+    surviving tiles take rows in budgeted pools (prefixes of one shared
+    count-descending ranking). Tiers enumerate only the tiles that survive
+    the cull (a per-row compaction of the cull mask).
+
+    Returns (key (M,) int64 with SENTINEL_KEY for invalid, gidk (M,) int32,
+    total () int32 valid count, pool_overflow () bool, counts (N,) int32)."""
+    n = proj.mask.shape[0]
+    dev = proj.mask.device
+    kmax = cfg.max_tiles_per_gaussian
+    kb = _kbits(kmax_eff(cfg))
+    depth_bits = _check_depth_bits(cfg.num_tiles)
+
+    rect_w = torch.clamp_min(proj.rect[:, 2] - proj.rect[:, 0], 1)
+    valid_all = _rect_cull_mask(proj, cfg)
+    counts = valid_all.sum(dim=1, dtype=torch.int32)  # culled counts
+    k = torch.arange(kmax, dtype=torch.int32, device=dev)[None, :]
+    compact_k = torch.sort(
+        torch.where(valid_all, k, torch.full_like(k, kmax)), dim=1,
+        stable=False,
+    ).values  # (N, kmax): surviving k ascending, then kmax
+
+    tiers = _normalize_tier_plan(cfg.tier_spec, kmax, n)
+
+    # One count-descending ranking shared by every pool tier: memberships
+    # are nested, so the members of any pool tier are a prefix of it.
+    pool_budgets = [b for _, _, b in tiers if b is not None]
+    # Per-row depth quantization, broadcast into the 2-D keys.
+    depth_q = _depth_q(proj.depth, depth_bits)
+    if pool_budgets:
+        ids_pool = torch.sort(-counts, stable=False).indices[: max(pool_budgets)]
+        pool_rows = torch.stack(
+            [rect_w, proj.rect[:, 0], proj.rect[:, 1], counts], 1
+        )[ids_pool]  # (bmax, 4), one row gather for every pool tier
+        pool_dq = depth_q[ids_pool]
+
+    key_l, gidk_l = [], []
+    total = torch.zeros((), dtype=torch.int32, device=dev)
+    pool_overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    for k_lo, k_hi, budget in tiers:
+        kk = torch.arange(k_lo, k_hi, dtype=torch.int32, device=dev)[None, :]
+        if budget is None:
+            # Dense tier: rows are Gaussians.
+            ids_c = torch.arange(n, dtype=torch.int64, device=dev)
+            ck = compact_k[:, k_lo:k_hi]
+            row_w = rect_w[:, None]
+            row_x0, row_y0 = proj.rect[:, 0:1], proj.rect[:, 1:2]
+            row_dq = depth_q[:, None]
+            row_counts = counts[:, None]
+        else:
+            # Prefix of the shared ranking. Rows past the true member count
+            # have counts <= k_lo, so every kk fails kk < row_counts.
+            # Members ranked past the budget are dropped and flagged.
+            pool_overflow = pool_overflow | ((counts > k_lo).sum() > budget)
+            ids_c = ids_pool[:budget]
+            ck = compact_k[ids_c, k_lo:k_hi]
+            row_w = pool_rows[:budget, 0:1]
+            row_x0 = pool_rows[:budget, 1:2]
+            row_y0 = pool_rows[:budget, 2:3]
+            row_dq = pool_dq[:budget, None]
+            row_counts = pool_rows[:budget, 3:4]
+        cky, ckx = _rect_divmod(ck, row_w)
+        tile = (row_y0 + cky) * cfg.tiles_x + (row_x0 + ckx)
+        valid = kk < row_counts
+        key = (tile.to(torch.int64) << depth_bits) | row_dq
+        key = torch.where(valid, key, torch.full_like(key, SENTINEL_KEY))
+        gidk = ((ids_c[:, None] << kb) | kk).to(torch.int32)
+        total = total + valid.sum(dtype=torch.int32)
+        key_l.append(key.reshape(-1))
+        gidk_l.append(gidk.expand(key.shape).reshape(-1))
+
+    return torch.cat(key_l), torch.cat(gidk_l), total, pool_overflow, counts
+
+
+def _candidate_tiles(proj: ProjectedGaussians, cfg: RenderConfig):
+    """Every Gaussian's K_max candidate (tile, gid << kbits | k), row-major
+    walk of its rect, with the cull/walk validity mask: (N, K_max) each."""
+    n = proj.mask.shape[0]
+    dev = proj.mask.device
+    kmax = cfg.max_tiles_per_gaussian
+    kb = _kbits(kmax_eff(cfg))
+    k = torch.arange(kmax, dtype=torch.int32, device=dev)[None, :]
+    rect_w = torch.clamp_min(proj.rect[:, 2] - proj.rect[:, 0], 1)
+    ky, kx = _rect_divmod(k, rect_w[:, None])
+    tile = (proj.rect[:, 1:2] + ky) * cfg.tiles_x + (proj.rect[:, 0:1] + kx)
+    valid = _rect_cull_mask(proj, cfg)
+    gid = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    gidk = ((gid << kb) | k).expand(tile.shape)
+    return tile, gidk, valid
+
+
+def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussians:
+    """Bin into the (tile, depth)-sorted stream of cfg.max_intersections
+    slots. No host synchronisation: overflow is reported as a flag."""
+    max_i = cfg.max_intersections
+    n = proj.mask.shape[0]
+    dev = proj.mask.device
+    kmax = cfg.max_tiles_per_gaussian
+    kb = _kbits(kmax_eff(cfg))
+    n_tiles = cfg.num_tiles
+    if cfg.binning == "scatter" or cfg.max_tiles_jumbo:
+        raise NotImplementedError(
+            "binning='scatter' and the jumbo tiers come in a later slice of "
+            "the port (with the packed streams); use 'tiered', 'packed' or "
+            "'sort'"
+        )
+    n_cap = min((1 << 24) - 1, 1 << (31 - kb))
+    if kmax > (1 << kb) or n >= n_cap:
+        raise ValueError(
+            f"gid<<{kb}|k packing needs max_tiles_per_gaussian <= "
+            f"{1 << kb} and N < {n_cap} (got K_max {kmax}, N {n})"
+        )
+
+    if cfg.binning == "tiered":
+        key, gidk, total, pool_ovf, gcounts = _tiered_candidates(proj, cfg)
+    else:
+        tile, gidk, valid = _candidate_tiles(proj, cfg)
+        pool_ovf = torch.zeros((), dtype=torch.bool, device=dev)
+        gcounts = valid.sum(dim=1, dtype=torch.int32)
+        total = gcounts.sum(dtype=torch.int32)
+        gidk = gidk.reshape(-1)
+    overflow = proj.overflow | pool_ovf | (total > max_i)
+
+    if cfg.binning == "sort":
+        # Exact (tile, f32 depth) order: two stable sorts, depth then tile.
+        depth = torch.where(valid, proj.depth[:, None], float("inf")).reshape(-1)
+        tile = torch.where(valid, tile, n_tiles).reshape(-1)
+        order = torch.sort(depth, stable=True).indices
+        order = order[torch.sort(tile[order], stable=True).indices][:max_i]
+        s_tile = tile[order]
+    else:
+        if cfg.binning == "packed":
+            key = pack_tile_depth_key(
+                tile, proj.depth[:, None].expand(tile.shape), n_tiles
+            )
+            key = torch.where(valid, key, SENTINEL_KEY).reshape(-1)
+        order = torch.sort(key, stable=False).indices[:max_i]
+        s_tile = torch.clamp_max(
+            key[order] >> depth_bits_for(n_tiles), n_tiles
+        ).to(torch.int32)
+    s_gidk = gidk[order]
+    if order.shape[0] < max_i:
+        pad = max_i - order.shape[0]
+        s_tile = torch.cat([s_tile, s_tile.new_full((pad,), n_tiles)])
+        s_gidk = torch.cat([s_gidk, s_gidk.new_full((pad,), -1)])
+    # Invalid candidates sort to the sentinel tile; mark them out.
+    s_gidk = torch.where(s_tile < n_tiles, s_gidk, -1)
+    s_gid = torch.where(s_gidk >= 0, s_gidk >> kb, 0)
+
+    ranges = torch.searchsorted(
+        s_tile, torch.arange(n_tiles + 1, dtype=torch.int32, device=dev),
+        side="left",
+    ).to(torch.int32)
+
+    return BinnedGaussians(
+        sorted_tile=s_tile,
+        sorted_gid=s_gid,
+        ranges=ranges,
+        num_intersections=total,
+        overflow=overflow,
+        sorted_gidk=s_gidk,
+        gauss_counts=gcounts,
+    )
+
+
+def features_f32(proj: ProjectedGaussians, cfg: RenderConfig) -> torch.Tensor:
+    """The (NUM_FEATURES, N) float32 per-Gaussian feature table, FEAT_* rows."""
+    return torch.stack(
+        [
+            proj.uv[:, 0] * cfg.width,
+            proj.uv[:, 1] * cfg.height,
+            proj.conic[:, 0],
+            proj.conic[:, 1],
+            proj.conic[:, 2],
+            proj.color[:, 0],
+            proj.color[:, 1],
+            proj.color[:, 2],
+            proj.opacity,
+        ],
+        0,
+    )
+
+
+def gather_features(proj: ProjectedGaussians, binned: BinnedGaussians,
+                    cfg: RenderConfig) -> torch.Tensor:
+    """(NUM_FEATURES, max_intersections) float32 features in sorted-stream
+    order (forward only). Slots with gid -1 read an appended zero column."""
+    feats = features_f32(proj, cfg)
+    n = feats.shape[1]
+    feats_pad = torch.cat([feats, feats.new_zeros((feats.shape[0], 1))], 1)
+    gid = torch.where(binned.sorted_gid < 0, n, binned.sorted_gid)
+    return feats_pad.index_select(1, gid.to(torch.int64)).contiguous()

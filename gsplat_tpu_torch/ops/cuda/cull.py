@@ -1,0 +1,138 @@
+"""K3, the exact ellipse-tile cull mask: CUDA kernel `csrc/cull.cu` and its
+plain PyTorch version.
+
+Replaces `gsplat_tpu/ops/pallas/cull.py::_cull_kernel`. `cull_params` packs
+the per-Gaussian rows both versions read, in plain torch on every device, so
+the kernel and the plain version see identical inputs. `cull_mask_plain` is
+the port of `gsplat_tpu.ops.binning._precise_tile_valid` on those rows, with
+its arithmetic in the same order as the kernel's; the kernel never contracts
+into FMAs, so the two agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gsplat_tpu_torch.config import RenderConfig
+from gsplat_tpu_torch.ops.cuda import _build
+
+# Parameter rows of the (NUM_ROWS, N) input.
+R_GX, R_GY, R_A, R_B, R_C, R_TAU, R_X0, R_Y0, R_W, R_COUNT = range(10)
+NUM_ROWS = 10
+
+# Kernel launches: cull_mask_cuda adds one per launch, nowhere else.
+launches = 0
+
+
+def cull_params(proj, cfg: RenderConfig) -> torch.Tensor:
+    """(10, N) float32 parameter rows; tau = -1 culls every lane of a
+    Gaussian with opacity <= alpha_min."""
+    rect_w = torch.clamp_min(proj.rect[:, 2] - proj.rect[:, 0], 1)
+    tau = 2.0 * torch.log(torch.clamp_min(proj.opacity / cfg.alpha_min, 1e-12))
+    tau = torch.where(proj.opacity > cfg.alpha_min, tau,
+                      torch.full_like(tau, -1.0))
+    rows = [
+        proj.uv[:, 0] * cfg.width,
+        proj.uv[:, 1] * cfg.height,
+        proj.conic[:, 0],
+        proj.conic[:, 1],
+        proj.conic[:, 2],
+        tau,
+        proj.rect[:, 0].float(),
+        proj.rect[:, 1].float(),
+        rect_w.float(),
+        proj.counts.float(),
+    ]
+    return torch.stack(rows, 0).detach()
+
+
+def cull_mask_plain(params: torch.Tensor, kmax: int, tile_size: int) -> torch.Tensor:
+    """(10, R) rows -> (R, kmax) bool survival mask, in plain torch."""
+    ts = float(tile_size)
+
+    def row(i):  # (R, 1)
+        return params[i][:, None]
+
+    k = torch.arange(kmax, dtype=torch.float32, device=params.device)[None, :]
+    w = row(R_W)
+    ky = torch.floor((k + 0.5) / w)
+    kx = k - ky * w
+    tx = row(R_X0) + kx
+    ty = row(R_Y0) + ky
+
+    # Tile pixel-centre range [t*ts, t*ts + ts - 1], as deltas from centre.
+    dx0 = tx * ts - row(R_GX)
+    dx1 = dx0 + (ts - 1.0)
+    dy0 = ty * ts - row(R_GY)
+    dy1 = dy0 + (ts - 1.0)
+    inside = (dx0 <= 0.0) & (0.0 <= dx1) & (dy0 <= 0.0) & (0.0 <= dy1)
+
+    a, b, c = row(R_A), row(R_B), row(R_C)
+    neg_b_over_a = -b / torch.clamp_min(a, 1e-12)
+    neg_b_over_c = -b / torch.clamp_min(c, 1e-12)
+
+    def q(dx, dy):
+        return a * dx * dx + 2.0 * b * dx * dy + c * dy * dy
+
+    def edge_x(d):  # dx = d fixed, minimise over dy
+        return q(d, torch.clamp(neg_b_over_c * d, dy0, dy1))
+
+    def edge_y(d):  # dy = d fixed, minimise over dx
+        return q(torch.clamp(neg_b_over_a * d, dx0, dx1), d)
+
+    qmin = torch.minimum(
+        torch.minimum(edge_x(dx0), edge_x(dx1)),
+        torch.minimum(edge_y(dy0), edge_y(dy1)),
+    )
+    qmin = torch.where(inside, torch.zeros_like(qmin), qmin)
+    return (qmin <= row(R_TAU)) & (k < row(R_COUNT))
+
+
+def cull_mask_cuda(params: torch.Tensor, kmax: int,
+                   tile_size: int) -> torch.Tensor:
+    """Launch the kernel: (10, R) rows -> (R, kmax) bool mask."""
+    global launches
+    if params.device.type != "cuda":
+        raise ValueError(f"cull: the kernel needs a CUDA device, got "
+                         f"{params.device}")
+    if params.dtype != torch.float32 or params.dim() != 2 or \
+            params.shape[0] != NUM_ROWS or not params.is_contiguous():
+        raise ValueError(
+            "cull: params must be a contiguous (10, R) float32 tensor, got "
+            f"{tuple(params.shape)} {params.dtype}"
+        )
+    r = params.shape[1]
+    out = torch.empty((r, kmax), dtype=torch.bool, device=params.device)
+    lib = _build.load("cull")
+    fn = lib.gsplat_cull
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(params.device).cuda_stream
+    with torch.cuda.device(params.device):
+        err = fn(params.data_ptr(), out.data_ptr(), r, kmax, float(tile_size),
+                 stream)
+    _build.check(err, "gsplat_cull")
+    launches += 1
+    return out
+
+
+def cull_mask_from_params(params: torch.Tensor, kmax: int,
+                          tile_size: int) -> torch.Tensor:
+    """(10, R) rows -> (R, kmax) bool mask: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    if params.device.type == "cpu":
+        return cull_mask_plain(params, kmax, tile_size)
+    if params.device.type == "cuda":
+        return cull_mask_cuda(params, kmax, tile_size)
+    raise ValueError(f"cull: unsupported device {params.device}")
+
+
+def tile_cull_mask(proj, cfg: RenderConfig) -> torch.Tensor:
+    """(N, K_max) bool mask of candidates surviving the exact cull AND the
+    rect walk bound (k < counts)."""
+    return cull_mask_from_params(
+        cull_params(proj, cfg), cfg.max_tiles_per_gaussian, cfg.tile_size
+    )

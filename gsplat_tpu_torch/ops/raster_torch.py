@@ -1,0 +1,114 @@
+"""Plain PyTorch rasterizers (forward), the port of `gsplat_tpu.ops.raster_jnp`.
+
+  - `_raster_tiles`: the tiled walk of the sorted stream, all tiles at once
+    as a batch dimension, one block of cfg.block_size Gaussians per step.
+    It is the plain version of kernel K1 (`ops/cuda/raster.py`). Unlike the
+    JAX walk, which stops at cfg.max_per_tile, it walks to the longest
+    segment actually present (a host read of `ranges`): the kernel has no
+    per-tile cap either.
+  - `rasterize_dense_oracle`: per-pixel walk over all depth-sorted Gaussians
+    with each Gaussian restricted to the tiles of its rect. O(N * H * W);
+    tests only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gsplat_tpu_torch.config import RenderConfig, cdiv
+from gsplat_tpu_torch.ops.blend import blend_block, init_carry, tile_pixel_coords
+
+
+def _tiles_to_image(tile_colors: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """(T, 3, P) per-tile pixels -> (H, W, 3) image."""
+    ts = cfg.tile_size
+    x = tile_colors.reshape(cfg.tiles_y, cfg.tiles_x, 3, ts, ts)
+    x = x.permute(0, 3, 1, 4, 2)  # (ty, py, tx, px, c)
+    x = x.reshape(cfg.padded_height, cfg.padded_width, 3)
+    return x[: cfg.height, : cfg.width]
+
+
+def _tiles_to_scalar_image(tile_vals: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """(T, P) per-tile scalars -> (H, W)."""
+    ts = cfg.tile_size
+    x = tile_vals.reshape(cfg.tiles_y, cfg.tiles_x, ts, ts)
+    x = x.permute(0, 2, 1, 3).reshape(cfg.padded_height, cfg.padded_width)
+    return x[: cfg.height, : cfg.width]
+
+
+def _raster_tiles(features, ranges, tile_offset, cfg: RenderConfig):
+    """Forward walk -> (tile_colors (T, 3, P), tile_trans (T, P), pairs):
+    `pairs` is the () int64 count of (pixel, Gaussian) evaluations the data
+    needs (each pixel walks its tile's segment until it terminates)."""
+    dev = features.device
+    max_i = features.shape[1]
+    num_tiles = ranges.shape[0] - 1
+    g = cfg.block_size
+    start = ranges[:-1].long()[:, None]
+    end = ranges[1:].long()[:, None]
+    longest = int((end - start).max()) if num_tiles else 0
+    px, py = tile_pixel_coords(
+        torch.arange(num_tiles, device=dev) + tile_offset, cfg
+    )
+    carry = init_carry(cfg.pixels_per_tile, (num_tiles,), dev)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    lane = torch.arange(g, device=dev)[None, :]
+    for i in range(cdiv(longest, g)):
+        idx = start + i * g + lane                      # (T, G)
+        in_range = (idx < end)[:, None, :]              # (T, 1, G)
+        feat = features[:, idx.clamp(0, max_i - 1)]     # (F, T, G)
+        carry, walked = blend_block(
+            carry, feat.permute(1, 0, 2), px, py, in_range, cfg
+        )
+        pairs += walked
+    return carry.color, carry.trans[..., 0], pairs
+
+
+def rasterize_dense_oracle(proj, cfg: RenderConfig):
+    """Reference-semantics oracle: a serial walk over globally depth-sorted
+    Gaussians, blending into the full image, each Gaussian restricted to the
+    pixels whose tile lies inside its rect. Small scenes only. Returns
+    (image (H, W, 3), final_transmittance (H, W))."""
+    dev = proj.uv.device
+    order = torch.argsort(
+        torch.where(proj.mask, proj.depth, float("inf")), stable=True
+    )
+    uv, conic, color, opacity, rect, mask = (
+        x[order] for x in
+        (proj.uv, proj.conic, proj.color, proj.opacity, proj.rect, proj.mask)
+    )
+    gx = uv[:, 0] * cfg.width
+    gy = uv[:, 1] * cfg.height
+
+    ys = torch.arange(cfg.height, dtype=torch.float32, device=dev)[:, None]
+    xs = torch.arange(cfg.width, dtype=torch.float32, device=dev)[None, :]
+    tile_x = (xs / cfg.tile_size).to(torch.int32)
+    tile_y = (ys / cfg.tile_size).to(torch.int32)
+
+    img = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    trans = torch.ones((cfg.height, cfg.width), device=dev)
+    done = torch.zeros((cfg.height, cfg.width), device=dev)
+    for i in range(order.shape[0]):
+        covered = (
+            (tile_x >= rect[i, 0])
+            & (tile_x < rect[i, 2])
+            & (tile_y >= rect[i, 1])
+            & (tile_y < rect[i, 3])
+            & mask[i]
+        )
+        dx = xs - gx[i]
+        dy = ys - gy[i]
+        power = (
+            -0.5 * (conic[i, 0] * dx * dx + conic[i, 2] * dy * dy)
+            - conic[i, 1] * dx * dy
+        )
+        alpha = torch.clamp_max(opacity[i] * torch.exp(power), cfg.alpha_clamp)
+        ok = covered & (power <= 0.0) & (alpha >= cfg.alpha_min) & (done < 0.5)
+        test_t = trans * (1.0 - alpha)
+        terminate = ok & (test_t < cfg.transmittance_min)
+        apply = ok & ~terminate
+        a = torch.where(apply, alpha, 0.0)
+        img = img + a[..., None] * trans[..., None] * color[i]
+        trans = torch.where(apply, test_t, trans)
+        done = torch.maximum(done, terminate.float())
+    return img, trans

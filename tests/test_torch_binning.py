@@ -1,0 +1,225 @@
+"""Cull mask (plain version of kernel K3) and tiered/packed/sort binning of
+the port against the JAX package on the same numpy inputs (CPU). The JAX
+cull runs as the JAX package's own tests run it: the Pallas kernel in
+interpret mode."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+
+from gsplat_tpu import Camera as JaxCamera  # noqa: E402
+from gsplat_tpu import RenderConfig as JaxConfig  # noqa: E402
+from gsplat_tpu import random_scene as jax_random_scene  # noqa: E402
+from gsplat_tpu.ops import binning as jbin  # noqa: E402
+from gsplat_tpu.ops.pallas.cull import cull_params as jax_cull_params  # noqa: E402
+from gsplat_tpu.ops.pallas.cull import tile_cull_mask_pallas  # noqa: E402
+from gsplat_tpu.ops.projection import project_gaussians as jax_project  # noqa: E402
+from gsplat_tpu_torch import RenderConfig  # noqa: E402
+from gsplat_tpu_torch.convert import camera_from_numpy, scene_from_numpy  # noqa: E402
+from gsplat_tpu_torch.ops import binning as tbin  # noqa: E402
+from gsplat_tpu_torch.ops.cuda import cull  # noqa: E402
+from gsplat_tpu_torch.ops.projection import project_gaussians  # noqa: E402
+
+BASE = dict(width=64, height=64, tile_size=8, max_intersections=1 << 13,
+            max_tiles_per_gaussian=64, block_size=8, max_per_tile=512,
+            pallas_block_size=32)
+
+
+def both(kw, key=7, n=400, degree=1, scale_shift=0.0):
+    """Port and JAX projections of one JAX random scene, and both configs."""
+    jscene = jax_random_scene(jax.random.key(key), n, sh_degree=degree)
+    if scale_shift:
+        jscene = jscene.replace(log_scales=jscene.log_scales + scale_shift)
+    jcam = JaxCamera.default(kw["width"], kw["height"])
+    scene = scene_from_numpy(
+        *(np.asarray(getattr(jscene, f)) for f in
+          ("means", "log_scales", "quats", "opacity_logits", "sh")),
+        device="cpu",
+    )
+    cam = camera_from_numpy(
+        *(np.asarray(getattr(jcam, f)) for f in
+          ("view", "proj", "full_proj", "cam_pos", "focal", "tan_fov",
+           "znear")),
+        device="cpu",
+    )
+    cfg, jcfg = RenderConfig(**kw), JaxConfig(**kw, impl="pallas",
+                                              pallas_interpret=True)
+    return (project_gaussians(scene, cam, cfg), cfg,
+            jax_project(jscene, jcam, jcfg), jcfg)
+
+
+@pytest.mark.parametrize("kw", [
+    BASE,
+    dict(BASE, tile_size=32, max_tiles_per_gaussian=16, block_size=8,
+         max_per_tile=256, pallas_block_size=128),
+    dict(BASE, width=48, height=40, tile_size=8, max_tiles_per_gaussian=32),
+])
+def test_cull_mask_matches_jax_pallas(kw):
+    """The plain mask equals the Pallas (interpret) kernel's mask exactly on
+    the same parameters. No lane flips at the tau threshold here; were one
+    to, it would have to sit within |qmin - tau| <= 1e-5 |tau| (an f32
+    rounding of the quadratic), and this test would say so."""
+    proj, cfg, jproj, jcfg = both(kw, scale_shift=1.0)
+    params = cull.cull_params(proj, cfg)
+    np.testing.assert_allclose(
+        params.numpy(), np.asarray(jax_cull_params(jproj, jcfg)), rtol=1e-5,
+        atol=1e-5,
+    )
+    got = cull.cull_mask_plain(params, cfg.max_tiles_per_gaussian,
+                               cfg.tile_size)
+    want = np.asarray(tile_cull_mask_pallas(jproj, jcfg))
+    assert got.shape == want.shape and 0 < int(got.sum()) < got.numel()
+    np.testing.assert_array_equal(got.numpy(), want)
+    # The CPU wrapper takes the plain version, and the jnp twin agrees.
+    np.testing.assert_array_equal(
+        cull.tile_cull_mask(proj, cfg).numpy(),
+        np.asarray(jbin._rect_cull_mask(
+            jproj, dataclasses.replace(jcfg, impl="jnp"), jproj.mask.shape[0],
+            cfg.max_tiles_per_gaussian,
+            jnp.maximum(jproj.rect[:, 2] - jproj.rect[:, 0], 1),
+        )),
+    )
+
+
+def test_cull_on_unsupported_device_raises():
+    params = torch.zeros((10, 4), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        cull.cull_mask_from_params(params, 8, 8)
+
+
+def _per_tile_multisets(sorted_gid, ranges):
+    g, r = np.asarray(sorted_gid), np.asarray(ranges)
+    return [sorted(g[r[t]:r[t + 1]].tolist()) for t in range(len(r) - 1)]
+
+
+def assert_binned_equal(b, jb, exact_ranges=True):
+    assert int(b.num_intersections) == int(jb.num_intersections)
+    assert bool(b.overflow) == bool(jb.overflow)
+    np.testing.assert_array_equal(b.gauss_counts.numpy(),
+                                  np.asarray(jb.gauss_counts))
+    if exact_ranges:
+        np.testing.assert_array_equal(b.ranges.numpy(), np.asarray(jb.ranges))
+        # Both sorts are unstable: compare each tile's segment as a
+        # multiset of Gaussian ids (and of gid << kbits | k values).
+        assert _per_tile_multisets(b.sorted_gid, b.ranges) == \
+            _per_tile_multisets(jb.sorted_gid, jb.ranges)
+        assert _per_tile_multisets(b.sorted_gidk, b.ranges) == \
+            _per_tile_multisets(jb.sorted_gidk, jb.ranges)
+        np.testing.assert_array_equal(b.sorted_tile.numpy(),
+                                      np.asarray(jb.sorted_tile))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(BASE, binning="tiered", tier_spec=(8, 5, 16)),
+    dict(BASE, binning="tiered", tier_spec=((4, 0), (8, 2), (16, 6),
+                                            (32, 25), (64, 50))),
+    dict(BASE, binning="tiered", tier_spec=((64, 0),)),
+    dict(BASE, binning="packed"),
+    dict(BASE, binning="sort"),
+    dict(BASE, binning="tiered", tile_culling=False),
+])
+def test_binning_matches_jax(kw):
+    proj, cfg, jproj, jcfg = both(kw, scale_shift=0.5)
+    b = tbin.bin_gaussians(proj, cfg)
+    jb = jbin.bin_gaussians(jproj, jcfg)
+    assert not bool(b.overflow) and int(b.num_intersections) > 0
+    assert_binned_equal(b, jb)
+
+
+def test_sort_binning_orders_by_exact_depth():
+    proj, cfg, _, _ = both(dict(BASE, binning="sort"))
+    b = tbin.bin_gaussians(proj, cfg)
+    r = b.ranges.numpy()
+    depth = proj.depth.numpy()
+    for t in range(cfg.num_tiles):
+        gids = b.sorted_gid.numpy()[r[t]:r[t + 1]]
+        assert np.all(np.diff(depth[gids]) >= 0)
+
+
+def test_tiered_pool_budget_overflows_like_jax():
+    """An undersized pool budget must overflow in both packages with the
+    same totals. Which of the tied overflowing rows are dropped depends on
+    each package's unstable ranking sort, so ranges are not compared."""
+    kw = dict(BASE, binning="tiered", tier_spec=(2, 400, 400))
+    proj, cfg, jproj, jcfg = both(kw, scale_shift=0.8)
+    b = tbin.bin_gaussians(proj, cfg)
+    jb = jbin.bin_gaussians(jproj, jcfg)
+    assert bool(b.overflow)
+    assert_binned_equal(b, jb, exact_ranges=False)
+
+
+def test_capacity_overflow_like_jax():
+    kw = dict(BASE, binning="tiered", max_intersections=64)
+    proj, cfg, jproj, jcfg = both(kw)
+    b = tbin.bin_gaussians(proj, cfg)
+    jb = jbin.bin_gaussians(jproj, jcfg)
+    assert bool(b.overflow) and int(b.num_intersections) > 64
+    assert_binned_equal(b, jb)
+
+
+def test_gather_features_matches_jax():
+    kw = dict(BASE, binning="tiered")
+    proj, cfg, jproj, jcfg = both(kw)
+    b = tbin.bin_gaussians(proj, cfg)
+    feats = tbin.gather_features(proj, b, cfg)
+    assert feats.shape == (tbin.NUM_FEATURES, cfg.max_intersections)
+    np.testing.assert_allclose(
+        tbin.features_f32(proj, cfg).numpy(),
+        np.asarray(jbin.features_f32(jproj, jcfg)), rtol=1e-5, atol=1e-5,
+    )
+    # Slot s holds the features of Gaussian sorted_gid[s].
+    total = int(b.num_intersections)
+    want = tbin.features_f32(proj, cfg)[:, b.sorted_gid[:total].long()]
+    torch.testing.assert_close(feats[:, :total], want, rtol=0, atol=0)
+    # A -1 gid reads the zero column.
+    b.sorted_gid[:3] = -1
+    assert float(tbin.gather_features(proj, b, cfg)[:, :3].abs().max()) == 0.0
+
+
+def test_depth_keys_match_jax_u32_keys():
+    rng = np.random.default_rng(0)
+    depth = rng.uniform(0.2, 50.0, size=500).astype(np.float32)
+    tile = rng.integers(0, 2040, size=500).astype(np.int32)
+    got = tbin.pack_tile_depth_key(torch.from_numpy(tile),
+                                   torch.from_numpy(depth), 2040)
+    want = np.asarray(jbin.pack_tile_depth_key(jnp.asarray(tile),
+                                               jnp.asarray(depth), 2040))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    assert tbin.depth_bits_for(2040) == jbin.depth_bits_for(2040)
+    with pytest.raises(ValueError):
+        tbin.pack_tile_depth_key(torch.from_numpy(tile),
+                                 torch.from_numpy(depth), 1 << 21)
+
+
+@pytest.mark.parametrize("spec", [
+    (8, 5, 16), (4, 2, 8), (64, 5, 16),
+    ((4, 0), (8, 2), (16, 6), (32, 25), (64, 50)),
+    ((8, 0), (32, 4)), ((128, 0),),
+])
+def test_tier_plan_matches_jax(spec):
+    for kmax, n in ((64, 1000), (16, 10), (128, 1_000_000)):
+        assert tbin._normalize_tier_plan(spec, kmax, n) == \
+            jbin._normalize_tier_plan(spec, kmax, n)
+
+
+def test_rect_divmod_matches_jax():
+    k = np.arange(0, 2048, dtype=np.int32)[None, :]
+    w = np.arange(1, 70, dtype=np.int32)[:, None]
+    q, r = tbin._rect_divmod(torch.from_numpy(k), torch.from_numpy(w))
+    jq, jr = jbin._rect_divmod(jnp.asarray(k), jnp.asarray(w))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(r.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(q.numpy(), k // w)
+
+
+def test_scatter_binning_is_a_later_slice():
+    proj, cfg, _, _ = both(dict(BASE, binning="tiered"))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tbin.bin_gaussians(proj, dataclasses.replace(cfg, binning="scatter"))
