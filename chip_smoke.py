@@ -14,15 +14,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
      of pixels within 1e-4 on image and transmittance (the serial product
      and the log-domain cumsum round differently at the 1e-4 termination
      threshold); both timed;
-  5. golden: the JAX reference scene (tests/golden/scene_42_300.npz) through
-     both kernels, above 55 dB against tests/golden/render_64.npz;
-  6. main path, a server answering requests: `render` of the 1M-Gaussian
+  5. K2 blend backward on the same stream, with N(0, 1) upstream gradients
+     of image and transmittance: kernel (fed K1's outputs) against the plain
+     re-walk (fed the plain forward's), each feature row within 1e-3
+     relative L2 and >= 99.9% of the walked slots within rtol 2e-3 / atol
+     2e-4 (the JAX per-slot tolerance); the slots past the stream exactly 0;
+  6. K4 segmented suffix sum on K2's gradient stream sorted gid-major:
+     kernel against the plain doubling, |error| <= 1e-6 + 1e-5 times the
+     summed span's absolute sum (only the f32 addition order differs);
+  7. golden: the JAX reference scene (tests/golden/scene_42_300.npz) through
+     K3 and K1, above 55 dB against tests/golden/render_64.npz;
+  8. main path, a server answering requests: `render` of the 1M-Gaussian
      SH-3 scene at 1920x1080 (the bench config of bench.py, f32 stream) for
      four views, with the launch counts set to 0 just before and read just
      after; every frame has no overflow, intersections, a finite non-black
-     image, and both kernels launched.
-Then one JSON line of kernel numbers, and as the last line
-{"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero without.
+     image, and K3 and K1 launched;
+  9. main path, a trainer taking steps: the exact-gradient training step
+     (L1 + 0.2 DSSIM, Adam at lr 1e-2) from a copy of that scene whose SH DC
+     carries seeded noise, against renders of the scene itself at the four
+     views, one view per step; a round of warm-up steps, then three measured
+     rounds with the launch counts set to 0 just before and read just after;
+     every step has no overflow, finite gradients and a finite loss, the
+     last round's mean loss is below the first's, and all four kernels ran.
+ 10. golden gradients: `render_loss_and_grad` of the golden scene on the
+     card (K3, K1, K2, K4) against the port's plain path on the CPU, which
+     the CPU tests hold to JAX: every field within rtol 5e-3 / atol 1e-5;
+Then one JSON line of kernel numbers, each kernel with its launches on each
+main path (`launches` from the training path, `serve_launches` from the
+serving path), and as the last line {"ok": true, "device": {...}}. Needs one CUDA card; exits
+non-zero without.
 """
 
 from __future__ import annotations
@@ -54,6 +74,15 @@ CULL_OPS_PER_ROW = 5
 # offset, the quadratic and its test on every walked pair, about 15 more
 # (one exp) for the pairs that pass it -- about 20 on average.
 BLEND_OPS_PER_PAIR = 20
+# K2, as csrc/raster_bwd.cu counts them: 20 for every pair a pixel walks
+# (blend.cuh's eval_pair); 33 more for every pair it applies (w, dL/dw, the
+# prefix and da: 13; the 9 gradient terms: 11; their 9 adds into the pixel
+# sums); 7 per slot to chain the sums into the 9 feature gradients.
+BLEND_BWD_OPS_PER_WALKED = 20
+BLEND_BWD_OPS_PER_APPLIED = 33
+BLEND_BWD_OPS_PER_SLOT = 7
+# K4: one add per element (a reverse scan within each run).
+SEGSUM_OPS_PER_ELEMENT = 1
 
 BENCH = dict(
     width=1920, height=1080, tile_size=32, max_intersections=4_100_000,
@@ -64,6 +93,13 @@ BENCH = dict(
 GOLDEN = dict(width=64, height=64, tile_size=8, max_intersections=1 << 14,
               max_tiles_per_gaussian=64, block_size=8, max_per_tile=512)
 NUM_GAUSSIANS = 1_000_000
+# The training step's exact-f32 setting (bench.py --exact-grads).
+EXACT = dict(gather_backward="variadic", grad_readout="f32",
+             segment_sum="pallas", matmul_precision="highest")
+TRAIN_LR = 1e-2
+SSIM_WEIGHT = 0.2
+DC_NOISE = 0.2       # std of the seeded noise on the trained scene's SH DC
+TRAIN_ROUNDS = 4     # rounds of the four views: one warm-up, three measured
 
 
 def log(msg: str) -> None:
@@ -122,6 +158,35 @@ def views(width: int, height: int, device):
     return cams
 
 
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time the card needs for the work, in ms, and what sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def make_trainer(scene, cams, cfg, dev):
+    """The training main path: targets rendered from `scene` at `cams`, a
+    trained copy of `scene` whose SH DC carries seeded noise, and its train
+    step. Returns (trained scene, targets (V, H, W, 3), step)."""
+    import dataclasses
+
+    import torch
+
+    from gsplat_tpu_torch import GaussianScene, render
+    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+
+    with torch.no_grad():
+        targets = torch.stack([render(scene, cam, cfg).image for cam in cams])
+    train = GaussianScene(**{f.name: getattr(scene, f.name).detach().clone()
+                             for f in dataclasses.fields(scene)})
+    gen = torch.Generator(device=dev).manual_seed(2)
+    train.sh[:, 0, :] += DC_NOISE * torch.randn(
+        train.sh[:, 0, :].shape, generator=gen, device=dev)
+    opt = make_optimizer(train, TRAIN_LR)
+    return train, targets, make_train_step(cfg, opt, ssim_weight=SSIM_WEIGHT)
+
+
 def main() -> int:
     # Drive one card, so that the device count reported is the one used.
     visible = os.environ.get("CUDA_VISIBLE_DEVICES", "0")
@@ -132,23 +197,31 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    return run(torch.device("cuda", 0))
+
+
+def run(dev) -> int:
+    """Every phase on `dev`, the card."""
+    import torch
+
     sys.path.insert(0, HERE)
-    from gsplat_tpu_torch import RenderConfig, random_scene, render
+    from gsplat_tpu_torch import Camera, RenderConfig, random_scene, render
     from gsplat_tpu_torch.convert import scene_from_numpy
     from gsplat_tpu_torch.ops import binning
-    from gsplat_tpu_torch.ops.camera import Camera
-    from gsplat_tpu_torch.ops.cuda import _build, cull, raster
+    from gsplat_tpu_torch.ops.cuda import _build, cull, raster, segsum
     from gsplat_tpu_torch.ops.projection import project_gaussians
     from gsplat_tpu_torch.ops.raster_torch import (
+        _image_to_tiles,
         _raster_tiles,
+        _raster_tiles_bwd_walk,
         _tiles_to_image,
         _tiles_to_scalar_image,
     )
+    from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS, render_loss_and_grad
 
     # The plain versions contract in full float32 (no TF32 anywhere).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda", 0)
 
     # 1. Device.
     card = gpu_line()
@@ -189,18 +262,16 @@ def main() -> int:
     ms_p = cuda_ms(lambda: cull.cull_mask_plain(params, kmax, cfg.tile_size), 5)
     cull_bytes = params.numel() * 4 + lanes
     cull_ops = lanes * CULL_OPS_PER_LANE + params.shape[1] * CULL_OPS_PER_ROW
-    t_bytes = cull_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = cull_ops / FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = bound(cull_bytes, cull_ops)
     kernels["cull"] = dict(
         name="cull", route="cuda", source="gsplat_tpu_torch/csrc/cull.cu",
         replaces="gsplat_tpu/ops/pallas/cull.py:31", launches=None,
         max_abs_err=float((mask_k.float() - mask_p.float()).abs().max()),
-        ms=ms_k, plain_ms=ms_p, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,
     )
-    log(f"[K3] kernel {ms_k} ms, plain {ms_p} ms, bound {max(t_bytes, t_ops)} "
-        f"ms ({cull_bytes} B -> {t_bytes} ms, {cull_ops} ops -> {t_ops} ms)")
+    log(f"[K3] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms} ms "
+        f"({cull_bytes} B, {cull_ops} ops, {bound_by})")
     del mask_k, mask_p
 
     # 4. K1 blend at the bench shape, on the port's own binned stream.
@@ -233,25 +304,109 @@ def main() -> int:
     blend_bytes = (total * features.shape[0] * 4 + ranges.numel() * 4
                    + (col_k.numel() + tr_k.numel()) * 4)
     blend_ops = int(pairs) * BLEND_OPS_PER_PAIR
-    t_bytes = blend_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = blend_ops / FP32_OPS_PER_S * 1e3
+    bound_ms, bound_by = bound(blend_bytes, blend_ops)
     kernels["raster_fwd"] = dict(
         name="raster_fwd", route="cuda",
         source="gsplat_tpu_torch/csrc/raster_fwd.cu",
         replaces="gsplat_tpu/ops/pallas/raster.py:143", launches=None,
         max_abs_err=max(float(err_img.max()), float(err_t.max())),
-        ms=ms_k, plain_ms=ms_p, bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,
     )
-    log(f"[K1] kernel {ms_k} ms, plain {ms_p} ms, bound {max(t_bytes, t_ops)} "
-        f"ms ({blend_bytes} B -> {t_bytes} ms, {blend_ops} ops -> {t_ops} ms)")
-    del col_p, tr_p, img_p, t_p, features, binned, proj, params
+    log(f"[K1] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms} ms "
+        f"({blend_bytes} B, {blend_ops} ops, {bound_by})")
+    del img_p, t_p, err_img, err_t
 
-    # 5. Golden: the JAX reference scene through both kernels.
+    # 5. K2 blend backward on the same stream.
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g_image = torch.randn((cfg.height, cfg.width, 3), generator=gen, device=dev)
+    g_trans = torch.randn((cfg.height, cfg.width), generator=gen, device=dev)
+    g_col = _image_to_tiles(g_image, cfg)
+    g_tt = _image_to_tiles(g_trans[..., None], cfg)[:, 0]
+    b_k = ((g_col * col_k).sum(1) + g_tt * tr_k).contiguous()
+    b_p = (g_col * col_p).sum(1) + g_tt * tr_p
+    d_k = raster.raster_bwd_cuda(features, ranges, g_col, b_k, cfg)
+    d_p, applied = _raster_tiles_bwd_walk(features, ranges, 0, g_col,
+                                          b_p[..., None], cfg)
+    torch.cuda.synchronize()
+    walked_k, walked_p = d_k[:, :total], d_p[:, :total]
+    rel = ((walked_k - walked_p).norm(dim=1)
+           / walked_p.norm(dim=1).clamp_min(1e-30)).tolist()
+    err = (walked_k - walked_p).abs()
+    within = float((err <= 2e-4 + 2e-3 * walked_p.abs()).float().mean())
+    tail_zero = bool((d_k[:, total:] == 0).all())
+    log(f"[K2] {int(applied)} pixel-Gaussian pairs applied; relative L2 "
+        f"error per feature row {rel}, within rtol 2e-3 / atol 2e-4: "
+        f"{within}, max abs err {float(err.max())}, slots past the stream "
+        f"exactly 0: {tail_zero}")
+    if not (max(rel) <= 1e-3 and within >= 0.999 and tail_zero):
+        raise SystemExit("K2: kernel outside the stated tolerance of the "
+                         "plain version")
+    ms_k = cuda_ms(lambda: raster.raster_bwd_cuda(features, ranges, g_col,
+                                                  b_k, cfg), 20)
+    # The plain re-walk takes seconds at this shape and has just run above.
+    ms_p = cuda_ms(lambda: _raster_tiles_bwd_walk(features, ranges, 0, g_col,
+                                                  b_p[..., None], cfg), 1,
+                   warmup=False)
+    rbwd_bytes = (total * features.shape[0] * 4 + features.numel() * 4
+                  + (g_col.numel() + b_k.numel() + ranges.numel()) * 4)
+    rbwd_ops = (int(pairs) * BLEND_BWD_OPS_PER_WALKED
+                + int(applied) * BLEND_BWD_OPS_PER_APPLIED
+                + total * BLEND_BWD_OPS_PER_SLOT)
+    bound_ms, bound_by = bound(rbwd_bytes, rbwd_ops)
+    kernels["raster_bwd"] = dict(
+        name="raster_bwd", route="cuda",
+        source="gsplat_tpu_torch/csrc/raster_bwd.cu",
+        replaces="gsplat_tpu/ops/pallas/raster.py:214", launches=None,
+        max_abs_err=float(err.max()), ms=ms_k, plain_ms=ms_p,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+    )
+    log(f"[K2] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms} ms "
+        f"({rbwd_bytes} B, {rbwd_ops} ops, {bound_by})")
+    del d_p, col_p, tr_p, err, walked_p
+
+    # 6. K4 on K2's gradient stream, sorted gid-major as the gather
+    # backward sorts it.
+    key = torch.where(binned.sorted_gidk >= 0, binned.sorted_gidk, 2**31 - 1)
+    s_key, perm = torch.sort(key)
+    x = d_k.index_select(1, perm).contiguous()
+    rows = (s_key >> binning._kbits(binning.kmax_eff(cfg))).to(torch.int32)
+    kmax_s = binning.kmax_eff(cfg)
+    sum_k = segsum.segmented_suffix_sum_cuda(x, rows, kmax_s)
+    sum_p = segsum.segmented_suffix_sum_plain(x, rows, kmax_s)
+    scale = segsum.segmented_suffix_sum_plain(x.abs(), rows, kmax_s)
+    torch.cuda.synchronize()
+    err = (sum_k - sum_p).abs()
+    seg_ok = bool((err <= 1e-6 + 1e-5 * scale).all())
+    plain_tol = float((err <= 1e-6 + 1e-5 * sum_p.abs()).float().mean())
+    log(f"[K4] {x.shape[1]} slots, max abs err {float(err.max())}, max "
+        f"err / span abs sum {float((err / scale.clamp_min(1e-30)).max())}, "
+        f"within 1e-6 + 1e-5 span abs sum: {seg_ok}; share within rtol "
+        f"1e-5 / atol 1e-6 of the value: {plain_tol}")
+    if not seg_ok:
+        raise SystemExit("K4: kernel outside the stated tolerance of the "
+                         "plain version")
+    ms_k = cuda_ms(lambda: segsum.segmented_suffix_sum_cuda(x, rows, kmax_s), 20)
+    ms_p = cuda_ms(lambda: segsum.segmented_suffix_sum_plain(x, rows, kmax_s), 5)
+    seg_bytes = (x.numel() + rows.numel() + sum_k.numel()) * 4
+    seg_ops = x.numel() * SEGSUM_OPS_PER_ELEMENT
+    bound_ms, bound_by = bound(seg_bytes, seg_ops)
+    kernels["segsum"] = dict(
+        name="segsum", route="cuda", source="gsplat_tpu_torch/csrc/segsum.cu",
+        replaces="gsplat_tpu/ops/pallas/segsum.py:41", launches=None,
+        max_abs_err=float(err.max()), ms=ms_k, plain_ms=ms_p,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+    )
+    log(f"[K4] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms} ms "
+        f"({seg_bytes} B, {seg_ops} ops, {bound_by})")
+    del x, rows, sum_k, sum_p, scale, err, d_k, features, binned, proj, params
+    del col_k, tr_k, g_col, b_k
+
+    # 7. Golden: the JAX reference scene through K3 and K1.
     gdir = os.path.join(HERE, "tests", "golden")
     with np.load(os.path.join(gdir, "scene_42_300.npz")) as d:
-        gscene = scene_from_numpy(**{k: d[k] for k in d.files}, device=dev)
+        gnp = {k: d[k] for k in d.files}
+    gscene = scene_from_numpy(**gnp, device=dev)
     with np.load(os.path.join(gdir, "render_64.npz")) as d:
         golden = d["image"].astype(np.float32)
     before = (cull.launches, raster.launches)
@@ -264,9 +419,9 @@ def main() -> int:
             and raster.launches > before[1]):
         raise SystemExit("golden: render below 55 dB or not through the kernels")
 
-    # 6. Main path: a server answering requests for four views.
-    cull.launches = 0
-    raster.launches = 0
+    # 8. Main path: a server answering requests for four views.
+    cull.launches = raster.launches = raster.bwd_launches = 0
+    segsum.launches = 0
     frame_ms = []
     frames = 0
     for rep in range(4):  # repetition 0 is the warm-up
@@ -291,16 +446,82 @@ def main() -> int:
                 frame_ms.append(dt)
             if not ok:
                 raise SystemExit(f"main: view {i} failed its checks")
-    launches = {"cull": cull.launches, "raster_fwd": raster.launches}
-    log(f"[main] {frames} frames, launches {launches}")
-    if min(launches.values()) == 0:
+    serve = {"cull": cull.launches, "raster_fwd": raster.launches,
+             "raster_bwd": raster.bwd_launches, "segsum": segsum.launches}
+    log(f"[main] {frames} frames, launches {serve}")
+    if min(serve["cull"], serve["raster_fwd"]) == 0:
         raise SystemExit("main: a kernel of the path was never launched")
     log(f"[main] median {statistics.median(frame_ms)} ms per frame over "
         f"{len(frame_ms)} frames (min {min(frame_ms)}, max {max(frame_ms)}) "
         f"at {cfg.width}x{cfg.height}, {NUM_GAUSSIANS} Gaussians, on {card}")
 
+    # 9. Main path: a trainer taking steps, one view per step.
+    tcfg = RenderConfig(**BENCH, **EXACT)
+    train, targets, step = make_trainer(scene, cams, tcfg, dev)
+    step_ms, losses = [], []
+    warmup = len(cams)
+    for i in range(TRAIN_ROUNDS * len(cams)):
+        if i == warmup:
+            cull.launches = raster.launches = raster.bwd_launches = 0
+            segsum.launches = 0
+        v = i % len(cams)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, aux, (tap, visible) = step(train, [cams[v]], targets[v : v + 1])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        losses.append(float(loss))
+        if i >= warmup:
+            step_ms.append(dt)
+        log(f"[train] step {i} view {v}: loss {losses[-1]}, "
+            f"{int(aux['num_intersections'])} intersections, overflow "
+            f"{bool(aux['overflow'])}, grads finite {bool(aux['grads_finite'])}"
+            f", {int(visible.sum())} visible, {dt} ms")
+        if bool(aux["overflow"]) or not bool(aux["grads_finite"]) or \
+                not np.isfinite(losses[-1]):
+            raise SystemExit(f"train: step {i} overflowed or went non-finite")
+    launches = {"cull": cull.launches, "raster_fwd": raster.launches,
+                "raster_bwd": raster.bwd_launches, "segsum": segsum.launches}
+    rounds = [statistics.mean(losses[r * len(cams) : (r + 1) * len(cams)])
+              for r in range(TRAIN_ROUNDS)]
+    log(f"[train] {len(step_ms)} measured steps, launches {launches}, mean "
+        f"loss per round {rounds}")
+    if min(launches.values()) == 0:
+        raise SystemExit("train: a kernel of the path was never launched")
+    if not rounds[-1] < rounds[0]:
+        raise SystemExit("train: the loss did not fall")
+    log(f"[train] median {statistics.median(step_ms)} ms per step over "
+        f"{len(step_ms)} steps (min {min(step_ms)}, max {max(step_ms)}) at "
+        f"{cfg.width}x{cfg.height}, {NUM_GAUSSIANS} Gaussians, on {card}")
+
+    # 10. Golden gradients: the card's four kernels against the CPU plain
+    # path (last, so that its CPU threads do not share the host with the
+    # main paths' timing).
+    gcfg = RenderConfig(**GOLDEN, **EXACT)
+    target = np.random.default_rng(0).uniform(size=(64, 64, 3)).astype(np.float32)
+    before = (raster.bwd_launches, segsum.launches)
+    results = []
+    for d in (dev, torch.device("cpu")):
+        loss_d, g_d = render_loss_and_grad(
+            scene_from_numpy(**gnp, device=d), Camera.default(64, 64, device=d),
+            torch.from_numpy(target).to(d), gcfg)
+        results.append((float(loss_d), {f: getattr(g_d, f).cpu().numpy()
+                                        for f in SCENE_FIELDS}))
+    rose = (raster.bwd_launches > before[0], segsum.launches > before[1])
+    worst = {}
+    for f in SCENE_FIELDS:
+        a, b = results[0][1][f], results[1][1][f]
+        worst[f] = float((np.abs(a - b) / (1e-5 + 5e-3 * np.abs(b))).max())
+    log(f"[golden-grad] loss card {results[0][0]} cpu {results[1][0]}; worst "
+        f"|error| / (1e-5 + 5e-3 |cpu|) per field {worst}; K2, K4 launched "
+        f"{rose}")
+    if not (max(worst.values()) <= 1.0 and all(rose)):
+        raise SystemExit("golden gradients: card outside rtol 5e-3 / atol "
+                         "1e-5 of the CPU path, or not through K2 and K4")
+
     for name, n in launches.items():
         kernels[name]["launches"] = n
+        kernels[name]["serve_launches"] = serve[name]
     log(card)
     log(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,12 @@ kernels become CUDA C++ kernels for sm_90a in `csrc/`, built on first use
 (`ops/cuda/_build.py`). Entry points default to `device="cuda"`; a kernel
 wrapper runs its plain PyTorch version only for a CPU tensor.
 
-This slice: the forward render (projection, SH, tiered binning through the
-cull kernel, gather, per-tile blend kernel). Training, the packed streams,
-I/O and multi-GPU come in later slices.
+Ported so far: the forward render (projection, SH, tiered binning through
+the cull kernel K3, gather, per-tile blend kernel K1) and the single-device
+training step (`train.loop.make_train_step`: the blend backward K2, the
+gather's sort-based backward with the segmented-suffix-sum kernel K4, L1 +
+DSSIM, Adam). The packed streams, densification, I/O and multi-GPU come in
+later slices.
 """
 
 from gsplat_tpu_torch.config import RenderConfig

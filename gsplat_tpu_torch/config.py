@@ -70,10 +70,12 @@ class RenderConfig:
     pallas_block_size: int = 256
     # Optional per-tile segment alignment of the sorted stream (0/1 = off).
     stream_align: int = 0
-    # Training-path options (a later slice of the port); validated here so
-    # a config means the same thing in both packages.
+    # Training-path options, validated here so a config means the same thing
+    # in both packages; the 'bf16' gradient paths are a later slice.
     gather_backward: str = "variadic"
     grad_readout: str = "f32"
+    # 'doubling' and 'pallas' are one path in the port: kernel K4 on the
+    # card, its plain version on the CPU (see `ops.binning.gather_slots_bwd`).
     segment_sum: str = "doubling"
     fragment_format: str = "f32"
     matmul_precision: str = "highest"

@@ -1,8 +1,12 @@
 """Carry state across from the JAX package: plain numpy arrays in (e.g.
 `np.asarray` of each leaf of a `gsplat_tpu` GaussianScene or Camera), port
-tensors out, so both packages compute on the same parameters."""
+tensors out, so both packages compute on the same parameters; and a scene's
+tensors back out as numpy, so that both packages' results can be
+compared."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -25,6 +29,12 @@ def scene_from_numpy(means, log_scales, quats, opacity_logits, sh,
         opacity_logits=_tensor(opacity_logits, device),
         sh=_tensor(sh, device),
     )
+
+
+def scene_to_numpy(scene: GaussianScene) -> dict[str, np.ndarray]:
+    """{field: float32 array} of a scene, on the host, detached."""
+    return {f.name: getattr(scene, f.name).detach().cpu().numpy()
+            for f in dataclasses.fields(scene)}
 
 
 def camera_from_numpy(view, proj, full_proj, cam_pos, focal, tan_fov, znear,

@@ -8,7 +8,8 @@
 //   alpha = min(0.99, op * exp(min(power, 0))), skip unless alpha >= 1/255;
 //   stop the pixel for good when T (1 - alpha) < 1e-4, that Gaussian
 //   excluded; else C += c alpha T, T *= 1 - alpha.
-// It writes per tile the colour (3, P) and the final transmittance (P).
+// It writes per tile the colour (3, P) and the final transmittance (P). The
+// pair arithmetic is blend.cuh's eval_pair, shared with the backward K2.
 //
 // What bounds it on an H100: arithmetic. Each (pixel, Gaussian) pair the
 // data needs costs about 20 FP32 operations and one exp, against one read of
@@ -28,17 +29,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blend.cuh"
+
 namespace {
 
-constexpr int kFeatures = 9;
-enum { F_GX, F_GY, F_CA, F_CB, F_CC, F_R, F_G, F_B, F_OP };
+using namespace gsplat;
 
 __global__ void raster_fwd_kernel(const float* __restrict__ feat,
                                   int64_t max_i,
                                   const int32_t* __restrict__ ranges,
                                   int tile_offset, int tiles_x, int ts,
-                                  float alpha_clamp, float alpha_min,
-                                  float t_min, float* __restrict__ out_color,
+                                  BlendParams bp, float* __restrict__ out_color,
                                   float* __restrict__ out_trans) {
   extern __shared__ float smem[];  // kFeatures rows of blockDim.x Gaussians
   const int p = blockDim.x;  // pixels per tile = Gaussians per batch
@@ -72,8 +73,8 @@ __global__ void raster_fwd_kernel(const float* __restrict__ feat,
     const int n = min(p, end - b0);
     if (lin < n) {
       const int64_t s = (int64_t)b0 + lin;
-      s_gxr[lin] = feat[F_GX * max_i + s] - ox;
-      s_gyr[lin] = feat[F_GY * max_i + s] - oy;
+      s_gxr[lin] = __fsub_rn(feat[F_GX * max_i + s], ox);
+      s_gyr[lin] = __fsub_rn(feat[F_GY * max_i + s], oy);
       s_a[lin] = feat[F_CA * max_i + s];
       s_b[lin] = feat[F_CB * max_i + s];
       s_c[lin] = feat[F_CC * max_i + s];
@@ -85,23 +86,19 @@ __global__ void raster_fwd_kernel(const float* __restrict__ feat,
     __syncthreads();
     if (done) continue;
     for (int j = 0; j < n; ++j) {
-      const float dx = xr - s_gxr[j];
-      const float dy = yr - s_gyr[j];
-      const float power =
-          -0.5f * (s_a[j] * dx * dx + s_c[j] * dy * dy) - s_b[j] * dx * dy;
-      if (!(power <= 0.f)) continue;  // also skips a NaN power
-      const float alpha = fminf(alpha_clamp, s_op[j] * expf(fminf(power, 0.f)));
-      if (!(alpha >= alpha_min)) continue;
-      const float test_t = trans * (1.f - alpha);
-      if (test_t < t_min) {
+      Pair pr;
+      const int outcome = eval_pair(xr, yr, s_gxr[j], s_gyr[j], s_a[j],
+                                    s_b[j], s_c[j], s_op[j], trans, bp, pr);
+      if (outcome == kSkip) continue;
+      if (outcome == kStop) {
         done = 1;
         break;
       }
-      const float w = alpha * trans;
-      c0 += s_r[j] * w;
-      c1 += s_g[j] * w;
-      c2 += s_bl[j] * w;
-      trans = test_t;
+      const float w = __fmul_rn(pr.alpha, trans);
+      c0 = __fadd_rn(c0, __fmul_rn(s_r[j], w));
+      c1 = __fadd_rn(c1, __fmul_rn(s_g[j], w));
+      c2 = __fadd_rn(c2, __fmul_rn(s_bl[j], w));
+      trans = pr.test_t;
     }
   }
   float* col = out_color + (int64_t)t * 3 * p;
@@ -121,10 +118,11 @@ extern "C" int gsplat_raster_fwd(const float* feat, int64_t max_i,
                                  float* out_trans, void* stream) {
   const int p = tile_size * tile_size;
   if (num_tiles > 0) {
-    const size_t smem = (size_t)kFeatures * p * sizeof(float);
+    const size_t smem = (size_t)gsplat::kFeatures * p * sizeof(float);
     raster_fwd_kernel<<<num_tiles, p, smem, (cudaStream_t)stream>>>(
-        feat, max_i, ranges, tile_offset, tiles_x, tile_size, alpha_clamp,
-        alpha_min, t_min, out_color, out_trans);
+        feat, max_i, ranges, tile_offset, tiles_x, tile_size,
+        gsplat::BlendParams{alpha_clamp, alpha_min, t_min}, out_color,
+        out_trans);
   }
   return (int)cudaGetLastError();
 }

@@ -1,18 +1,24 @@
-"""Tile binning, forward subset: duplicate Gaussians per covered tile, order
-by (tile, depth), compute per-tile ranges, gather the sorted feature stream.
+"""Tile binning: duplicate Gaussians per covered tile, order by (tile,
+depth), compute per-tile ranges, gather the sorted feature stream, and the
+gather's scatter-free backward.
 
 Port of `gsplat_tpu.ops.binning` for `binning='tiered'` (the production
 mode), with `'packed'` and `'sort'` as oracles. The exact ellipse-tile cull
-runs through kernel K3 (`ops/cuda/cull.py`). Differences from the JAX
-package:
+runs through kernel K3 (`ops/cuda/cull.py`), the backward's segmented
+suffix sum through kernel K4 (`ops/cuda/segsum.py`). Differences from the
+JAX package:
 
   - Keys are int64 with the values of the JAX u32 keys
     (`tile << depth_bits | depth_q`, sentinel 0xFFFFFFFF), because PyTorch's
     uint32 sort support on CUDA is not to be relied on.
   - Sorts are `torch.sort(stable=False)` and ranges `torch.searchsorted`:
     plain XLA ops in the JAX package, library calls here.
+  - The gather backward's strategies 'variadic', 'permute' and 'c64' are
+    one code path here (see `_GatherSlots`), and so are its segment sums
+    'doubling' and 'pallas' (see `gather_slots_bwd`).
   - Not yet ported: `'scatter'` binning, `_align_stream`, the jumbo tiers,
-    shard-local tile ranges and the gather's scatter-free backward.
+    shard-local tile ranges, and the bf16 gradient paths
+    (`gather_backward='bf16'`, `grad_readout='bf16'`).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from gsplat_tpu_torch.config import RenderConfig
 from gsplat_tpu_torch.ops.cuda.cull import tile_cull_mask
+from gsplat_tpu_torch.ops.cuda.segsum import segmented_suffix_sum
 from gsplat_tpu_torch.ops.projection import ProjectedGaussians
 
 # Feature-row indices of the gathered sorted stream (F, max_intersections).
@@ -62,6 +69,9 @@ class BinnedGaussians:
     overflow: torch.Tensor      # () bool: capacity, K_max or a pool exceeded
     sorted_gidk: torch.Tensor   # (max_I,) int32 gid << kbits | k (-1 = padding)
     gauss_counts: torch.Tensor  # (N,) int32 surviving candidates per Gaussian
+    gauss_offsets: torch.Tensor  # (N,) int32 exclusive cumsum of gauss_counts:
+    #                            #   where each Gaussian's run starts in the
+    #                            #   gid-major order of the gather backward
 
 
 def _rect_divmod(k: torch.Tensor, w: torch.Tensor):
@@ -308,6 +318,7 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussian
         overflow=overflow,
         sorted_gidk=s_gidk,
         gauss_counts=gcounts,
+        gauss_offsets=(torch.cumsum(gcounts, 0) - gcounts).to(torch.int32),
     )
 
 
@@ -332,9 +343,71 @@ def features_f32(proj: ProjectedGaussians, cfg: RenderConfig) -> torch.Tensor:
 def gather_features(proj: ProjectedGaussians, binned: BinnedGaussians,
                     cfg: RenderConfig) -> torch.Tensor:
     """(NUM_FEATURES, max_intersections) float32 features in sorted-stream
-    order (forward only). Slots with gid -1 read an appended zero column."""
+    order. Slots with gid -1 read an appended zero column. Differentiable:
+    the backward is `_GatherSlots`'s sort and segmented suffix sum, not a
+    scatter-add."""
     feats = features_f32(proj, cfg)
-    n = feats.shape[1]
-    feats_pad = torch.cat([feats, feats.new_zeros((feats.shape[0], 1))], 1)
-    gid = torch.where(binned.sorted_gid < 0, n, binned.sorted_gid)
-    return feats_pad.index_select(1, gid.to(torch.int64)).contiguous()
+    if feats.requires_grad and torch.is_grad_enabled() and (
+        cfg.gather_backward == "bf16" or cfg.grad_readout == "bf16"
+    ):
+        raise NotImplementedError(
+            "gather_backward='bf16' and grad_readout='bf16' come with slice 3 "
+            "of the port (the packed streams and kernel K5); use "
+            "'variadic'/'permute'/'c64' with grad_readout='f32'"
+        )
+    return _GatherSlots.apply(
+        feats, binned.sorted_gid, binned.sorted_gidk, binned.gauss_offsets,
+        binned.gauss_counts, kmax_eff(cfg),
+    )
+
+
+def gather_slots_bwd(dslot, gidk, offsets, counts, kmax: int) -> torch.Tensor:
+    """Slot gradients (F, M) -> per-Gaussian gradients (F, N), with no
+    scatter (port of `gsplat_tpu.ops.binning._gather_slots_bwd`):
+      1. sort the keys gidk (invalid slots last, as 2**31 - 1) and carry the
+         slot gradients along, so each Gaussian's slots form one run;
+      2. segmented suffix sum, so every run's total lands on its first
+         slot: kernel K4 for a CUDA tensor, the plain doubling for a CPU
+         one. The JAX package's segment_sum 'doubling' and 'pallas' sum
+         the same slots (K4 walks exactly the doubling's reach), so here
+         they are one path and `cfg.segment_sum` selects nothing;
+      3. read the run starts at gauss_offsets, zero for Gaussians with no
+         slot.
+    Needs every valid candidate in the stream, which holds whenever the
+    overflow flag is clear."""
+    m = gidk.shape[0]
+    key = torch.where(gidk >= 0, gidk, 2**31 - 1)
+    # Valid keys are unique, so an unstable sort gives the same runs.
+    s_key, perm = torch.sort(key, stable=False)
+    x = dslot.index_select(1, perm).contiguous()
+    rows = (s_key >> _kbits(kmax)).to(torch.int32)
+    x = segmented_suffix_sum(x, rows, kmax)
+    offs = torch.clamp(offsets, 0, m - 1).to(torch.int64)
+    return x.index_select(1, offs) * (counts > 0)[None, :].to(x.dtype)
+
+
+class _GatherSlots(torch.autograd.Function):
+    """Gather per-Gaussian features into slot order; its backward is
+    `gather_slots_bwd`. The JAX package's gather_backward strategies
+    'variadic' (one variadic sort carrying the rows), 'permute' (sort, then
+    one 2-D take) and 'c64' (rows paired into complex sort values) differ
+    only in how XLA moves the rows through its sort; all three compute the
+    same f32 numbers, and here they are one path: a key sort, then one
+    permutation gather."""
+
+    @staticmethod
+    def forward(ctx, feats, gid, gidk, offsets, counts, kmax):
+        n = feats.shape[1]
+        feats_pad = torch.cat([feats, feats.new_zeros((feats.shape[0], 1))], 1)
+        g = torch.where(gid < 0, n, gid).to(torch.int64)
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(gidk, offsets, counts)
+            ctx.kmax = kmax
+        return feats_pad.index_select(1, g).contiguous()
+
+    @staticmethod
+    def backward(ctx, dslot):
+        gidk, offsets, counts = ctx.saved_tensors
+        dgauss = gather_slots_bwd(dslot.contiguous(), gidk, offsets, counts,
+                                  ctx.kmax)
+        return dgauss, None, None, None, None, None

@@ -1,4 +1,4 @@
-"""Plain PyTorch rasterizers (forward), the port of `gsplat_tpu.ops.raster_jnp`.
+"""Plain PyTorch rasterizers, the port of `gsplat_tpu.ops.raster_jnp`.
 
   - `_raster_tiles`: the tiled walk of the sorted stream, all tiles at once
     as a batch dimension, one block of cfg.block_size Gaussians per step.
@@ -6,6 +6,10 @@
     JAX walk, which stops at cfg.max_per_tile, it walks to the longest
     segment actually present (a host read of `ranges`): the kernel has no
     per-tile cap either.
+  - `_raster_tiles_bwd_walk`: the analytic backward, a forward re-walk with
+    the suffix-sum identity (`ops/blend.py::blend_block_bwd`), batched over
+    tiles like the forward. It is the plain version of kernel K2
+    (`ops/cuda/raster.py`) and walks as far as the forward does.
   - `rasterize_dense_oracle`: per-pixel walk over all depth-sorted Gaussians
     with each Gaussian restricted to the tiles of its rect. O(N * H * W);
     tests only.
@@ -16,7 +20,13 @@ from __future__ import annotations
 import torch
 
 from gsplat_tpu_torch.config import RenderConfig, cdiv
-from gsplat_tpu_torch.ops.blend import blend_block, init_carry, tile_pixel_coords
+from gsplat_tpu_torch.ops.binning import NUM_FEATURES
+from gsplat_tpu_torch.ops.blend import (
+    blend_block,
+    blend_block_bwd,
+    init_carry,
+    tile_pixel_coords,
+)
 
 
 def _tiles_to_image(tile_colors: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
@@ -34,6 +44,18 @@ def _tiles_to_scalar_image(tile_vals: torch.Tensor, cfg: RenderConfig) -> torch.
     x = tile_vals.reshape(cfg.tiles_y, cfg.tiles_x, ts, ts)
     x = x.permute(0, 2, 1, 3).reshape(cfg.padded_height, cfg.padded_width)
     return x[: cfg.height, : cfg.width]
+
+
+def _image_to_tiles(img: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """(H, W, C) -> (T, C, P): the inverse of _tiles_to_image, zero on the
+    ragged edge tiles' padding."""
+    ts = cfg.tile_size
+    c = img.shape[-1]
+    padded = img.new_zeros((cfg.padded_height, cfg.padded_width, c))
+    padded[: cfg.height, : cfg.width] = img
+    x = padded.reshape(cfg.tiles_y, ts, cfg.tiles_x, ts, c)
+    x = x.permute(0, 2, 4, 1, 3)  # (ty, tx, c, py, px)
+    return x.reshape(cfg.num_tiles, c, cfg.pixels_per_tile).contiguous()
 
 
 def _raster_tiles(features, ranges, tile_offset, cfg: RenderConfig):
@@ -62,6 +84,44 @@ def _raster_tiles(features, ranges, tile_offset, cfg: RenderConfig):
         )
         pairs += walked
     return carry.color, carry.trans[..., 0], pairs
+
+
+def _raster_tiles_bwd_walk(features, ranges, tile_offset, g_color_tiles,
+                           b_total_tiles, cfg: RenderConfig):
+    """Analytic backward of `_raster_tiles`: g_color_tiles (T, 3, P) and
+    b_total_tiles (T, P, 1) -> (dfeat (NUM_FEATURES, max_I), applied).
+    Slots outside every tile's segment, and slots no pixel reached, get
+    exactly 0. `applied` is the () int64 count of (pixel, Gaussian) pairs
+    with a nonzero weight: the pairs whose gradient terms the data needs."""
+    dev = features.device
+    max_i = features.shape[1]
+    num_tiles = ranges.shape[0] - 1
+    g = cfg.block_size
+    start = ranges[:-1].long()[:, None]
+    end = ranges[1:].long()[:, None]
+    longest = int((end - start).max()) if num_tiles else 0
+    px, py = tile_pixel_coords(
+        torch.arange(num_tiles, device=dev) + tile_offset, cfg
+    )
+    carry = init_carry(cfg.pixels_per_tile, (num_tiles,), dev)
+    accum_b = torch.zeros((num_tiles, cfg.pixels_per_tile, 1), device=dev)
+    # Column max_i takes the out-of-range lanes and is dropped.
+    dfeat = torch.zeros((NUM_FEATURES, max_i + 1), device=dev)
+    applied = torch.zeros((), dtype=torch.int64, device=dev)
+    lane = torch.arange(g, device=dev)[None, :]
+    for i in range(cdiv(longest, g)):
+        idx = start + i * g + lane                      # (T, G)
+        in_range = idx < end
+        feat = features[:, idx.clamp(0, max_i - 1)]     # (F, T, G)
+        d, carry, accum_b, n = blend_block_bwd(
+            carry, feat.permute(1, 0, 2), px, py, in_range[:, None, :],
+            g_color_tiles, b_total_tiles, accum_b, cfg,
+        )
+        applied += n
+        # Tile segments are disjoint: one scatter-set per block.
+        slot = torch.where(in_range, idx, max_i).reshape(-1)
+        dfeat[:, slot] = d.permute(1, 0, 2).reshape(NUM_FEATURES, -1)
+    return dfeat[:, :max_i], applied
 
 
 def rasterize_dense_oracle(proj, cfg: RenderConfig):

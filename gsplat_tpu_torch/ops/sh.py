@@ -35,31 +35,35 @@ def eval_sh(sh: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
             f"Scene has {sh.shape[-2]} SH coeffs; degree {degree} needs {(degree + 1) ** 2}"
         )
 
-    result = SH_C0 * sh[..., 0, :]
+    # One unbind, not a select per coefficient: the backward of each select
+    # would zero-fill and add a gradient the size of all of `sh`, where
+    # unbind's backward stacks the coefficients' gradients once.
+    c = sh.unbind(-2)
+    result = SH_C0 * c[0]
     if degree >= 1:
         x = dirs[..., 0:1]
         y = dirs[..., 1:2]
         z = dirs[..., 2:3]
-        result = result + SH_C1 * (-y * sh[..., 1, :] + z * sh[..., 2, :] - x * sh[..., 3, :])
+        result = result + SH_C1 * (-y * c[1] + z * c[2] - x * c[3])
     if degree >= 2:
         xx, yy, zz = x * x, y * y, z * z
         xy, xz, yz = x * y, x * z, y * z
         result = result + (
-            SH_C2[0] * xy * sh[..., 4, :]
-            + SH_C2[1] * yz * sh[..., 5, :]
-            + SH_C2[2] * (2.0 * zz - xx - yy) * sh[..., 6, :]
-            + SH_C2[3] * xz * sh[..., 7, :]
-            + SH_C2[4] * (xx - yy) * sh[..., 8, :]
+            SH_C2[0] * xy * c[4]
+            + SH_C2[1] * yz * c[5]
+            + SH_C2[2] * (2.0 * zz - xx - yy) * c[6]
+            + SH_C2[3] * xz * c[7]
+            + SH_C2[4] * (xx - yy) * c[8]
         )
     if degree >= 3:
         result = result + (
-            SH_C3[0] * y * (3.0 * xx - yy) * sh[..., 9, :]
-            + SH_C3[1] * xy * z * sh[..., 10, :]
-            + SH_C3[2] * y * (4.0 * zz - xx - yy) * sh[..., 11, :]
-            + SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy) * sh[..., 12, :]
-            + SH_C3[4] * x * (4.0 * zz - xx - yy) * sh[..., 13, :]
-            + SH_C3[5] * z * (xx - yy) * sh[..., 14, :]
-            + SH_C3[6] * x * (xx - 3.0 * yy) * sh[..., 15, :]
+            SH_C3[0] * y * (3.0 * xx - yy) * c[9]
+            + SH_C3[1] * xy * z * c[10]
+            + SH_C3[2] * y * (4.0 * zz - xx - yy) * c[11]
+            + SH_C3[3] * z * (2.0 * zz - 3.0 * xx - 3.0 * yy) * c[12]
+            + SH_C3[4] * x * (4.0 * zz - xx - yy) * c[13]
+            + SH_C3[5] * z * (xx - yy) * c[14]
+            + SH_C3[6] * x * (xx - 3.0 * yy) * c[15]
         )
     result = result + 0.5
     return torch.clamp_min(result, 0.0)

@@ -1,15 +1,19 @@
-"""The forward render: project -> bin/sort (cull kernel K3) -> gather ->
-blend (kernel K1). Port of `gsplat_tpu.render.pipeline.render` for
-`stream_format='f32'`.
+"""The differentiable render: project -> bin/sort (cull kernel K3) -> gather
+(scatter-free backward through kernel K4) -> blend (kernel K1, backward
+kernel K2). Port of `gsplat_tpu.render.pipeline` for `stream_format='f32'`.
 
-Nothing on this path needs gradients yet (training is a later slice of the
-port), so it runs under `torch.no_grad()`. It makes no host synchronisation:
-`num_intersections` and `overflow` stay device tensors.
+Gradient flow, as in the JAX package: the ordering (sorted ids, ranges) is
+a stop-gradient permutation, so binning runs under `torch.no_grad()`; every
+value flows through the differentiable gather and blend, so d image / d
+{means, log_scales, quats, opacity_logits, sh} (and d / d uv_tap) is exact
+for the fixed ordering. With no input requiring grad, autograd records
+nothing and no residual is kept: the serving path runs as before.
 
-Each stage runs inside a `torch.profiler.record_function` span named in
-`STAGES`, so a profiler sees the served path's stages as they are
-(`scripts/profile_torch_render.py` reads them); outside a profiler a span
-costs a few microseconds.
+`render` makes no host synchronisation: `num_intersections` and `overflow`
+stay device tensors. Each stage runs inside a
+`torch.profiler.record_function` span named in `STAGES`, so a profiler sees
+the stages as they are (`scripts/profile_torch_render.py` reads them);
+outside a profiler a span costs a few microseconds.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ from gsplat_tpu_torch.models.gaussians import GaussianScene
 from gsplat_tpu_torch.ops.binning import bin_gaussians, gather_features
 from gsplat_tpu_torch.ops.camera import Camera
 from gsplat_tpu_torch.ops.cuda.raster import rasterize_tiles
-from gsplat_tpu_torch.ops.projection import project_gaussians
+from gsplat_tpu_torch.ops.projection import ProjectedGaussians, project_gaussians
+from gsplat_tpu_torch.train.losses import l1
 
 # The profiler spans of `render`, in the order the stages run.
 STAGES = ("render.project", "render.bin", "render.gather", "render.blend")
@@ -39,21 +44,23 @@ class RenderOutput:
     gauss_counts: torch.Tensor       # (N,) int32 post-cull candidates per Gaussian
 
 
-@torch.no_grad()
-def render(
+def render_with_projection(
     scene: GaussianScene,
     camera: Camera,
     cfg: RenderConfig,
     background: torch.Tensor | None = None,
-) -> RenderOutput:
+    uv_tap: torch.Tensor | None = None,
+) -> tuple[RenderOutput, ProjectedGaussians]:
+    """`render`, and the projection it rendered from (the train step reads
+    its tile counts for visibility instead of projecting a second time)."""
     if cfg.stream_format != "f32":
         raise NotImplementedError(
             f"stream_format={cfg.stream_format!r} comes with the packed-stream "
             "slice of the port (packed16/packed4, jumbo tiers); use 'f32'"
         )
     with record_function("render.project"):
-        proj = project_gaussians(scene, camera, cfg)
-    with record_function("render.bin"):
+        proj = project_gaussians(scene, camera, cfg, uv_tap=uv_tap)
+    with record_function("render.bin"), torch.no_grad():
         binned = bin_gaussians(proj, cfg)
     with record_function("render.gather"):
         features = gather_features(proj, binned, cfg)
@@ -61,10 +68,58 @@ def render(
         image, trans = rasterize_tiles(features, binned.ranges, cfg)
     if background is not None:
         image = image + trans[..., None] * background
-    return RenderOutput(
+    out = RenderOutput(
         image=image,
         transmittance=trans,
         num_intersections=binned.num_intersections,
         overflow=binned.overflow,
         gauss_counts=binned.gauss_counts,
     )
+    return out, proj
+
+
+def render(
+    scene: GaussianScene,
+    camera: Camera,
+    cfg: RenderConfig,
+    background: torch.Tensor | None = None,
+    uv_tap: torch.Tensor | None = None,
+) -> RenderOutput:
+    """uv_tap: optional (N, 2) zeros added to the screen-space uv, the
+    gradient tap of the densification trigger (see `project_gaussians`)."""
+    return render_with_projection(scene, camera, cfg, background, uv_tap)[0]
+
+
+def render_loss_with_aux(scene, camera, target, cfg: RenderConfig,
+                         background=None):
+    """L1 loss against a target image, plus the capacity diagnostics a
+    training step must read: a saturated stream silently truncates the image
+    and every gradient. Returns (loss, {"overflow": () bool,
+    "num_intersections": () int32}). The training losses with SSIM live in
+    `gsplat_tpu_torch.train.losses`."""
+    out = render(scene, camera, cfg, background)
+    return l1(out.image, target), {
+        "overflow": out.overflow,
+        "num_intersections": out.num_intersections,
+    }
+
+
+def render_loss(scene, camera, target, cfg: RenderConfig, background=None):
+    """The L1 loss of `render_loss_with_aux` alone."""
+    return render_loss_with_aux(scene, camera, target, cfg, background)[0]
+
+
+SCENE_FIELDS = tuple(f.name for f in dataclasses.fields(GaussianScene))
+
+
+def render_loss_and_grad(scene, camera, target, cfg: RenderConfig):
+    """(loss, GaussianScene of d loss / d each field). The scene's own
+    tensors are left as they are: the gradient is taken on detached views
+    of them, so no `.grad` is written."""
+    leaves = {f: getattr(scene, f).detach().requires_grad_(True)
+              for f in SCENE_FIELDS}
+    with torch.enable_grad():
+        loss = render_loss(GaussianScene(**leaves), camera, target, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    materialize_grads=True)
+    return loss.detach(), GaussianScene(*grads)

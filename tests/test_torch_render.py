@@ -157,11 +157,20 @@ def test_packed_streams_are_a_later_slice(fmt):
 
 
 def test_render_needs_no_gradients():
+    """With no input requiring grad, render records no graph (the serving
+    path); a scene field that requires grad makes the image differentiable."""
     scene = random_scene(80, 1, generator=torch.Generator().manual_seed(1),
                          device="cpu")
+    out = render(scene, Camera.default(64, 64, device="cpu"),
+                 RenderConfig(**KW))
+    assert not out.image.requires_grad and out.image.grad_fn is None
     scene.means.requires_grad_(True)
     out = render(scene, Camera.default(64, 64, device="cpu"),
                  RenderConfig(**KW))
+    assert out.image.requires_grad
+    with torch.no_grad():
+        out = render(scene, Camera.default(64, 64, device="cpu"),
+                     RenderConfig(**KW))
     assert not out.image.requires_grad
 
 
@@ -215,8 +224,8 @@ def test_kernels_build_on_first_use_only(monkeypatch):
     """Importing the port builds nothing; without nvcc the first launch
     raises and names the toolkit."""
     assert _build._libs == {}
-    assert sorted(p.name for p in _build._sources()) == ["cull.cu",
-                                                          "raster_fwd.cu"]
+    assert sorted(p.name for p in _build._sources()) == [
+        "cull.cu", "raster_bwd.cu", "raster_fwd.cu", "segsum.cu"]
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setattr(_build, "DEFAULT_NVCC", "/nonexistent/nvcc")
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -234,8 +243,9 @@ def _imported_modules(path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "gsplat_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_render.py"]
-    assert len(files) > 15
+    files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_render.py",
+              ROOT / "scripts" / "profile_torch_train.py"]
+    assert len(files) > 20
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
