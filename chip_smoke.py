@@ -5,48 +5,69 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: compile every kernel of `gsplat_tpu_torch/csrc/` (nvcc, sm_90a);
+  2. build: compile every kernel of `gsplat_tpu_torch/csrc/` (nvcc, sm_90a,
+     one process per source, all at once);
   3. K3 cull at the bench shape (1M Gaussians, 1920x1080, tile 32, K 64):
      the kernel's mask against the plain PyTorch version on the card,
      0 differing lanes allowed; both timed with CUDA events;
-  4. K1 blend at the bench shape on the port's own binned stream: kernel
-     against the plain tiled walk on the card, PSNR >= 60 dB and >= 99.99%
-     of pixels within 1e-4 on image and transmittance (the serial product
-     and the log-domain cumsum round differently at the 1e-4 termination
-     threshold); both timed;
-  5. K2 blend backward on the same stream, with N(0, 1) upstream gradients
+  4. K1 blend at the bench shape on the port's own binned stream, float32
+     and packed4: kernel against the plain tiled walk (of the unpacked
+     stream) on the card, PSNR >= 60 dB and >= 99.99% of pixels within 1e-4
+     on image and transmittance (the serial product and the log-domain
+     cumsum round differently at the 1e-4 termination threshold);
+  5. K2 blend backward on the same streams, with N(0, 1) upstream gradients
      of image and transmittance: kernel (fed K1's outputs) against the plain
-     re-walk (fed the plain forward's), each feature row within 1e-3
-     relative L2 and >= 99.9% of the walked slots within rtol 2e-3 / atol
-     2e-4 (the JAX per-slot tolerance); the slots past the stream exactly 0;
-  6. K4 segmented suffix sum on K2's gradient stream sorted gid-major:
-     kernel against the plain doubling, |error| <= 1e-6 + 1e-5 times the
-     summed span's absolute sum (only the f32 addition order differs);
-  7. golden: the JAX reference scene (tests/golden/scene_42_300.npz) through
-     K3 and K1, above 55 dB against tests/golden/render_64.npz;
-  8. main path, a server answering requests: `render` of the 1M-Gaussian
-     SH-3 scene at 1920x1080 (the bench config of bench.py, f32 stream) for
-     four views, with the launch counts set to 0 just before and read just
-     after; every frame has no overflow, intersections, a finite non-black
-     image, and K3 and K1 launched;
-  9. main path, a trainer taking steps: the exact-gradient training step
-     (L1 + 0.2 DSSIM, Adam at lr 1e-2) from a copy of that scene whose SH DC
-     carries seeded noise, against renders of the scene itself at the four
-     views, one view per step; a round of warm-up steps, then three measured
-     rounds with the launch counts set to 0 just before and read just after;
-     every step has no overflow, finite gradients and a finite loss, the
-     last round's mean loss is below the first's, and all four kernels ran.
+     re-walk (fed the plain forward's). Float32: each feature row within
+     1e-3 relative L2 and >= 99.9% of the walked slots within rtol 2e-3 /
+     atol 2e-4 (the JAX per-slot tolerance). Packed4 in, bf16 pairs out,
+     against the plain re-walk packed to pairs: the unpacked rows within
+     1e-3 relative L2 and >= 99.9% of the walked slots within the float32
+     tolerance plus one bf16 ulp (each side rounds its float32 sum by at
+     most half an ulp; the share within one ulp alone is printed). The
+     slots past the stream exactly 0 in both;
+  6. K4 segmented suffix sum on K2's float32 gradients sorted gid-major,
+     and K5 on K2's bf16 pairs: kernel against the plain doubling, each
+     value within 1e-6 + 1e-5 times the summed span's absolute sum (only
+     the float32 addition order differs; for K5 or within one bf16 ulp,
+     where that order flips a rounding); K5's zero-high (opacity) lanes
+     keep their low halves;
+  7. the realistic scene (1M Gaussians, heavy-tailed) with the jumbo tiers
+     of bench.py:246-253: K3 on the (14,848, 2048) jumbo grid against its
+     plain version (0 differing lanes), and K5 at depth 2048 on K2's pairs
+     of that stream against its plain version;
+  8. golden: the JAX reference scene (tests/golden/scene_42_300.npz) through
+     K3 and K1, above 55 dB against tests/golden/render_64.npz; packed16 K1
+     and K2 at that shape against their plain versions;
+  9. main paths, each driven with the launch counts set to 0 just before
+     and read just after:
+     - serving, float32 (bench.py --exact-grads's stream): `render` of the
+       1M-Gaussian SH-3 random scene at 1920x1080 for four views;
+     - training, exact (bench.py --exact-grads): L1 + 0.2 DSSIM, Adam at lr
+       1e-2, from a copy of the scene whose SH DC carries seeded noise,
+       against renders of the scene itself, one view per step;
+     - serving, packed4 (bench.py's default stream): the random scene, and
+       the realistic scene with the jumbo tiers;
+     - training, bench default (bench.py with no flags: packed4, bf16-pair
+       gradients through K5): the same recipe on both scenes.
+     Every frame has no overflow, intersections, a finite non-black image;
+     every step no overflow, finite gradients and a finite loss, and the
+     last round's mean loss below the first's; each path launched each of
+     its kernels;
  10. golden gradients: `render_loss_and_grad` of the golden scene on the
-     card (K3, K1, K2, K4) against the port's plain path on the CPU, which
-     the CPU tests hold to JAX: every field within rtol 5e-3 / atol 1e-5;
+     card against the port's plain path on the CPU, which the CPU tests hold
+     to JAX: exact f32 (K2, K4) every field within rtol 5e-3 / atol 1e-5;
+     bench default (packed K1 and K2, K5) every field within 1e-5 + 1e-2 of
+     its largest value and >= 99% of entries within 1e-5 + 8e-3 of their
+     own (one or two bf16 ulps: tests/test_torch_packed_train.py).
 Then one JSON line of kernel numbers, each kernel with its launches on each
-main path (`launches` from the training path, `serve_launches` from the
-serving path), and as the last line {"ok": true, "device": {...}}. Needs one CUDA card; exits
-non-zero without.
+main path (`launches_by_path`, and their sum as `launches`), and as the last
+line {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero
+without.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -81,8 +102,10 @@ BLEND_OPS_PER_PAIR = 20
 BLEND_BWD_OPS_PER_WALKED = 20
 BLEND_BWD_OPS_PER_APPLIED = 33
 BLEND_BWD_OPS_PER_SLOT = 7
-# K4: one add per element (a reverse scan within each run).
+# K4: one add per element (a reverse scan within each run); K5: one add per
+# bf16 half, two per int32 lane.
 SEGSUM_OPS_PER_ELEMENT = 1
+SEGSUM_PACKED_OPS_PER_LANE = 2
 
 BENCH = dict(
     width=1920, height=1080, tile_size=32, max_intersections=4_100_000,
@@ -96,10 +119,41 @@ NUM_GAUSSIANS = 1_000_000
 # The training step's exact-f32 setting (bench.py --exact-grads).
 EXACT = dict(gather_backward="variadic", grad_readout="f32",
              segment_sum="pallas", matmul_precision="highest")
+# bench.py's default setting (no flags): the packed4 stream, bf16-pair slot
+# gradients summed by K5.
+DEFAULT = dict(stream_format="packed4", gather_backward="bf16",
+               grad_readout="bf16", segment_sum="pallas",
+               matmul_precision="high")
+# The jumbo ladder of bench.py's realistic-scene headline (bench.py:246-253).
+JUMBO = dict(max_tiles_jumbo=2048, jumbo_tier_spec=(
+    (128, 14848), (256, 7168), (512, 3072), (1024, 1024), (2048, 384)))
 TRAIN_LR = 1e-2
 SSIM_WEIGHT = 0.2
 DC_NOISE = 0.2       # std of the seeded noise on the trained scene's SH DC
 TRAIN_ROUNDS = 4     # rounds of the four views: one warm-up, three measured
+SERVE_REPS = 4       # repetitions of the four views: one warm-up, three timed
+
+# The kernels, in the order of the JSON line: name -> (module attribute of
+# its launch count, source, the TPU kernel it replaces).
+KERNELS = {
+    "cull": ("cull.launches", "gsplat_tpu_torch/csrc/cull.cu",
+             "gsplat_tpu/ops/pallas/cull.py:31"),
+    "raster_fwd": ("raster.launches", "gsplat_tpu_torch/csrc/raster_fwd.cu",
+                   "gsplat_tpu/ops/pallas/raster.py:143"),
+    "raster_fwd_packed": ("raster.packed_launches",
+                          "gsplat_tpu_torch/csrc/raster_fwd.cu",
+                          "gsplat_tpu/ops/pallas/raster.py:143"),
+    "raster_bwd": ("raster.bwd_launches", "gsplat_tpu_torch/csrc/raster_bwd.cu",
+                   "gsplat_tpu/ops/pallas/raster.py:214"),
+    "raster_bwd_packed": ("raster.bwd_packed_launches",
+                          "gsplat_tpu_torch/csrc/raster_bwd.cu",
+                          "gsplat_tpu/ops/pallas/raster.py:214"),
+    "segsum": ("segsum.launches", "gsplat_tpu_torch/csrc/segsum.cu",
+               "gsplat_tpu/ops/pallas/segsum.py:41"),
+    "segsum_packed": ("segsum.packed_launches",
+                      "gsplat_tpu_torch/csrc/segsum_packed.cu",
+                      "gsplat_tpu/ops/pallas/segsum.py:86"),
+}
 
 
 def log(msg: str) -> None:
@@ -115,13 +169,12 @@ def gpu_line() -> str:
     return out[0]
 
 
-def cuda_ms(fn, iters: int, warmup: bool = True) -> float:
+def cuda_ms(fn, iters: int) -> float:
     """Mean milliseconds per call of fn over `iters` calls, timed with CUDA
-    events, after one warm-up call unless fn has just run."""
+    events, after one warm-up call."""
     import torch
 
-    if warmup:
-        fn()
+    fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -132,17 +185,54 @@ def cuda_ms(fn, iters: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed_once(fn):
+    """(fn(), its milliseconds on the card): one call between CUDA events.
+    For the plain versions, which take seconds at the bench shape, so that
+    the call that is compared is the one that is timed."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def psnr(img, ref) -> float:
     mse = float(((img - ref) ** 2).mean())
     peak = max(float(ref.max()), 1.0)
     return 10.0 * np.log10(peak * peak / max(mse, 1e-20))
 
 
+def bf16_ulp(x):
+    """One bf16 ulp at the exponent of |x| (2^-7 of its power of two)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+
+def pair_shares(u_k, u_p):
+    """Shares of K2's unpacked bf16-pair gradients `u_k` within tolerance of
+    the plain re-walk's `u_p`: (the float32 per-slot tolerance, rtol 2e-3 /
+    atol 2e-4, plus one bf16 ulp: the two float32 sums differ by the first
+    and each rounds to bf16 by at most half an ulp; one bf16 ulp alone)."""
+    import torch
+
+    err = (u_k - u_p).abs()
+    ulp = bf16_ulp(torch.maximum(u_k.abs(), u_p.abs()))
+    return (float((err <= 2e-4 + 2e-3 * u_p.abs() + ulp).float().mean()),
+            float((err <= ulp).float().mean()))
+
+
 def views(width: int, height: int, device):
     """The default camera and three look_at views near it: shifted 0.1
     right, down, and both, and turned a little the same way. They keep
     the default's up direction and the frame load within the bench's
-    capacity (a view of the whole scene needs about 6.3M intersections)."""
+    capacity (a view of the whole random scene needs about 6.3M
+    intersections)."""
     from gsplat_tpu_torch.ops.camera import Camera, look_at
 
     cams = [Camera.default(width, height, device=device)]
@@ -165,12 +255,29 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def launch_counts() -> dict:
+    from gsplat_tpu_torch.ops.cuda import cull, raster, segsum
+
+    mods = {"cull": cull, "raster": raster, "segsum": segsum}
+    out = {}
+    for name, (attr, _, _) in KERNELS.items():
+        mod, var = attr.split(".")
+        out[name] = getattr(mods[mod], var)
+    return out
+
+
+def reset_launch_counts() -> None:
+    from gsplat_tpu_torch.ops.cuda import cull, raster, segsum
+
+    cull.launches = raster.launches = raster.packed_launches = 0
+    raster.bwd_launches = raster.bwd_packed_launches = 0
+    segsum.launches = segsum.packed_launches = 0
+
+
 def make_trainer(scene, cams, cfg, dev):
     """The training main path: targets rendered from `scene` at `cams`, a
     trained copy of `scene` whose SH DC carries seeded noise, and its train
     step. Returns (trained scene, targets (V, H, W, 3), step)."""
-    import dataclasses
-
     import torch
 
     from gsplat_tpu_torch import GaussianScene, render
@@ -185,6 +292,94 @@ def make_trainer(scene, cams, cfg, dev):
         train.sh[:, 0, :].shape, generator=gen, device=dev)
     opt = make_optimizer(train, TRAIN_LR)
     return train, targets, make_train_step(cfg, opt, ssim_weight=SSIM_WEIGHT)
+
+
+def serve(tag, scene, cams, cfg, card):
+    """`render` of every view SERVE_REPS times (the first repetition a
+    warm-up), each frame checked; returns the median ms per timed frame."""
+    import torch
+
+    from gsplat_tpu_torch import render
+
+    frame_ms = []
+    for rep in range(SERVE_REPS):
+        for i, cam in enumerate(cams):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = render(scene, cam, cfg)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) * 1e3
+            img = out.image
+            ok = (not bool(out.overflow) and int(out.num_intersections) > 0
+                  and tuple(img.shape) == (cfg.height, cfg.width, 3)
+                  and bool(torch.isfinite(img).all())
+                  and float(img.max()) > 0.01)
+            if rep == 0:
+                log(f"[{tag}] view {i}: {int(out.num_intersections)} "
+                    f"intersections, overflow {bool(out.overflow)}, image "
+                    f"max {float(img.max())} mean {float(img.mean())}, "
+                    f"min T {float(out.transmittance.min())}")
+            else:
+                frame_ms.append(dt)
+            if not ok:
+                raise SystemExit(f"{tag}: view {i} failed its checks")
+    med = statistics.median(frame_ms)
+    log(f"[{tag}] median {med} ms per frame over {len(frame_ms)} frames "
+        f"(min {min(frame_ms)}, max {max(frame_ms)}) at {cfg.width}x"
+        f"{cfg.height}, {scene.num_gaussians} Gaussians, on {card}")
+    return med
+
+
+def train(tag, scene, cams, cfg, dev, card):
+    """TRAIN_ROUNDS rounds of one step per view (the first round a
+    warm-up), each step checked; the loss must fall. Returns the median ms
+    per measured step."""
+    import torch
+
+    trained, targets, step = make_trainer(scene, cams, cfg, dev)
+    step_ms, losses = [], []
+    for i in range(TRAIN_ROUNDS * len(cams)):
+        v = i % len(cams)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, aux, (_, visible) = step(trained, [cams[v]], targets[v : v + 1])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        losses.append(float(loss))
+        if i >= len(cams):
+            step_ms.append(dt)
+        log(f"[{tag}] step {i} view {v}: loss {losses[-1]}, "
+            f"{int(aux['num_intersections'])} intersections, overflow "
+            f"{bool(aux['overflow'])}, grads finite {bool(aux['grads_finite'])}"
+            f", {int(visible.sum())} visible, {dt} ms")
+        if bool(aux["overflow"]) or not bool(aux["grads_finite"]) or \
+                not np.isfinite(losses[-1]):
+            raise SystemExit(f"{tag}: step {i} overflowed or went non-finite")
+    n = len(cams)
+    rounds = [statistics.mean(losses[r * n : (r + 1) * n])
+              for r in range(TRAIN_ROUNDS)]
+    log(f"[{tag}] mean loss per round {rounds}")
+    if not rounds[-1] < rounds[0]:
+        raise SystemExit(f"{tag}: the loss did not fall")
+    med = statistics.median(step_ms)
+    log(f"[{tag}] median {med} ms per step over {len(step_ms)} steps (min "
+        f"{min(step_ms)}, max {max(step_ms)}) at {cfg.width}x{cfg.height}, "
+        f"{scene.num_gaussians} Gaussians, on {card}")
+    return med
+
+
+def drive(path, needs, fn):
+    """Run one main path with the launch counts set to 0 just before and
+    read just after; fail unless each kernel in `needs` was launched."""
+    reset_launch_counts()
+    fn()
+    counts = launch_counts()
+    log(f"[{path}] launches {counts}")
+    missing = [k for k in needs if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"{path}: kernels of the path never launched: "
+                         f"{missing}")
+    return counts
 
 
 def main() -> int:
@@ -205,9 +400,16 @@ def run(dev) -> int:
     import torch
 
     sys.path.insert(0, HERE)
-    from gsplat_tpu_torch import Camera, RenderConfig, random_scene, render
+    from gsplat_tpu_torch import (
+        Camera,
+        RenderConfig,
+        random_scene,
+        realistic_scene,
+        render,
+    )
     from gsplat_tpu_torch.convert import scene_from_numpy
-    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.ops import binning, stream16
+    from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs
     from gsplat_tpu_torch.ops.cuda import _build, cull, raster, segsum
     from gsplat_tpu_torch.ops.projection import project_gaussians
     from gsplat_tpu_torch.ops.raster_torch import (
@@ -222,6 +424,7 @@ def run(dev) -> int:
     # The plain versions contract in full float32 (no TF32 anywhere).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # 1. Device.
     card = gpu_line()
@@ -238,11 +441,13 @@ def run(dev) -> int:
         f"{sorted(p.name for p in _build.CSRC.glob('*.cu'))}")
 
     cfg = RenderConfig(**BENCH)
+    cfg4 = RenderConfig(**dict(BENCH, **DEFAULT))
     gen = torch.Generator(device=dev).manual_seed(0)
     scene = random_scene(NUM_GAUSSIANS, sh_degree=3, generator=gen,
                          device=dev)
     cams = views(cfg.width, cfg.height, dev)
-    kernels = {}
+    kernels = {name: dict(name=name, route="cuda", source=src, replaces=rep)
+               for name, (_, src, rep) in KERNELS.items()}
 
     # 3. K3 cull at the bench shape.
     with torch.no_grad():
@@ -250,8 +455,8 @@ def run(dev) -> int:
         params = cull.cull_params(proj, cfg)
     kmax = cfg.max_tiles_per_gaussian
     mask_k = cull.cull_mask_from_params(params, kmax, cfg.tile_size)
-    mask_p = cull.cull_mask_plain(params, kmax, cfg.tile_size)
-    torch.cuda.synchronize()
+    mask_p, ms_p = timed_once(
+        lambda: cull.cull_mask_plain(params, kmax, cfg.tile_size))
     differ = int((mask_k != mask_p).sum())
     lanes = params.shape[1] * kmax
     log(f"[K3] {params.shape[1]} rows x K {kmax}: {int(mask_k.sum())} lanes "
@@ -259,13 +464,10 @@ def run(dev) -> int:
     if differ:
         raise SystemExit("K3: kernel mask differs from the plain version")
     ms_k = cuda_ms(lambda: cull.cull_mask_from_params(params, kmax, cfg.tile_size), 50)
-    ms_p = cuda_ms(lambda: cull.cull_mask_plain(params, kmax, cfg.tile_size), 5)
     cull_bytes = params.numel() * 4 + lanes
     cull_ops = lanes * CULL_OPS_PER_LANE + params.shape[1] * CULL_OPS_PER_ROW
     bound_ms, bound_by = bound(cull_bytes, cull_ops)
-    kernels["cull"] = dict(
-        name="cull", route="cuda", source="gsplat_tpu_torch/csrc/cull.cu",
-        replaces="gsplat_tpu/ops/pallas/cull.py:31", launches=None,
+    kernels["cull"].update(
         max_abs_err=float((mask_k.float() - mask_p.float()).abs().max()),
         ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,
@@ -274,108 +476,123 @@ def run(dev) -> int:
         f"({cull_bytes} B, {cull_ops} ops, {bound_by})")
     del mask_k, mask_p
 
-    # 4. K1 blend at the bench shape, on the port's own binned stream.
+    # 4. K1 blend at the bench shape on the port's own binned stream: the
+    # float32 stream and the packed4 stream of the same binning.
     with torch.no_grad():
         binned = binning.bin_gaussians(proj, cfg)
         features = binning.gather_features(proj, binned, cfg)
+        slots = stream16.gather_packed(binning.features_f32(proj, cfg4),
+                                       binned.sorted_gid, cfg4)
     ranges = binned.ranges
-    col_k, tr_k = raster.raster_tiles_cuda(features, ranges, cfg)
-    col_p, tr_p, pairs = _raster_tiles(features, ranges, 0, cfg)
-    torch.cuda.synchronize()
-    img_k, img_p = _tiles_to_image(col_k, cfg), _tiles_to_image(col_p, cfg)
-    t_k, t_p = _tiles_to_scalar_image(tr_k, cfg), _tiles_to_scalar_image(tr_p, cfg)
-    err_img = (img_k - img_p).abs()
-    err_t = (t_k - t_p).abs()
-    p_db = psnr(img_k, img_p)
-    within_img = float((err_img.amax(-1) <= 1e-4).float().mean())
-    within_t = float((err_t <= 1e-4).float().mean())
     total = int(binned.num_intersections)
-    log(f"[K1] {total} intersections, {int(pairs)} pixel-Gaussian pairs "
-        f"walked; PSNR {p_db} dB, max abs err image {float(err_img.max())} "
-        f"trans {float(err_t.max())}, within 1e-4: image {within_img} "
-        f"trans {within_t}")
-    if not (p_db >= 60.0 and within_img >= 0.9999 and within_t >= 0.9999):
-        raise SystemExit("K1: kernel outside the stated tolerance of the "
-                         "plain version")
-    ms_k = cuda_ms(lambda: raster.raster_tiles_cuda(features, ranges, cfg), 20)
-    # The plain walk takes seconds at this shape and has just run above.
-    ms_p = cuda_ms(lambda: _raster_tiles(features, ranges, 0, cfg), 1,
-                   warmup=False)
-    blend_bytes = (total * features.shape[0] * 4 + ranges.numel() * 4
-                   + (col_k.numel() + tr_k.numel()) * 4)
-    blend_ops = int(pairs) * BLEND_OPS_PER_PAIR
-    bound_ms, bound_by = bound(blend_bytes, blend_ops)
-    kernels["raster_fwd"] = dict(
-        name="raster_fwd", route="cuda",
-        source="gsplat_tpu_torch/csrc/raster_fwd.cu",
-        replaces="gsplat_tpu/ops/pallas/raster.py:143", launches=None,
-        max_abs_err=max(float(err_img.max()), float(err_t.max())),
-        ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None,
-    )
-    log(f"[K1] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms} ms "
-        f"({blend_bytes} B, {blend_ops} ops, {bound_by})")
-    del img_p, t_p, err_img, err_t
+    fwd = {}
+    for name, c, stream in (("raster_fwd", cfg, features),
+                            ("raster_fwd_packed", cfg4, slots)):
+        col_k, tr_k = raster.raster_tiles_cuda(stream, ranges, c)
+        plain_in = features if stream is features else stream16.unpack_block(stream, c)
+        (col_p, tr_p, pairs), ms_p = timed_once(
+            lambda: _raster_tiles(plain_in, ranges, 0, c))
+        img_k, img_p = _tiles_to_image(col_k, c), _tiles_to_image(col_p, c)
+        t_k, t_p = _tiles_to_scalar_image(tr_k, c), _tiles_to_scalar_image(tr_p, c)
+        err_img = (img_k - img_p).abs()
+        err_t = (t_k - t_p).abs()
+        p_db = psnr(img_k, img_p)
+        within_img = float((err_img.amax(-1) <= 1e-4).float().mean())
+        within_t = float((err_t <= 1e-4).float().mean())
+        log(f"[K1 {c.stream_format}] {total} intersections, {int(pairs)} "
+            f"pixel-Gaussian pairs walked; PSNR {p_db} dB, max abs err image "
+            f"{float(err_img.max())} trans {float(err_t.max())}, within "
+            f"1e-4: image {within_img} trans {within_t}")
+        if not (p_db >= 60.0 and within_img >= 0.9999 and within_t >= 0.9999):
+            raise SystemExit(f"K1 {c.stream_format}: kernel outside the "
+                             "stated tolerance of the plain version")
+        ms_k = cuda_ms(lambda: raster.raster_tiles_cuda(stream, ranges, c), 20)
+        blend_bytes = (total * stream.shape[0] * 4 + ranges.numel() * 4
+                       + (col_k.numel() + tr_k.numel()) * 4)
+        blend_ops = int(pairs) * BLEND_OPS_PER_PAIR
+        bound_ms, bound_by = bound(blend_bytes, blend_ops)
+        kernels[name].update(
+            max_abs_err=max(float(err_img.max()), float(err_t.max())),
+            ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None,
+        )
+        log(f"[K1 {c.stream_format}] kernel {ms_k} ms, plain {ms_p} ms, bound "
+            f"{bound_ms} ms ({blend_bytes} B, {blend_ops} ops, {bound_by})")
+        fwd[name] = (col_k, tr_k, col_p, tr_p, int(pairs))
+        del img_p, t_p, err_img, err_t, plain_in
 
-    # 5. K2 blend backward on the same stream.
+    # 5. K2 blend backward on the same streams: float32 in and out, and
+    # packed4 in with bf16 pairs out.
     gen = torch.Generator(device=dev).manual_seed(1)
     g_image = torch.randn((cfg.height, cfg.width, 3), generator=gen, device=dev)
     g_trans = torch.randn((cfg.height, cfg.width), generator=gen, device=dev)
     g_col = _image_to_tiles(g_image, cfg)
     g_tt = _image_to_tiles(g_trans[..., None], cfg)[:, 0]
-    b_k = ((g_col * col_k).sum(1) + g_tt * tr_k).contiguous()
-    b_p = (g_col * col_p).sum(1) + g_tt * tr_p
-    d_k = raster.raster_bwd_cuda(features, ranges, g_col, b_k, cfg)
-    d_p, applied = _raster_tiles_bwd_walk(features, ranges, 0, g_col,
-                                          b_p[..., None], cfg)
-    torch.cuda.synchronize()
-    walked_k, walked_p = d_k[:, :total], d_p[:, :total]
-    rel = ((walked_k - walked_p).norm(dim=1)
-           / walked_p.norm(dim=1).clamp_min(1e-30)).tolist()
-    err = (walked_k - walked_p).abs()
-    within = float((err <= 2e-4 + 2e-3 * walked_p.abs()).float().mean())
-    tail_zero = bool((d_k[:, total:] == 0).all())
-    log(f"[K2] {int(applied)} pixel-Gaussian pairs applied; relative L2 "
-        f"error per feature row {rel}, within rtol 2e-3 / atol 2e-4: "
-        f"{within}, max abs err {float(err.max())}, slots past the stream "
-        f"exactly 0: {tail_zero}")
-    if not (max(rel) <= 1e-3 and within >= 0.999 and tail_zero):
-        raise SystemExit("K2: kernel outside the stated tolerance of the "
-                         "plain version")
-    ms_k = cuda_ms(lambda: raster.raster_bwd_cuda(features, ranges, g_col,
-                                                  b_k, cfg), 20)
-    # The plain re-walk takes seconds at this shape and has just run above.
-    ms_p = cuda_ms(lambda: _raster_tiles_bwd_walk(features, ranges, 0, g_col,
-                                                  b_p[..., None], cfg), 1,
-                   warmup=False)
-    rbwd_bytes = (total * features.shape[0] * 4 + features.numel() * 4
-                  + (g_col.numel() + b_k.numel() + ranges.numel()) * 4)
-    rbwd_ops = (int(pairs) * BLEND_BWD_OPS_PER_WALKED
-                + int(applied) * BLEND_BWD_OPS_PER_APPLIED
-                + total * BLEND_BWD_OPS_PER_SLOT)
-    bound_ms, bound_by = bound(rbwd_bytes, rbwd_ops)
-    kernels["raster_bwd"] = dict(
-        name="raster_bwd", route="cuda",
-        source="gsplat_tpu_torch/csrc/raster_bwd.cu",
-        replaces="gsplat_tpu/ops/pallas/raster.py:214", launches=None,
-        max_abs_err=float(err.max()), ms=ms_k, plain_ms=ms_p,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-    )
-    log(f"[K2] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms} ms "
-        f"({rbwd_bytes} B, {rbwd_ops} ops, {bound_by})")
-    del d_p, col_p, tr_p, err, walked_p
+    bwd = {}
+    for name, fname, c, stream in (
+            ("raster_bwd", "raster_fwd", cfg, features),
+            ("raster_bwd_packed", "raster_fwd_packed", cfg4, slots)):
+        col_k, tr_k, col_p, tr_p, pairs = fwd.pop(fname)
+        pack = stream is slots
+        b_k = ((g_col * col_k).sum(1) + g_tt * tr_k).contiguous()
+        b_p = (g_col * col_p).sum(1) + g_tt * tr_p
+        d_k = raster.raster_bwd_cuda(stream, ranges, g_col, b_k, c,
+                                     pack_out=pack)
+        plain_in = features if not pack else stream16.unpack_block(stream, c)
+        (d_p, applied), ms_p = timed_once(
+            lambda: _raster_tiles_bwd_walk(plain_in, ranges, 0, g_col,
+                                           b_p[..., None], c))
+        if pack:
+            d_p = pack_bf16_pairs(d_p)
+            walked_k = unpack_bf16_pairs(d_k[:, :total], 9)
+            walked_p = unpack_bf16_pairs(d_p[:, :total], 9)
+            err = (walked_k - walked_p).abs()
+            within, ulp_share = pair_shares(walked_k, walked_p)
+            what = (f"rtol 2e-3 / atol 2e-4 + one bf16 ulp (one bf16 ulp "
+                    f"alone: {ulp_share})")
+        else:
+            walked_k, walked_p = d_k[:, :total], d_p[:, :total]
+            err = (walked_k - walked_p).abs()
+            within = float((err <= 2e-4 + 2e-3 * walked_p.abs()).float().mean())
+            what = "rtol 2e-3 / atol 2e-4"
+        rel = ((walked_k - walked_p).norm(dim=1)
+               / walked_p.norm(dim=1).clamp_min(1e-30)).tolist()
+        tail_zero = bool((d_k[:, total:] == 0).all())
+        log(f"[K2 {c.stream_format}] {int(applied)} pixel-Gaussian pairs "
+            f"applied; relative L2 error per feature row {rel}, within {what}:"
+            f" {within}, max abs err {float(err.max())}, slots past the "
+            f"stream exactly 0: {tail_zero}")
+        if not (max(rel) <= 1e-3 and within >= 0.999 and tail_zero):
+            raise SystemExit(f"K2 {c.stream_format}: kernel outside the "
+                             "stated tolerance of the plain version")
+        ms_k = cuda_ms(lambda: raster.raster_bwd_cuda(
+            stream, ranges, g_col, b_k, c, pack_out=pack), 20)
+        rbwd_bytes = (total * stream.shape[0] * 4 + d_k.numel() * 4
+                      + (g_col.numel() + b_k.numel() + ranges.numel()) * 4)
+        rbwd_ops = (pairs * BLEND_BWD_OPS_PER_WALKED
+                    + int(applied) * BLEND_BWD_OPS_PER_APPLIED
+                    + total * BLEND_BWD_OPS_PER_SLOT)
+        bound_ms, bound_by = bound(rbwd_bytes, rbwd_ops)
+        kernels[name].update(
+            max_abs_err=float(err.max()), ms=ms_k, plain_ms=ms_p,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        )
+        log(f"[K2 {c.stream_format}] kernel {ms_k} ms, plain {ms_p} ms, bound "
+            f"{bound_ms} ms ({rbwd_bytes} B, {rbwd_ops} ops, {bound_by})")
+        bwd[name] = d_k
+        del d_p, col_p, tr_p, err, walked_p, walked_k, plain_in, b_k, b_p
 
-    # 6. K4 on K2's gradient stream, sorted gid-major as the gather
-    # backward sorts it.
+    # 6. K4 on K2's float32 gradients and K5 on its bf16 pairs, sorted
+    # gid-major as the gather backward sorts them.
+    kmax_s = binning.kmax_eff(cfg)
     key = torch.where(binned.sorted_gidk >= 0, binned.sorted_gidk, 2**31 - 1)
     s_key, perm = torch.sort(key)
-    x = d_k.index_select(1, perm).contiguous()
-    rows = (s_key >> binning._kbits(binning.kmax_eff(cfg))).to(torch.int32)
-    kmax_s = binning.kmax_eff(cfg)
+    rows = (s_key >> binning._kbits(kmax_s)).to(torch.int32)
+    x = bwd.pop("raster_bwd").index_select(1, perm).contiguous()
     sum_k = segsum.segmented_suffix_sum_cuda(x, rows, kmax_s)
-    sum_p = segsum.segmented_suffix_sum_plain(x, rows, kmax_s)
+    sum_p, ms_p = timed_once(
+        lambda: segsum.segmented_suffix_sum_plain(x, rows, kmax_s))
     scale = segsum.segmented_suffix_sum_plain(x.abs(), rows, kmax_s)
-    torch.cuda.synchronize()
     err = (sum_k - sum_p).abs()
     seg_ok = bool((err <= 1e-6 + 1e-5 * scale).all())
     plain_tol = float((err <= 1e-6 + 1e-5 * sum_p.abs()).float().mean())
@@ -387,141 +604,270 @@ def run(dev) -> int:
         raise SystemExit("K4: kernel outside the stated tolerance of the "
                          "plain version")
     ms_k = cuda_ms(lambda: segsum.segmented_suffix_sum_cuda(x, rows, kmax_s), 20)
-    ms_p = cuda_ms(lambda: segsum.segmented_suffix_sum_plain(x, rows, kmax_s), 5)
     seg_bytes = (x.numel() + rows.numel() + sum_k.numel()) * 4
     seg_ops = x.numel() * SEGSUM_OPS_PER_ELEMENT
     bound_ms, bound_by = bound(seg_bytes, seg_ops)
-    kernels["segsum"] = dict(
-        name="segsum", route="cuda", source="gsplat_tpu_torch/csrc/segsum.cu",
-        replaces="gsplat_tpu/ops/pallas/segsum.py:41", launches=None,
+    kernels["segsum"].update(
         max_abs_err=float(err.max()), ms=ms_k, plain_ms=ms_p,
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
     )
     log(f"[K4] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms} ms "
         f"({seg_bytes} B, {seg_ops} ops, {bound_by})")
-    del x, rows, sum_k, sum_p, scale, err, d_k, features, binned, proj, params
-    del col_k, tr_k, g_col, b_k
+    del x, sum_k, sum_p, scale, err
 
-    # 7. Golden: the JAX reference scene through K3 and K1.
+    def check_k5(tag, xp, rows, kmax_s):
+        """K5 against its plain version on gid-major pairs; returns the
+        kernel's and the plain version's ms, the bound and the max error."""
+        sum_k = segsum.segmented_suffix_sum_packed_cuda(xp, rows, kmax_s)
+        sum_p, ms_p = timed_once(
+            lambda: segsum.segmented_suffix_sum_packed_plain(xp, rows, kmax_s))
+        f = 2 * xp.shape[0]
+        vk, vp = unpack_bf16_pairs(sum_k, f), unpack_bf16_pairs(sum_p, f)
+        scale = segsum.segmented_suffix_sum_plain(
+            unpack_bf16_pairs(xp, f).abs(), rows, kmax_s)
+        err = (vk - vp).abs()
+        ok = (err <= torch.maximum(1e-6 + 1e-5 * scale,
+                                   bf16_ulp(torch.maximum(vk.abs(), vp.abs()))))
+        same = float((sum_k == sum_p).float().mean())
+        # Zero-high lanes with a nonzero low half: float32 denormal bit
+        # patterns (all of the opacity pair (8|0) that carries a sum). Their
+        # low halves must survive: nonzero in the kernel's output wherever
+        # they are in the plain version's (their values are in `ok`).
+        low_p, low_k = sum_p & 0xFFFF, sum_k & 0xFFFF
+        zero_high = ((sum_p & -65536) == 0) & (low_p != 0)
+        n_zero_high = int(zero_high.sum())
+        low_kept = bool((low_k[zero_high] != 0).all())
+        low_same = float((low_k[zero_high] == low_p[zero_high]).float().mean())
+        log(f"[K5 {tag}] {xp.shape[1]} lanes x {xp.shape[0]} pairs, depth "
+            f"{segsum.doubling_depth(kmax_s)}: bit-identical lanes {same}, "
+            f"max abs err {float(err.max())}, within one bf16 ulp or 1e-6 + "
+            f"1e-5 span abs sum: {bool(ok.all())}; {n_zero_high} nonzero "
+            f"zero-high lanes, their low halves kept: {low_kept}, "
+            f"bit-identical: {low_same}")
+        if not (bool(ok.all()) and low_kept and n_zero_high > 0):
+            raise SystemExit(f"K5 {tag}: kernel outside the stated tolerance "
+                             "of the plain version")
+        ms_k = cuda_ms(lambda: segsum.segmented_suffix_sum_packed_cuda(
+            xp, rows, kmax_s), 20)
+        k5_bytes = (xp.numel() + rows.numel() + sum_k.numel()) * 4
+        k5_ops = xp.numel() * SEGSUM_PACKED_OPS_PER_LANE
+        bound_ms, bound_by = bound(k5_bytes, k5_ops)
+        log(f"[K5 {tag}] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms} "
+            f"ms ({k5_bytes} B, {k5_ops} ops, {bound_by})")
+        return ms_k, ms_p, bound_ms, bound_by, float(err.max())
+
+    xp = bwd.pop("raster_bwd_packed").index_select(1, perm).contiguous()
+    ms_k, ms_p, bound_ms, bound_by, max_err = check_k5("kmax 64", xp, rows,
+                                                       kmax_s)
+    kernels["segsum_packed"].update(
+        max_abs_err=max_err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None,
+    )
+    del xp, rows, s_key, perm, key, features, slots, binned, proj, params
+    del g_col, g_tt
+
+    # 7. The realistic scene with the jumbo tiers: K3 on the jumbo grid, and
+    # K5 at depth 2048 on K2's pairs of its packed4 stream.
+    rcfg = RenderConfig(**dict(BENCH, **DEFAULT, **JUMBO))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rscene = realistic_scene(NUM_GAUSSIANS, sh_degree=3, generator=gen,
+                             device=dev)
+    with torch.no_grad():
+        proj = project_gaussians(rscene, cams[0], rcfg)
+        rect = proj.rect
+        area = (torch.clamp_min(rect[:, 2] - rect[:, 0], 0)
+                * torch.clamp_min(rect[:, 3] - rect[:, 1], 0))
+        area = torch.where(proj.mask, area, 0)
+        ids_r = torch.sort(-area).indices[: rcfg.jumbo_tier_spec[0][1]]
+        kj = rcfg.max_tiles_jumbo
+        jparams = cull.cull_params(proj, rcfg, counts=torch.clamp_max(
+            area, kj))[:, ids_r].contiguous()
+    mask_k = cull.cull_mask_from_params(jparams, kj, rcfg.tile_size)
+    mask_p, jms_p = timed_once(
+        lambda: cull.cull_mask_plain(jparams, kj, rcfg.tile_size))
+    differ = int((mask_k != mask_p).sum())
+    log(f"[K3 jumbo] {int((area > rcfg.max_tiles_per_gaussian).sum())} "
+        f"splats past K {rcfg.max_tiles_per_gaussian} (largest rect "
+        f"{int(area.max())} tiles); {jparams.shape[1]} rows x K {kj}: "
+        f"{int(mask_k.sum())} lanes kept, {differ} lanes differ from the "
+        f"plain version")
+    if differ:
+        raise SystemExit("K3 jumbo: kernel mask differs from the plain version")
+    jms_k = cuda_ms(lambda: cull.cull_mask_from_params(jparams, kj,
+                                                       rcfg.tile_size), 20)
+    jlanes = jparams.shape[1] * kj
+    jbound, jbound_by = bound(jparams.numel() * 4 + jlanes,
+                              jlanes * CULL_OPS_PER_LANE
+                              + jparams.shape[1] * CULL_OPS_PER_ROW)
+    log(f"[K3 jumbo] kernel {jms_k} ms, plain {jms_p} ms, bound {jbound} ms "
+        f"({jbound_by})")
+    kernels["cull"].update(jumbo_ms=jms_k, jumbo_plain_ms=jms_p,
+                           jumbo_bound_ms=jbound, jumbo_bound_by=jbound_by)
+    del mask_k, mask_p, jparams
+
+    with torch.no_grad():
+        rbinned = binning.bin_gaussians(proj, rcfg)
+        rslots = stream16.gather_packed(binning.features_f32(proj, rcfg),
+                                        rbinned.sorted_gid, rcfg)
+    rtotal = int(rbinned.num_intersections)
+    log(f"[realistic] view 0: {rtotal} intersections, overflow "
+        f"{bool(rbinned.overflow)}")
+    if bool(rbinned.overflow):
+        raise SystemExit("realistic: view 0 overflows the bench capacity")
+    col_k, tr_k = raster.raster_tiles_cuda(rslots, rbinned.ranges, rcfg)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    g_col = _image_to_tiles(torch.randn((cfg.height, cfg.width, 3),
+                                        generator=gen, device=dev), rcfg)
+    b_k = ((g_col * col_k).sum(1) + tr_k * torch.randn(
+        tr_k.shape, generator=gen, device=dev)).contiguous()
+    d_k = raster.raster_bwd_cuda(rslots, rbinned.ranges, g_col, b_k, rcfg,
+                                 pack_out=True)
+    kmax_j = binning.kmax_eff(rcfg)
+    key = torch.where(rbinned.sorted_gidk >= 0, rbinned.sorted_gidk,
+                      2**31 - 1)
+    s_key, perm = torch.sort(key)
+    rows = (s_key >> binning._kbits(kmax_j)).to(torch.int32)
+    xp = d_k.index_select(1, perm).contiguous()
+    ms_k, ms_p, bound_ms, bound_by, max_err = check_k5("kmax 2048", xp, rows,
+                                                       kmax_j)
+    kernels["segsum_packed"].update(
+        kmax2048_ms=ms_k, kmax2048_plain_ms=ms_p, kmax2048_bound_ms=bound_ms,
+        kmax2048_max_abs_err=max_err)
+    del xp, rows, s_key, perm, key, d_k, g_col, b_k, col_k, tr_k, rslots
+    del rbinned, proj, area, ids_r
+
+    # 8. Golden: the JAX reference scene through K3 and K1; packed16 K1 and
+    # K2 at that shape against their plain versions.
     gdir = os.path.join(HERE, "tests", "golden")
     with np.load(os.path.join(gdir, "scene_42_300.npz")) as d:
         gnp = {k: d[k] for k in d.files}
     gscene = scene_from_numpy(**gnp, device=dev)
     with np.load(os.path.join(gdir, "render_64.npz")) as d:
         golden = d["image"].astype(np.float32)
+    gcam = Camera.default(64, 64, device=dev)
     before = (cull.launches, raster.launches)
-    out = render(gscene, Camera.default(64, 64, device=dev),
-                 RenderConfig(**GOLDEN))
+    out = render(gscene, gcam, RenderConfig(**GOLDEN))
     g_db = psnr(out.image.cpu().numpy(), golden)
     log(f"[golden] PSNR {g_db} dB against render_64.npz, launches "
         f"cull +{cull.launches - before[0]} raster +{raster.launches - before[1]}")
     if not (g_db > 55.0 and cull.launches > before[0]
             and raster.launches > before[1]):
         raise SystemExit("golden: render below 55 dB or not through the kernels")
+    c16 = RenderConfig(**GOLDEN, binning="tiered",
+                       **dict(DEFAULT, stream_format="packed16"))
+    with torch.no_grad():
+        gproj = project_gaussians(gscene, gcam, c16)
+        gb = binning.bin_gaussians(gproj, c16)
+        s16 = stream16.gather_packed(binning.features_f32(gproj, c16),
+                                     gb.sorted_gid, c16)
+    col_k, tr_k = raster.raster_tiles_cuda(s16, gb.ranges, c16)
+    f16 = stream16.unpack_block(s16, c16)
+    col_p, tr_p, _ = _raster_tiles(f16, gb.ranges, 0, c16)
+    err16 = max(float((col_k - col_p).abs().max()),
+                float((tr_k - tr_p).abs().max()))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g_col = torch.randn(col_k.shape, generator=gen, device=dev)
+    g_tt = torch.randn(tr_k.shape, generator=gen, device=dev)
+    d_k = raster.raster_bwd_cuda(
+        s16, gb.ranges, g_col, ((g_col * col_k).sum(1) + g_tt * tr_k).contiguous(),
+        c16, pack_out=True)
+    d_p = _raster_tiles_bwd_walk(f16, gb.ranges, 0, g_col,
+                                 ((g_col * col_p).sum(1) + g_tt * tr_p)[..., None],
+                                 c16)[0]
+    n16 = int(gb.num_intersections)
+    u_k = unpack_bf16_pairs(d_k[:, :n16], 9)
+    u_p = unpack_bf16_pairs(pack_bf16_pairs(d_p)[:, :n16], 9)
+    rel16 = ((u_k - u_p).norm(dim=1) / u_p.norm(dim=1).clamp_min(1e-30)).tolist()
+    within16, ulp16 = pair_shares(u_k, u_p)
+    log(f"[golden packed16] K1 max abs err {err16}; K2 bf16 pairs: relative L2"
+        f" per row {rel16}, within rtol 2e-3 / atol 2e-4 + one bf16 ulp "
+        f"{within16} (one bf16 ulp alone {ulp16}), slots past the "
+        f"stream exactly 0: {bool((d_k[:, n16:] == 0).all())}")
+    if not (err16 <= 1e-4 and max(rel16) <= 1e-3 and within16 >= 0.999
+            and bool((d_k[:, n16:] == 0).all())):
+        raise SystemExit("golden packed16: K1 or K2 outside the stated "
+                         "tolerance of the plain version")
+    del s16, f16, d_k, d_p, col_k, tr_k, col_p, tr_p, g_col, g_tt
+    torch.cuda.empty_cache()
+    log(f"[phases 1-8] {time.perf_counter() - t_start:.1f} s")
 
-    # 8. Main path: a server answering requests for four views.
-    cull.launches = raster.launches = raster.bwd_launches = 0
-    segsum.launches = 0
-    frame_ms = []
-    frames = 0
-    for rep in range(4):  # repetition 0 is the warm-up
-        for i, cam in enumerate(cams):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = render(scene, cam, cfg)
-            torch.cuda.synchronize()
-            dt = (time.perf_counter() - t0) * 1e3
-            frames += 1
-            img = out.image
-            ok = (not bool(out.overflow) and int(out.num_intersections) > 0
-                  and tuple(img.shape) == (cfg.height, cfg.width, 3)
-                  and bool(torch.isfinite(img).all())
-                  and float(img.max()) > 0.01)
-            if rep == 0:
-                log(f"[main] view {i}: {int(out.num_intersections)} "
-                    f"intersections, overflow {bool(out.overflow)}, image "
-                    f"max {float(img.max())} mean {float(img.mean())}, "
-                    f"min T {float(out.transmittance.min())}")
-            else:
-                frame_ms.append(dt)
-            if not ok:
-                raise SystemExit(f"main: view {i} failed its checks")
-    serve = {"cull": cull.launches, "raster_fwd": raster.launches,
-             "raster_bwd": raster.bwd_launches, "segsum": segsum.launches}
-    log(f"[main] {frames} frames, launches {serve}")
-    if min(serve["cull"], serve["raster_fwd"]) == 0:
-        raise SystemExit("main: a kernel of the path was never launched")
-    log(f"[main] median {statistics.median(frame_ms)} ms per frame over "
-        f"{len(frame_ms)} frames (min {min(frame_ms)}, max {max(frame_ms)}) "
-        f"at {cfg.width}x{cfg.height}, {NUM_GAUSSIANS} Gaussians, on {card}")
-
-    # 9. Main path: a trainer taking steps, one view per step.
+    # 9. Main paths.
     tcfg = RenderConfig(**BENCH, **EXACT)
-    train, targets, step = make_trainer(scene, cams, tcfg, dev)
-    step_ms, losses = [], []
-    warmup = len(cams)
-    for i in range(TRAIN_ROUNDS * len(cams)):
-        if i == warmup:
-            cull.launches = raster.launches = raster.bwd_launches = 0
-            segsum.launches = 0
-        v = i % len(cams)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, aux, (tap, visible) = step(train, [cams[v]], targets[v : v + 1])
-        torch.cuda.synchronize()
-        dt = (time.perf_counter() - t0) * 1e3
-        losses.append(float(loss))
-        if i >= warmup:
-            step_ms.append(dt)
-        log(f"[train] step {i} view {v}: loss {losses[-1]}, "
-            f"{int(aux['num_intersections'])} intersections, overflow "
-            f"{bool(aux['overflow'])}, grads finite {bool(aux['grads_finite'])}"
-            f", {int(visible.sum())} visible, {dt} ms")
-        if bool(aux["overflow"]) or not bool(aux["grads_finite"]) or \
-                not np.isfinite(losses[-1]):
-            raise SystemExit(f"train: step {i} overflowed or went non-finite")
-    launches = {"cull": cull.launches, "raster_fwd": raster.launches,
-                "raster_bwd": raster.bwd_launches, "segsum": segsum.launches}
-    rounds = [statistics.mean(losses[r * len(cams) : (r + 1) * len(cams)])
-              for r in range(TRAIN_ROUNDS)]
-    log(f"[train] {len(step_ms)} measured steps, launches {launches}, mean "
-        f"loss per round {rounds}")
-    if min(launches.values()) == 0:
-        raise SystemExit("train: a kernel of the path was never launched")
-    if not rounds[-1] < rounds[0]:
-        raise SystemExit("train: the loss did not fall")
-    log(f"[train] median {statistics.median(step_ms)} ms per step over "
-        f"{len(step_ms)} steps (min {min(step_ms)}, max {max(step_ms)}) at "
-        f"{cfg.width}x{cfg.height}, {NUM_GAUSSIANS} Gaussians, on {card}")
+    rserve = RenderConfig(**dict(BENCH, **DEFAULT, **JUMBO))
+    by_path, times = {}, {}
+    by_path["serve_f32"] = drive(
+        "serve f32", ("cull", "raster_fwd"),
+        lambda: times.update(serve_f32=serve("serve f32", scene, cams, cfg,
+                                             card)))
+    by_path["train_exact"] = drive(
+        "train exact", ("cull", "raster_fwd", "raster_bwd", "segsum"),
+        lambda: times.update(train_exact=train("train exact", scene, cams,
+                                               tcfg, dev, card)))
+    by_path["serve_packed4"] = drive(
+        "serve packed4", ("cull", "raster_fwd_packed"),
+        lambda: times.update(
+            serve_packed4_random=serve("serve packed4 random", scene, cams,
+                                       cfg4, card),
+            serve_packed4_realistic=serve("serve packed4 realistic", rscene,
+                                          cams, rserve, card)))
+    by_path["train_default"] = drive(
+        "train default", ("cull", "raster_fwd_packed", "raster_bwd_packed",
+                          "segsum_packed"),
+        lambda: times.update(
+            train_default_random=train("train default random", scene, cams,
+                                       cfg4, dev, card),
+            train_default_realistic=train("train default realistic", rscene,
+                                          cams, rserve, dev, card)))
+    log(f"[main] ms per frame / step {times}")
+    del rscene
+    torch.cuda.empty_cache()
 
-    # 10. Golden gradients: the card's four kernels against the CPU plain
-    # path (last, so that its CPU threads do not share the host with the
-    # main paths' timing).
-    gcfg = RenderConfig(**GOLDEN, **EXACT)
+    # 10. Golden gradients: the card's kernels against the CPU plain path
+    # (last, so that its CPU threads do not share the host with the main
+    # paths' timing).
     target = np.random.default_rng(0).uniform(size=(64, 64, 3)).astype(np.float32)
-    before = (raster.bwd_launches, segsum.launches)
-    results = []
-    for d in (dev, torch.device("cpu")):
-        loss_d, g_d = render_loss_and_grad(
-            scene_from_numpy(**gnp, device=d), Camera.default(64, 64, device=d),
-            torch.from_numpy(target).to(d), gcfg)
-        results.append((float(loss_d), {f: getattr(g_d, f).cpu().numpy()
-                                        for f in SCENE_FIELDS}))
-    rose = (raster.bwd_launches > before[0], segsum.launches > before[1])
-    worst = {}
-    for f in SCENE_FIELDS:
-        a, b = results[0][1][f], results[1][1][f]
-        worst[f] = float((np.abs(a - b) / (1e-5 + 5e-3 * np.abs(b))).max())
-    log(f"[golden-grad] loss card {results[0][0]} cpu {results[1][0]}; worst "
-        f"|error| / (1e-5 + 5e-3 |cpu|) per field {worst}; K2, K4 launched "
-        f"{rose}")
-    if not (max(worst.values()) <= 1.0 and all(rose)):
-        raise SystemExit("golden gradients: card outside rtol 5e-3 / atol "
-                         "1e-5 of the CPU path, or not through K2 and K4")
+    for tag, extra in (("exact", dict(EXACT)),
+                       ("bench default", dict(DEFAULT, binning="tiered"))):
+        gcfg = RenderConfig(**GOLDEN, **extra)
+        before = launch_counts()
+        results = []
+        for d in (dev, torch.device("cpu")):
+            loss_d, g_d = render_loss_and_grad(
+                scene_from_numpy(**gnp, device=d),
+                Camera.default(64, 64, device=d),
+                torch.from_numpy(target).to(d), gcfg)
+            results.append((float(loss_d), {f: getattr(g_d, f).cpu().numpy()
+                                            for f in SCENE_FIELDS}))
+        rose = {k: v - before[k] for k, v in launch_counts().items()
+                if v > before[k]}
+        worst, shares = {}, {}
+        for f in SCENE_FIELDS:
+            a, b = results[0][1][f], results[1][1][f]
+            if tag == "exact":
+                worst[f] = float((np.abs(a - b) / (1e-5 + 5e-3 * np.abs(b))).max())
+            else:
+                worst[f] = float(np.abs(a - b).max()
+                                 / (1e-5 + 1e-2 * np.abs(b).max()))
+                shares[f] = float(np.mean(np.abs(a - b)
+                                          <= 1e-5 + 8e-3 * np.abs(b)))
+        log(f"[golden-grad {tag}] loss card {results[0][0]} cpu "
+            f"{results[1][0]}; worst |error| / tolerance per field {worst}"
+            f"{'; share within 1e-5 + 8e-3 |cpu| ' + str(shares) if shares else ''}"
+            f"; launches {rose}")
+        needs = (("raster_bwd", "segsum") if tag == "exact" else
+                 ("raster_fwd_packed", "raster_bwd_packed", "segsum_packed"))
+        if not (max(worst.values()) <= 1.0
+                and all(s >= 0.99 for s in shares.values())
+                and all(k in rose for k in needs)):
+            raise SystemExit(f"golden gradients {tag}: card outside the "
+                             "stated tolerance of the CPU path, or not "
+                             f"through {needs}")
 
-    for name, n in launches.items():
-        kernels[name]["launches"] = n
-        kernels[name]["serve_launches"] = serve[name]
+    for name in kernels:
+        kernels[name]["launches_by_path"] = {p: c[name]
+                                             for p, c in by_path.items()}
+        kernels[name]["launches"] = sum(c[name] for c in by_path.values())
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -5,16 +5,22 @@ kernels become CUDA C++ kernels for sm_90a in `csrc/`, built on first use
 (`ops/cuda/_build.py`). Entry points default to `device="cuda"`; a kernel
 wrapper runs its plain PyTorch version only for a CPU tensor.
 
-Ported so far: the forward render (projection, SH, tiered binning through
-the cull kernel K3, gather, per-tile blend kernel K1) and the single-device
+Ported so far: the forward render (projection, SH, tiered binning with
+the jumbo tiers through the cull kernel K3, gather, per-tile blend kernel
+K1 on the float32 or the packed16/packed4 stream) and the single-device
 training step (`train.loop.make_train_step`: the blend backward K2, the
-gather's sort-based backward with the segmented-suffix-sum kernel K4, L1 +
-DSSIM, Adam). The packed streams, densification, I/O and multi-GPU come in
+gather's sort-based backward with the segmented-suffix-sum kernels K4 and,
+over bf16 pairs, K5, L1 + DSSIM, Adam), with `random_scene` and the
+heavy-tailed `realistic_scene`. Densification, I/O and multi-GPU come in
 later slices.
 """
 
 from gsplat_tpu_torch.config import RenderConfig
-from gsplat_tpu_torch.models.gaussians import GaussianScene, random_scene
+from gsplat_tpu_torch.models.gaussians import (
+    GaussianScene,
+    random_scene,
+    realistic_scene,
+)
 from gsplat_tpu_torch.ops.camera import Camera
 from gsplat_tpu_torch.render.pipeline import RenderOutput, render
 
@@ -24,5 +30,6 @@ __all__ = [
     "RenderConfig",
     "RenderOutput",
     "random_scene",
+    "realistic_scene",
     "render",
 ]

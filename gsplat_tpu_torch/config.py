@@ -62,7 +62,9 @@ class RenderConfig:
     tile_culling: bool = True
     # 'tiered' binning shape: legacy (K0, div1, div2) or ((k_hi, div), ...).
     tier_spec: tuple = (8, 5, 16)
-    # Jumbo tiers for heavy-tailed scenes (a later slice of the port).
+    # Jumbo tiers for heavy-tailed scenes: splats whose rect exceeds
+    # max_tiles_per_gaussian are enumerated in full, up to max_tiles_jumbo
+    # tiles, on budgeted rows (ops/binning.py::_jumbo_candidates).
     max_tiles_jumbo: int = 0
     jumbo_tier_spec: tuple = ()
     # Gaussian block of the TPU blend kernel. Kept for config parity; the
@@ -70,19 +72,27 @@ class RenderConfig:
     pallas_block_size: int = 256
     # Optional per-tile segment alignment of the sorted stream (0/1 = off).
     stream_align: int = 0
-    # Training-path options, validated here so a config means the same thing
-    # in both packages; the 'bf16' gradient paths are a later slice.
+    # Gather backward: 'variadic', 'permute' and 'c64' are one float32 path
+    # in the port (ops/binning.py::_GatherSlots); 'bf16' rounds the slot
+    # gradients to bf16 pairs and sums them with kernel K5 (with a packed
+    # stream, kernel K2 writes the pairs itself).
     gather_backward: str = "variadic"
     grad_readout: str = "f32"
     # 'doubling' and 'pallas' are one path in the port: kernel K4 on the
     # card, its plain version on the CPU (see `ops.binning.gather_slots_bwd`).
     segment_sum: str = "doubling"
     fragment_format: str = "f32"
+    # Selects nothing in the port: the CUDA blend has no matmul (the TPU
+    # kernels' triangular-cumsum matmul passes have no counterpart), and the
+    # SSIM blur runs in full float32 whatever it says (train/losses.py).
     matmul_precision: str = "highest"
-    # Forward feature-stream format: 'f32' here; 'packed16'/'packed4' are a
-    # later slice of the port.
+    # Forward feature stream: 'f32', or the int32 'packed16' / 'packed4'
+    # streams of ops/stream16.py, which K1 and K2 unpack in the kernel.
     stream_format: str = "f32"
     quant_ranges: tuple | None = None
+    # Selects nothing in the port: 'c64' moves the same bits as 'i32'
+    # (tests/test_stream16.py:100-130), so the packed gather is one int32
+    # index_select (ops/stream16.py::gather_packed).
     slot_gather: str = "i32"
 
     # ---- derived (static) ----

@@ -15,9 +15,10 @@
 // are tens of microseconds. Design: one thread per (row, k) lane, consecutive threads on
 // consecutive k of one row, so the one-byte mask stores coalesce and the ten
 // parameter loads of a row are shared by its kmax lanes through L1. kmax is
-// a runtime argument (the jumbo tiers of a later slice reuse the kernel with
-// kmax up to 2048). The mask is written as 0/1 bytes straight into the
-// (N, kmax) bool tensor: no f32 mask and no transpose as on the TPU.
+// a runtime argument: the jumbo tiers run the kernel on their gathered rows
+// with kmax = max_tiles_jumbo, up to 2048. The mask is written as 0/1 bytes
+// straight into the (N, kmax) bool tensor: no f32 mask and no transpose as
+// on the TPU.
 //
 // Exactness: every product, sum and quotient goes through __fmul_rn,
 // __fadd_rn, __fsub_rn and __fdiv_rn, which nvcc never contracts into FMAs,

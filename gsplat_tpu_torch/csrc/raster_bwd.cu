@@ -36,6 +36,15 @@
 // DMA alignment) has no counterpart. The CTA leaves the walk when every
 // pixel is done, as K1 does; the wrapper zero-fills the output, so slots
 // past an early exit and the invalid tail [ranges[T], max_I) stay exactly 0.
+//
+// Formats: the stream is read in any of K1's formats (blend.cuh's load_slot,
+// a template parameter). With a packed stream and gather_backward='bf16' the
+// kernel writes its gradients as 5 int32 rows of bf16 pairs (0|1) (2|3)
+// (4|5) (6|7) (8|0) (blend.cuh's pack_pair, rounding to nearest even), as
+// the TPU kernel's _pack_grad_block does (raster.py:79-99, :294-295); K5
+// then sums them without unpacking the stream in device memory. The (8|0)
+// pair has a zero high half, an f32 denormal bit pattern, so it is written
+// as an integer.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,15 +58,17 @@ using namespace gsplat;
 constexpr int kBatch = 32;     // Gaussians staged per batch
 constexpr int kMaxWarps = 32;  // 1024 threads: a 32x32 tile
 constexpr int kSums = 9;       // pixel sums per Gaussian
+constexpr int kPairs = (kFeatures + 1) / 2;  // rows of the packed output
 enum { S_DX, S_DY, S_DXX, S_DXY, S_DYY, S_R, S_G, S_B, S_OP };
 
+template <int FMT, bool PACK_OUT>
 __global__ void __launch_bounds__(1024, 1)
-raster_bwd_kernel(const float* __restrict__ feat, int64_t max_i,
+raster_bwd_kernel(const void* __restrict__ stream, int64_t max_i,
                   const int32_t* __restrict__ ranges,
                   const float* __restrict__ g_color,
                   const float* __restrict__ b_total, int p, int tile_offset,
-                  int tiles_x, int ts, BlendParams bp,
-                  float* __restrict__ dfeat) {
+                  int tiles_x, int ts, BlendParams bp, Quant q,
+                  void* __restrict__ dfeat) {
   __shared__ float s_feat[kFeatures][kBatch];
   __shared__ float s_part[kMaxWarps][kSums][kBatch];
   __shared__ float s_sum[kSums][kBatch];
@@ -91,15 +102,19 @@ raster_bwd_kernel(const float* __restrict__ feat, int64_t max_i,
     // the whole CTA once every pixel has terminated.
     if (__syncthreads_and(done)) break;
     const int n = min(kBatch, end - b0);
-    for (int idx = lin; idx < kFeatures * kBatch; idx += blockDim.x) {
-      const int f = idx / kBatch, j = idx % kBatch;
-      float v = 0.f;
-      if (j < n) {
-        v = feat[f * max_i + b0 + j];
-        if (f == F_GX) v = __fsub_rn(v, ox);
-        if (f == F_GY) v = __fsub_rn(v, oy);
+    // The first warp stages the batch, one slot per lane.
+    if (lin < kBatch) {
+      float v[kFeatures];
+      if (lin < n) {
+        load_slot<FMT>(stream, max_i, (int64_t)b0 + lin, q, v);
+        v[F_GX] = __fsub_rn(v[F_GX], ox);
+        v[F_GY] = __fsub_rn(v[F_GY], oy);
+      } else {
+#pragma unroll
+        for (int f = 0; f < kFeatures; ++f) v[f] = 0.f;
       }
-      s_feat[f][j] = v;
+#pragma unroll
+      for (int f = 0; f < kFeatures; ++f) s_feat[f][lin] = v[f];
     }
     __syncthreads();
     for (int j = 0; j < n; ++j) {
@@ -170,37 +185,85 @@ raster_bwd_kernel(const float* __restrict__ feat, int64_t max_i,
       const float sdx = s_sum[S_DX][j], sdy = s_sum[S_DY][j];
       const float ca = s_feat[F_CA][j], cb = s_feat[F_CB][j],
                   cc = s_feat[F_CC][j];
-      float* out = dfeat + b0 + j;
-      out[F_GX * max_i] = ca * sdx + cb * sdy;
-      out[F_GY * max_i] = cc * sdy + cb * sdx;
-      out[F_CA * max_i] = -0.5f * s_sum[S_DXX][j];
-      out[F_CB * max_i] = -s_sum[S_DXY][j];
-      out[F_CC * max_i] = -0.5f * s_sum[S_DYY][j];
-      out[F_R * max_i] = s_sum[S_R][j];
-      out[F_G * max_i] = s_sum[S_G][j];
-      out[F_B * max_i] = s_sum[S_B][j];
-      out[F_OP * max_i] = s_sum[S_OP][j];
+      float d[kFeatures];
+      d[F_GX] = ca * sdx + cb * sdy;
+      d[F_GY] = cc * sdy + cb * sdx;
+      d[F_CA] = -0.5f * s_sum[S_DXX][j];
+      d[F_CB] = -s_sum[S_DXY][j];
+      d[F_CC] = -0.5f * s_sum[S_DYY][j];
+      d[F_R] = s_sum[S_R][j];
+      d[F_G] = s_sum[S_G][j];
+      d[F_B] = s_sum[S_B][j];
+      d[F_OP] = s_sum[S_OP][j];
+      const int64_t s = (int64_t)b0 + j;
+      if (PACK_OUT) {
+        // bf16 pairs (0|1) (2|3) (4|5) (6|7) (8|0), the pairing of the TPU
+        // kernel's _pack_grad_block (raster.py:79-99).
+        int32_t* out = static_cast<int32_t*>(dfeat);
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i) {
+          out[i * max_i + s] =
+              pack_pair(d[2 * i], 2 * i + 1 < kFeatures ? d[2 * i + 1] : 0.f);
+        }
+      } else {
+        float* out = static_cast<float*>(dfeat);
+#pragma unroll
+        for (int f = 0; f < kFeatures; ++f) out[f * max_i + s] = d[f];
+      }
     }
   }
+}
+
+template <int FMT, bool PACK_OUT>
+void launch(const void* stream, int64_t max_i, const int32_t* ranges,
+            int num_tiles, const float* g_color, const float* b_total,
+            int tile_offset, int tiles_x, int tile_size, BlendParams bp,
+            Quant q, void* dfeat, cudaStream_t st) {
+  const int p = tile_size * tile_size;
+  const int threads = (p + 31) / 32 * 32;
+  raster_bwd_kernel<FMT, PACK_OUT><<<num_tiles, threads, 0, st>>>(
+      stream, max_i, ranges, g_color, b_total, p, tile_offset, tiles_x,
+      tile_size, bp, q, dfeat);
 }
 
 }  // namespace
 
 // dfeat must be zero-filled by the caller: the kernel writes only the slots
-// its tiles walk.
-extern "C" int gsplat_raster_bwd(const float* feat, int64_t max_i,
+// its tiles walk. It is (9, max_i) float32, or with pack_out (5, max_i)
+// int32 bf16 pairs.
+extern "C" int gsplat_raster_bwd(const void* stream, int fmt, int64_t max_i,
                                  const int32_t* ranges, int num_tiles,
                                  const float* g_color, const float* b_total,
                                  int tile_offset, int tiles_x, int tile_size,
                                  float alpha_clamp, float alpha_min,
-                                 float t_min, float* dfeat, void* stream) {
+                                 float t_min, float lox, float inv_sx,
+                                 float loy, float inv_sy, float rg_step,
+                                 float b_step, int pack_out, void* dfeat,
+                                 void* cuda_stream) {
   const int p = tile_size * tile_size;
   const int threads = (p + 31) / 32 * 32;
   if (threads > kMaxWarps * 32) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
-    raster_bwd_kernel<<<num_tiles, threads, 0, (cudaStream_t)stream>>>(
-        feat, max_i, ranges, g_color, b_total, p, tile_offset, tiles_x,
-        tile_size, gsplat::BlendParams{alpha_clamp, alpha_min, t_min}, dfeat);
+    const gsplat::BlendParams bp{alpha_clamp, alpha_min, t_min};
+    const gsplat::Quant q{lox, inv_sx, loy, inv_sy, rg_step, b_step};
+    cudaStream_t st = (cudaStream_t)cuda_stream;
+#define GSPLAT_BWD(F, P)                                                   \
+  launch<F, P>(stream, max_i, ranges, num_tiles, g_color, b_total,         \
+               tile_offset, tiles_x, tile_size, bp, q, dfeat, st)
+    if (fmt == gsplat::kF32 && !pack_out) {
+      GSPLAT_BWD(gsplat::kF32, false);
+    } else if (fmt == gsplat::kPacked16 && pack_out) {
+      GSPLAT_BWD(gsplat::kPacked16, true);
+    } else if (fmt == gsplat::kPacked16) {
+      GSPLAT_BWD(gsplat::kPacked16, false);
+    } else if (fmt == gsplat::kPacked4 && pack_out) {
+      GSPLAT_BWD(gsplat::kPacked4, true);
+    } else if (fmt == gsplat::kPacked4) {
+      GSPLAT_BWD(gsplat::kPacked4, false);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+#undef GSPLAT_BWD
   }
   return (int)cudaGetLastError();
 }

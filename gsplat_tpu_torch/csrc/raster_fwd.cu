@@ -10,6 +10,10 @@
 //   excluded; else C += c alpha T, T *= 1 - alpha.
 // It writes per tile the colour (3, P) and the final transmittance (P). The
 // pair arithmetic is blend.cuh's eval_pair, shared with the backward K2.
+// The stream is the float32 one or a packed int32 one (packed16, packed4:
+// gsplat_tpu_torch/ops/stream16.py), a template parameter; a packed slot is
+// unpacked where the batch is staged into shared memory (blend.cuh's
+// load_slot), as the TPU kernel unpacks its VMEM block (raster.py:56-63).
 //
 // What bounds it on an H100: arithmetic. Each (pixel, Gaussian) pair the
 // data needs costs about 20 FP32 operations and one exp, against one read of
@@ -35,11 +39,13 @@ namespace {
 
 using namespace gsplat;
 
-__global__ void raster_fwd_kernel(const float* __restrict__ feat,
+template <int FMT>
+__global__ void raster_fwd_kernel(const void* __restrict__ stream,
                                   int64_t max_i,
                                   const int32_t* __restrict__ ranges,
                                   int tile_offset, int tiles_x, int ts,
-                                  BlendParams bp, float* __restrict__ out_color,
+                                  BlendParams bp, Quant q,
+                                  float* __restrict__ out_color,
                                   float* __restrict__ out_trans) {
   extern __shared__ float smem[];  // kFeatures rows of blockDim.x Gaussians
   const int p = blockDim.x;  // pixels per tile = Gaussians per batch
@@ -72,16 +78,17 @@ __global__ void raster_fwd_kernel(const float* __restrict__ feat,
     if (__syncthreads_and(done)) break;
     const int n = min(p, end - b0);
     if (lin < n) {
-      const int64_t s = (int64_t)b0 + lin;
-      s_gxr[lin] = __fsub_rn(feat[F_GX * max_i + s], ox);
-      s_gyr[lin] = __fsub_rn(feat[F_GY * max_i + s], oy);
-      s_a[lin] = feat[F_CA * max_i + s];
-      s_b[lin] = feat[F_CB * max_i + s];
-      s_c[lin] = feat[F_CC * max_i + s];
-      s_r[lin] = feat[F_R * max_i + s];
-      s_g[lin] = feat[F_G * max_i + s];
-      s_bl[lin] = feat[F_B * max_i + s];
-      s_op[lin] = feat[F_OP * max_i + s];
+      float v[kFeatures];
+      load_slot<FMT>(stream, max_i, (int64_t)b0 + lin, q, v);
+      s_gxr[lin] = __fsub_rn(v[F_GX], ox);
+      s_gyr[lin] = __fsub_rn(v[F_GY], oy);
+      s_a[lin] = v[F_CA];
+      s_b[lin] = v[F_CB];
+      s_c[lin] = v[F_CC];
+      s_r[lin] = v[F_R];
+      s_g[lin] = v[F_G];
+      s_bl[lin] = v[F_B];
+      s_op[lin] = v[F_OP];
     }
     __syncthreads();
     if (done) continue;
@@ -108,21 +115,57 @@ __global__ void raster_fwd_kernel(const float* __restrict__ feat,
   out_trans[(int64_t)t * p + lin] = trans;
 }
 
+// One 1024-thread CTA per SM: with its templated staging ptxas gives the
+// kernel 32 registers instead of 40, so two CTAs fit an SM, and at the
+// bench shape (tile 32) that ran the same per-pair loop 17% slower than one
+// (0.90 against 0.77 ms on an H100). A shared-memory carveout of a quarter
+// of the SM (a 64 KB partition) holds one 37 KB CTA of a 32x32 tile and
+// still several CTAs of a smaller tile.
+constexpr int kSmemCarveoutPercent = 25;
+
+template <int FMT>
+cudaError_t launch(const void* stream, int64_t max_i, const int32_t* ranges,
+                   int num_tiles, int tile_offset, int tiles_x, int tile_size,
+                   BlendParams bp, Quant q, float* out_color,
+                   float* out_trans, cudaStream_t st) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      raster_fwd_kernel<FMT>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      kSmemCarveoutPercent);
+  if (err != cudaSuccess) return err;
+  const int p = tile_size * tile_size;
+  const size_t smem = (size_t)kFeatures * p * sizeof(float);
+  raster_fwd_kernel<FMT><<<num_tiles, p, smem, st>>>(
+      stream, max_i, ranges, tile_offset, tiles_x, tile_size, bp, q,
+      out_color, out_trans);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int gsplat_raster_fwd(const float* feat, int64_t max_i,
+extern "C" int gsplat_raster_fwd(const void* stream, int fmt, int64_t max_i,
                                  const int32_t* ranges, int num_tiles,
                                  int tile_offset, int tiles_x, int tile_size,
                                  float alpha_clamp, float alpha_min,
-                                 float t_min, float* out_color,
-                                 float* out_trans, void* stream) {
-  const int p = tile_size * tile_size;
-  if (num_tiles > 0) {
-    const size_t smem = (size_t)gsplat::kFeatures * p * sizeof(float);
-    raster_fwd_kernel<<<num_tiles, p, smem, (cudaStream_t)stream>>>(
-        feat, max_i, ranges, tile_offset, tiles_x, tile_size,
-        gsplat::BlendParams{alpha_clamp, alpha_min, t_min}, out_color,
-        out_trans);
+                                 float t_min, float lox, float inv_sx,
+                                 float loy, float inv_sy, float rg_step,
+                                 float b_step, float* out_color,
+                                 float* out_trans, void* cuda_stream) {
+  if (num_tiles <= 0) return (int)cudaGetLastError();
+  const gsplat::Quant q{lox, inv_sx, loy, inv_sy, rg_step, b_step};
+  const gsplat::BlendParams bp{alpha_clamp, alpha_min, t_min};
+  cudaStream_t st = (cudaStream_t)cuda_stream;
+#define GSPLAT_FWD(F)                                                      \
+  launch<F>(stream, max_i, ranges, num_tiles, tile_offset, tiles_x,        \
+            tile_size, bp, q, out_color, out_trans, st)
+  switch (fmt) {
+    case gsplat::kF32:
+      return (int)GSPLAT_FWD(gsplat::kF32);
+    case gsplat::kPacked16:
+      return (int)GSPLAT_FWD(gsplat::kPacked16);
+    case gsplat::kPacked4:
+      return (int)GSPLAT_FWD(gsplat::kPacked4);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+#undef GSPLAT_FWD
 }

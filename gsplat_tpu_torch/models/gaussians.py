@@ -95,3 +95,60 @@ def random_scene(
         opacity_logits=opacity_logits,
         sh=sh,
     )
+
+
+def realistic_scene(
+    num: int,
+    sh_degree: int = 3,
+    generator: torch.Generator | None = None,
+    device="cuda",
+    extent: float = 1.0,
+    depth_range: tuple = (2.0, 20.0),
+    log_scale_mu: float = -4.2,
+    log_scale_sigma: float = 1.0,
+    aniso_sigma: float = 0.6,
+    fat_fraction: float = 0.02,
+    fat_log_scale_mu: float = -1.6,
+) -> GaussianScene:
+    """Heavy-tailed synthetic scene with the distributions of
+    `gsplat_tpu.models.gaussians.realistic_scene`, the statistics of trained
+    captures: log-normal scales with per-axis anisotropy and a
+    `fat_fraction` of huge splats (they stress the tier budgets and need
+    the jumbo tiers), bimodal opacity (35% at logit U(-4, -1), 65% at
+    U(0.5, 6)), and log-uniform depth. The values differ from JAX's;
+    `generator`, when given, must live on `device`."""
+    device = torch.device(device)
+    kw = dict(device=device, generator=generator, dtype=torch.float32)
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, **kw) * (hi - lo) + lo
+
+    z = depth_range[0] * torch.exp(
+        torch.rand((num, 1), **kw) * math.log(depth_range[1] / depth_range[0]))
+    xy = uniform((num, 2), -extent, extent)
+    means = torch.cat([xy * z / depth_range[0], z], dim=-1)
+
+    base = log_scale_mu + log_scale_sigma * torch.randn((num, 1), **kw)
+    fat = torch.rand((num, 1), **kw) < fat_fraction
+    base = torch.where(
+        fat, fat_log_scale_mu + 0.5 * torch.randn((num, 1), **kw), base)
+    log_scales = base + aniso_sigma * torch.randn((num, 3), **kw)
+
+    quats = torch.randn((num, 4), **kw)
+    quats = quats / torch.linalg.norm(quats, dim=-1, keepdim=True)
+
+    low = uniform((num,), -4.0, -1.0)
+    high = uniform((num,), 0.5, 6.0)
+    opacity_logits = torch.where(torch.rand((num,), **kw) < 0.35, low, high)
+
+    k = num_sh_coeffs(sh_degree)
+    sh = uniform((num, 1, 3), 0.0, 2.0)
+    if k > 1:
+        sh = torch.cat([sh, 0.1 * torch.randn((num, k - 1, 3), **kw)], dim=1)
+    return GaussianScene(
+        means=means,
+        log_scales=log_scales,
+        quats=quats,
+        opacity_logits=opacity_logits,
+        sh=sh,
+    )

@@ -3,10 +3,11 @@ depth), compute per-tile ranges, gather the sorted feature stream, and the
 gather's scatter-free backward.
 
 Port of `gsplat_tpu.ops.binning` for `binning='tiered'` (the production
-mode), with `'packed'` and `'sort'` as oracles. The exact ellipse-tile cull
-runs through kernel K3 (`ops/cuda/cull.py`), the backward's segmented
-suffix sum through kernel K4 (`ops/cuda/segsum.py`). Differences from the
-JAX package:
+mode, with the jumbo tiers of `max_tiles_jumbo`), with `'packed'` and
+`'sort'` as oracles. The exact ellipse-tile cull runs through kernel K3
+(`ops/cuda/cull.py`), the backward's segmented suffix sum through kernel K4
+(`ops/cuda/segsum.py`), or K5 over bf16 pairs on the `gather_backward=
+'bf16'` path. Differences from the JAX package:
 
   - Keys are int64 with the values of the JAX u32 keys
     (`tile << depth_bits | depth_q`, sentinel 0xFFFFFFFF), because PyTorch's
@@ -16,9 +17,11 @@ JAX package:
   - The gather backward's strategies 'variadic', 'permute' and 'c64' are
     one code path here (see `_GatherSlots`), and so are its segment sums
     'doubling' and 'pallas' (see `gather_slots_bwd`).
-  - Not yet ported: `'scatter'` binning, `_align_stream`, the jumbo tiers,
-    shard-local tile ranges, and the bf16 gradient paths
-    (`gather_backward='bf16'`, `grad_readout='bf16'`).
+  - `grad_readout='bf16'` rounds the run totals it reads out to bf16, the
+    bits of the JAX package's pack, take and unpack, without the pack.
+  - Not yet ported: `'scatter'` binning, `_align_stream` and shard-local
+    tile ranges (the sharded paths), `tier_occupancy` and
+    `diagnose_overflow`.
 """
 
 from __future__ import annotations
@@ -28,7 +31,12 @@ import dataclasses
 import torch
 
 from gsplat_tpu_torch.config import RenderConfig
-from gsplat_tpu_torch.ops.cuda.cull import tile_cull_mask
+from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs
+from gsplat_tpu_torch.ops.cuda.cull import (
+    cull_mask_from_params,
+    cull_params,
+    tile_cull_mask,
+)
 from gsplat_tpu_torch.ops.cuda.segsum import segmented_suffix_sum
 from gsplat_tpu_torch.ops.projection import ProjectedGaussians
 
@@ -172,6 +180,15 @@ def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig):
     rect_w = torch.clamp_min(proj.rect[:, 2] - proj.rect[:, 0], 1)
     valid_all = _rect_cull_mask(proj, cfg)
     counts = valid_all.sum(dim=1, dtype=torch.int32)  # culled counts
+    if cfg.max_tiles_jumbo:
+        # Splats whose raw rect exceeds the base walk go to the jumbo tiers
+        # (`_jumbo_candidates`); zeroing their base counts takes them out of
+        # every base tier and pool, so nothing is emitted twice.
+        area_raw = (torch.clamp_min(proj.rect[:, 2] - proj.rect[:, 0], 0)
+                    * torch.clamp_min(proj.rect[:, 3] - proj.rect[:, 1], 0))
+        area_raw = torch.where(proj.mask, area_raw, 0)
+        is_jumbo = area_raw > kmax
+        counts = torch.where(is_jumbo, 0, counts)
     k = torch.arange(kmax, dtype=torch.int32, device=dev)[None, :]
     compact_k = torch.sort(
         torch.where(valid_all, k, torch.full_like(k, kmax)), dim=1,
@@ -227,7 +244,77 @@ def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig):
         key_l.append(key.reshape(-1))
         gidk_l.append(gidk.expand(key.shape).reshape(-1))
 
+    if cfg.max_tiles_jumbo:
+        jkey_l, jgidk_l, jtotal, jovf, counts = _jumbo_candidates(
+            proj, cfg, rect_w, area_raw, is_jumbo, counts, depth_bits, kb)
+        key_l += jkey_l
+        gidk_l += jgidk_l
+        total = total + jtotal
+        pool_overflow = pool_overflow | jovf
+
     return torch.cat(key_l), torch.cat(gidk_l), total, pool_overflow, counts
+
+
+def _jumbo_candidates(proj: ProjectedGaussians, cfg: RenderConfig, rect_w,
+                      area_raw, is_jumbo, counts, depth_bits: int, kb: int):
+    """The jumbo tiers (`cfg.max_tiles_jumbo`, port of
+    `gsplat_tpu.ops.binning._jumbo_candidates`): full enumeration of the
+    raw rect walk, up to max_tiles_jumbo tiles, for the splats whose rect
+    exceeds the base K_max, on their own (rows, max_tiles_jumbo) grid culled
+    by K3. Rows are the top of a raw-area ranking (area >= culled count);
+    tier [k_lo, k_hi) takes the prefix of that ranking whose area exceeds
+    k_lo, within its row budget. Membership past a budget, or a rect past
+    max_tiles_jumbo, sets the overflow flag.
+
+    Returns (key chunks, gidk chunks, total, overflow, counts with the jumbo
+    splats' culled counts added: the gather backward's run lengths)."""
+    jumbo = cfg.max_tiles_jumbo
+    jspec = list(cfg.jumbo_tier_spec)
+    budgets = [b for _, b in jspec]
+    if budgets != sorted(budgets, reverse=True):
+        raise ValueError(
+            "jumbo_tier_spec row budgets must descend (tiers take nested "
+            f"prefixes of the area ranking); got {budgets}"
+        )
+    dev = area_raw.device
+    overflow = (is_jumbo.sum() > budgets[0]) | (area_raw > jumbo).any()
+    ids_r = torch.sort(-area_raw, stable=False).indices[: budgets[0]]
+
+    # The walk bound of each row is its whole raw rect (up to max_tiles_jumbo).
+    bound = torch.clamp_max(area_raw, jumbo)
+    kj = torch.arange(jumbo, dtype=torch.int32, device=dev)[None, :]
+    ky_r, kx_r = _rect_divmod(kj, rect_w[ids_r][:, None])
+    if cfg.tile_culling:
+        params = cull_params(proj, cfg, counts=bound)[:, ids_r].contiguous()
+        maskj = cull_mask_from_params(params, jumbo, cfg.tile_size)
+    else:
+        maskj = kj < bound[ids_r][:, None]
+    # Budget-padding rows (area <= K_max) live in the base tiers.
+    maskj = maskj & is_jumbo[ids_r][:, None]
+    jcounts = maskj.sum(dim=1, dtype=torch.int32)
+    counts = counts.index_add(0, ids_r, jcounts)
+    tile_j = ((proj.rect[ids_r, 1:2] + ky_r) * cfg.tiles_x
+              + (proj.rect[ids_r, 0:1] + kx_r))
+    # The gidk candidate index is the rank among the splat's surviving
+    # tiles, so keys stay unique and below the suffix sum's depth.
+    krank = torch.cumsum(maskj, dim=1, dtype=torch.int32) - 1
+    key_j = ((tile_j.to(torch.int64) << depth_bits)
+             | _depth_q(proj.depth[ids_r], depth_bits)[:, None])
+    gidk_j = ((ids_r[:, None] << kb) | krank).to(torch.int32)
+
+    key_l, gidk_l = [], []
+    total = torch.zeros((), dtype=torch.int32, device=dev)
+    k_lo = 0
+    for k_hi, budget in jspec:
+        # Membership in [k_lo, k_hi) is area > k_lo, over all jumbo splats.
+        overflow = overflow | ((is_jumbo & (area_raw > k_lo)).sum() > budget)
+        valid = maskj[:budget, k_lo:k_hi]
+        key = torch.where(valid, key_j[:budget, k_lo:k_hi], SENTINEL_KEY)
+        total = total + valid.sum(dtype=torch.int32)
+        key_l.append(key.reshape(-1))
+        gidk_l.append(gidk_j[:budget, k_lo:k_hi].reshape(-1))
+        k_lo = k_hi
+    return key_l, gidk_l, total, overflow, counts
 
 
 def _candidate_tiles(proj: ProjectedGaussians, cfg: RenderConfig):
@@ -256,11 +343,10 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussian
     kmax = cfg.max_tiles_per_gaussian
     kb = _kbits(kmax_eff(cfg))
     n_tiles = cfg.num_tiles
-    if cfg.binning == "scatter" or cfg.max_tiles_jumbo:
+    if cfg.binning == "scatter":
         raise NotImplementedError(
-            "binning='scatter' and the jumbo tiers come in a later slice of "
-            "the port (with the packed streams); use 'tiered', 'packed' or "
-            "'sort'"
+            "binning='scatter' comes in a later slice of the port (with the "
+            "sharded paths); use 'tiered', 'packed' or 'sort'"
         )
     n_cap = min((1 << 24) - 1, 1 << (31 - kb))
     if kmax > (1 << kb) or n >= n_cap:
@@ -277,7 +363,11 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussian
         gcounts = valid.sum(dim=1, dtype=torch.int32)
         total = gcounts.sum(dtype=torch.int32)
         gidk = gidk.reshape(-1)
-    overflow = proj.overflow | pool_ovf | (total > max_i)
+    # With jumbo tiers a rect past K_max is covered, not truncated; the
+    # jumbo tiers flag what they drop (row budgets, area > max_tiles_jumbo).
+    rect_ovf = (torch.zeros((), dtype=torch.bool, device=dev)
+                if cfg.max_tiles_jumbo else proj.overflow)
+    overflow = rect_ovf | pool_ovf | (total > max_i)
 
     if cfg.binning == "sort":
         # Exact (tile, f32 depth) order: two stable sorts, depth then tile.
@@ -346,22 +436,33 @@ def gather_features(proj: ProjectedGaussians, binned: BinnedGaussians,
     order. Slots with gid -1 read an appended zero column. Differentiable:
     the backward is `_GatherSlots`'s sort and segmented suffix sum, not a
     scatter-add."""
-    feats = features_f32(proj, cfg)
-    if feats.requires_grad and torch.is_grad_enabled() and (
-        cfg.gather_backward == "bf16" or cfg.grad_readout == "bf16"
-    ):
-        raise NotImplementedError(
-            "gather_backward='bf16' and grad_readout='bf16' come with slice 3 "
-            "of the port (the packed streams and kernel K5); use "
-            "'variadic'/'permute'/'c64' with grad_readout='f32'"
-        )
     return _GatherSlots.apply(
-        feats, binned.sorted_gid, binned.sorted_gidk, binned.gauss_offsets,
-        binned.gauss_counts, kmax_eff(cfg),
+        features_f32(proj, cfg), binned.sorted_gid, binned.sorted_gidk,
+        binned.gauss_offsets, binned.gauss_counts, kmax_eff(cfg),
+        cfg.gather_backward, cfg.grad_readout,
     )
 
 
-def gather_slots_bwd(dslot, gidk, offsets, counts, kmax: int) -> torch.Tensor:
+def packed_grad_reduce(xp, key, offsets, counts, kmax: int, f: int):
+    """Slot gradients as (P, M) int32 bf16 pairs -> per-Gaussian (f, N)
+    float32 gradients (port of `gsplat_tpu.ops.binning.packed_grad_reduce`):
+    the key sort, one `index_select` of the pair rows into gid-major runs,
+    the packed segmented suffix sum (K5 on the card), the pairs at the run
+    starts unpacked, and zero for Gaussians with no slot. key is gidk with
+    invalid slots as 2**31 - 1. The pairs stay int32 throughout."""
+    m = key.shape[0]
+    s_key, perm = torch.sort(key, stable=False)
+    xp = xp.index_select(1, perm).contiguous()
+    rows = (s_key >> _kbits(kmax)).to(torch.int32)
+    xsum = segmented_suffix_sum(xp, rows, kmax)
+    offs = torch.clamp(offsets, 0, m - 1).to(torch.int64)
+    dgauss = unpack_bf16_pairs(xsum.index_select(1, offs), f)
+    return dgauss * (counts > 0)[None, :].to(dgauss.dtype)
+
+
+def gather_slots_bwd(dslot, gidk, offsets, counts, kmax: int,
+                     strategy: str = "variadic",
+                     readout: str = "f32") -> torch.Tensor:
     """Slot gradients (F, M) -> per-Gaussian gradients (F, N), with no
     scatter (port of `gsplat_tpu.ops.binning._gather_slots_bwd`):
       1. sort the keys gidk (invalid slots last, as 2**31 - 1) and carry the
@@ -372,42 +473,59 @@ def gather_slots_bwd(dslot, gidk, offsets, counts, kmax: int) -> torch.Tensor:
          the same slots (K4 walks exactly the doubling's reach), so here
          they are one path and `cfg.segment_sum` selects nothing;
       3. read the run starts at gauss_offsets, zero for Gaussians with no
-         slot.
-    Needs every valid candidate in the stream, which holds whenever the
-    overflow flag is clear."""
+         slot; with readout 'bf16' the totals read are rounded to bf16.
+    strategy 'bf16' instead rounds the slot gradients to bf16 pairs first
+    (unless dslot already holds the NUM_FEATURES gradients as (P, M) int32
+    pairs, as K2 writes them on a packed stream) and reduces them with
+    `packed_grad_reduce` (K5). The float32 strategies 'variadic', 'permute'
+    and 'c64' compute the same numbers and are one path here. Needs every
+    valid candidate in the stream, which holds whenever the overflow flag
+    is clear."""
     m = gidk.shape[0]
     key = torch.where(gidk >= 0, gidk, 2**31 - 1)
+    if strategy == "bf16":
+        if dslot.dtype == torch.int32:
+            return packed_grad_reduce(dslot, key, offsets, counts, kmax,
+                                      NUM_FEATURES)
+        return packed_grad_reduce(pack_bf16_pairs(dslot), key, offsets,
+                                  counts, kmax, dslot.shape[0])
     # Valid keys are unique, so an unstable sort gives the same runs.
     s_key, perm = torch.sort(key, stable=False)
     x = dslot.index_select(1, perm).contiguous()
     rows = (s_key >> _kbits(kmax)).to(torch.int32)
     x = segmented_suffix_sum(x, rows, kmax)
     offs = torch.clamp(offsets, 0, m - 1).to(torch.int64)
-    return x.index_select(1, offs) * (counts > 0)[None, :].to(x.dtype)
+    dgauss = x.index_select(1, offs)
+    if readout == "bf16":
+        # The JAX package packs the sums to bf16 pairs, takes the run starts
+        # and unpacks: the same bits as rounding the run starts.
+        dgauss = dgauss.to(torch.bfloat16).to(torch.float32)
+    return dgauss * (counts > 0)[None, :].to(dgauss.dtype)
 
 
 class _GatherSlots(torch.autograd.Function):
     """Gather per-Gaussian features into slot order; its backward is
-    `gather_slots_bwd`. The JAX package's gather_backward strategies
-    'variadic' (one variadic sort carrying the rows), 'permute' (sort, then
-    one 2-D take) and 'c64' (rows paired into complex sort values) differ
-    only in how XLA moves the rows through its sort; all three compute the
-    same f32 numbers, and here they are one path: a key sort, then one
-    permutation gather."""
+    `gather_slots_bwd` with the config's strategy and read-out. The JAX
+    package's gather_backward strategies 'variadic' (one variadic sort
+    carrying the rows), 'permute' (sort, then one 2-D take) and 'c64' (rows
+    paired into complex sort values) differ only in how XLA moves the rows
+    through its sort; all three compute the same f32 numbers, and here they
+    are one path: a key sort, then one permutation gather."""
 
     @staticmethod
-    def forward(ctx, feats, gid, gidk, offsets, counts, kmax):
+    def forward(ctx, feats, gid, gidk, offsets, counts, kmax, strategy,
+                readout):
         n = feats.shape[1]
         feats_pad = torch.cat([feats, feats.new_zeros((feats.shape[0], 1))], 1)
         g = torch.where(gid < 0, n, gid).to(torch.int64)
         if ctx.needs_input_grad[0]:
             ctx.save_for_backward(gidk, offsets, counts)
-            ctx.kmax = kmax
+            ctx.opts = (kmax, strategy, readout)
         return feats_pad.index_select(1, g).contiguous()
 
     @staticmethod
     def backward(ctx, dslot):
         gidk, offsets, counts = ctx.saved_tensors
         dgauss = gather_slots_bwd(dslot.contiguous(), gidk, offsets, counts,
-                                  ctx.kmax)
-        return dgauss, None, None, None, None, None
+                                  *ctx.opts)
+        return dgauss, None, None, None, None, None, None, None

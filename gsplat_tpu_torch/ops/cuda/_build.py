@@ -22,6 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "gsplat_tpu_torch"
+# No --use_fast_math and no -ftz=true: a bf16 pair whose high half is zero is
+# an f32 denormal bit pattern (K2's and K5's opacity lanes), and the kernels'
+# unpacked bf16 halves may be denormal; flushing would zero them.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -26,9 +26,13 @@ NUM_ROWS = 10
 launches = 0
 
 
-def cull_params(proj, cfg: RenderConfig) -> torch.Tensor:
+def cull_params(proj, cfg: RenderConfig, counts=None) -> torch.Tensor:
     """(10, N) float32 parameter rows; tau = -1 culls every lane of a
-    Gaussian with opacity <= alpha_min."""
+    Gaussian with opacity <= alpha_min. `counts` overrides proj.counts as
+    the walk bound (the jumbo tiers pass the raw rect area, clipped to
+    max_tiles_jumbo, where proj.counts clips to K_max)."""
+    if counts is None:
+        counts = proj.counts
     rect_w = torch.clamp_min(proj.rect[:, 2] - proj.rect[:, 0], 1)
     tau = 2.0 * torch.log(torch.clamp_min(proj.opacity / cfg.alpha_min, 1e-12))
     tau = torch.where(proj.opacity > cfg.alpha_min, tau,
@@ -43,7 +47,7 @@ def cull_params(proj, cfg: RenderConfig) -> torch.Tensor:
         proj.rect[:, 0].float(),
         proj.rect[:, 1].float(),
         rect_w.float(),
-        proj.counts.float(),
+        counts.float(),
     ]
     return torch.stack(rows, 0).detach()
 

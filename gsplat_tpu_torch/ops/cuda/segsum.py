@@ -1,18 +1,23 @@
-"""K4, the segmented suffix sum: CUDA kernel `csrc/segsum.cu` and its plain
-PyTorch version.
+"""K4 and K5, the segmented suffix sums of the gather backward: CUDA kernels
+`csrc/segsum.cu` (float32 rows) and `csrc/segsum_packed.cu` (bf16-pair
+rows), and their plain PyTorch versions.
 
-Replaces `gsplat_tpu/ops/pallas/segsum.py::_kernel` (`segmented_suffix_sum`
-with `packed=False`). The plain version is the doubling loop of
-`gsplat_tpu.ops.binning._gather_slots_bwd` (`segment_sum='doubling'`).
+K4 replaces `gsplat_tpu/ops/pallas/segsum.py::_kernel` (`segmented_suffix_sum`
+with `packed=False`); its plain version is the doubling loop of
+`gsplat_tpu.ops.binning._gather_slots_bwd` (`segment_sum='doubling'`). K5
+replaces `segsum.py::_kernel_packed` (`packed=True`): the same sum over
+int32 lanes that each hold two bf16 values (`ops/bf16_pairs.py`), summed in
+float32 and rounded back to bf16 to nearest even; its plain version unpacks,
+runs the doubling and repacks.
 
-Contract: x is (F, M) float32 in gid-major run order and rows (M,) int32
-run ids sorted ascending, each run at most kmax long; out[:, j] = sum over
-k >= j with rows[k] == rows[j] of x[:, k], an (F, M) result. It is the JAX
-`segmented_suffix_sum` cut to its first M lanes: the TPU kernel pads M to
-its block size, which the CUDA kernel has no use for. A run longer than
-kmax is summed only as deep as the doubling reaches (kmax rounded up to a
-power of two); the pipeline's one long run, the invalid-slot tail, carries
-zeros.
+Contract: x is (F, M) float32, or (P, M) int32 pairs, in gid-major run order
+and rows (M,) int32 run ids sorted ascending, each run at most kmax long;
+out[:, j] = sum over k >= j with rows[k] == rows[j] of x[:, k], of x's shape
+and type. It is the JAX `segmented_suffix_sum` cut to its first M lanes: the
+TPU kernel pads M to its block size, which the CUDA kernels have no use for.
+A run longer than kmax is summed only as deep as the doubling reaches (kmax
+rounded up to a power of two); the pipeline's one long run, the invalid-slot
+tail, carries zeros.
 """
 
 from __future__ import annotations
@@ -21,10 +26,14 @@ import ctypes
 
 import torch
 
+from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs
 from gsplat_tpu_torch.ops.cuda import _build
 
-# Kernel launches: segmented_suffix_sum_cuda adds one per launch, nowhere else.
+# K4 launches: segmented_suffix_sum_cuda adds one per launch, nowhere else.
 launches = 0
+# K5 launches: segmented_suffix_sum_packed_cuda adds one per launch, nowhere
+# else.
+packed_launches = 0
 
 
 def doubling_depth(kmax: int) -> int:
@@ -47,22 +56,32 @@ def segmented_suffix_sum_plain(x, rows, kmax: int):
     return x
 
 
-def segmented_suffix_sum_cuda(x, rows, kmax: int):
-    """Launch the kernel: (F, M) float32, (M,) int32 -> (F, M)."""
-    global launches
-    if x.device.type != "cuda":
-        raise ValueError(f"segsum: the kernel needs a CUDA device, got "
-                         f"{x.device}")
-    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("segsum: x must be a contiguous (F, M) float32 "
+def segmented_suffix_sum_packed_plain(x, rows, kmax: int):
+    """K5's plain version: unpack the pairs to float32, the doubling, and
+    repack rounding to nearest even. Sums in the order of the TPU kernel's
+    in-block doubling."""
+    f = 2 * x.shape[0]
+    return pack_bf16_pairs(
+        segmented_suffix_sum_plain(unpack_bf16_pairs(x, f), rows, kmax))
+
+
+def _check(x, rows, dtype, what: str) -> None:
+    if x.dtype != dtype or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"{what}: x must be a contiguous 2-D {dtype} "
                          f"tensor, got {tuple(x.shape)} {x.dtype}")
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: the kernel needs a CUDA device, got "
+                         f"{x.device}")
     if rows.dtype != torch.int32 or rows.shape != (x.shape[1],) or \
             not rows.is_contiguous() or rows.device != x.device:
-        raise ValueError("segsum: rows must be a contiguous (M,) int32 "
+        raise ValueError(f"{what}: rows must be a contiguous (M,) int32 "
                          "tensor on x's device")
+
+
+def _launch(lib: str, x, rows, kmax: int):
     f, m = x.shape
-    out = torch.empty((f, m), dtype=torch.float32, device=x.device)
-    fn = _build.load("segsum").gsplat_segsum
+    out = torch.empty_like(x)
+    fn = getattr(_build.load(lib), f"gsplat_{lib}")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p]
@@ -71,16 +90,39 @@ def segmented_suffix_sum_cuda(x, rows, kmax: int):
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), rows.data_ptr(), m, f, doubling_depth(kmax),
                  out.data_ptr(), stream)
-    _build.check(err, "gsplat_segsum")
+    _build.check(err, f"gsplat_{lib}")
+    return out
+
+
+def segmented_suffix_sum_cuda(x, rows, kmax: int):
+    """Launch K4: (F, M) float32, (M,) int32 -> (F, M) float32."""
+    global launches
+    _check(x, rows, torch.float32, "segsum")
+    out = _launch("segsum", x, rows, kmax)
     launches += 1
     return out
 
 
+def segmented_suffix_sum_packed_cuda(x, rows, kmax: int):
+    """Launch K5: (P, M) int32 bf16 pairs, (M,) int32 -> (P, M) int32."""
+    global packed_launches
+    _check(x, rows, torch.int32, "segsum_packed")
+    out = _launch("segsum_packed", x, rows, kmax)
+    packed_launches += 1
+    return out
+
+
 def segmented_suffix_sum(x, rows, kmax: int):
-    """(F, M) gradient rows, (M,) sorted run ids -> (F, M) suffix sums: the
-    CUDA kernel for CUDA tensors, the plain doubling for CPU tensors."""
+    """Gradient rows (F, M) float32 or bf16 pairs (P, M) int32, (M,) sorted
+    run ids -> suffix sums of x's shape and type: K4 or K5 for CUDA
+    tensors, the plain versions for CPU tensors."""
+    packed = x.dtype == torch.int32
     if x.device.type == "cpu":
-        return segmented_suffix_sum_plain(x, rows, kmax)
+        plain = (segmented_suffix_sum_packed_plain if packed
+                 else segmented_suffix_sum_plain)
+        return plain(x, rows, kmax)
     if x.device.type == "cuda":
-        return segmented_suffix_sum_cuda(x, rows, kmax)
+        launch = (segmented_suffix_sum_packed_cuda if packed
+                  else segmented_suffix_sum_cuda)
+        return launch(x, rows, kmax)
     raise ValueError(f"segsum: unsupported device {x.device}")

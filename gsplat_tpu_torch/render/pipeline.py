@@ -1,6 +1,11 @@
 """The differentiable render: project -> bin/sort (cull kernel K3) -> gather
-(scatter-free backward through kernel K4) -> blend (kernel K1, backward
-kernel K2). Port of `gsplat_tpu.render.pipeline` for `stream_format='f32'`.
+(scatter-free backward through kernel K4, or K5 over bf16 pairs) -> blend
+(kernel K1, backward kernel K2). Port of `gsplat_tpu.render.pipeline` for
+every `stream_format`: on 'packed16' and 'packed4' the gather packs the
+features into int32 rows (`ops/stream16.py`) and the blend is one VJP over
+K1 and K2 on the packed stream and the gather backward
+(`ops/cuda/raster.py::rasterize_packed16`), straight through onto the
+float32 features.
 
 Gradient flow, as in the JAX package: the ordering (sorted ids, ranges) is
 a stop-gradient permutation, so binning runs under `torch.no_grad()`; every
@@ -25,10 +30,15 @@ from torch.profiler import record_function
 
 from gsplat_tpu_torch.config import RenderConfig
 from gsplat_tpu_torch.models.gaussians import GaussianScene
-from gsplat_tpu_torch.ops.binning import bin_gaussians, gather_features
+from gsplat_tpu_torch.ops.binning import (
+    bin_gaussians,
+    features_f32,
+    gather_features,
+)
 from gsplat_tpu_torch.ops.camera import Camera
-from gsplat_tpu_torch.ops.cuda.raster import rasterize_tiles
+from gsplat_tpu_torch.ops.cuda.raster import rasterize_packed16, rasterize_tiles
 from gsplat_tpu_torch.ops.projection import ProjectedGaussians, project_gaussians
+from gsplat_tpu_torch.ops.stream16 import gather_packed
 from gsplat_tpu_torch.train.losses import l1
 
 # The profiler spans of `render`, in the order the stages run.
@@ -53,19 +63,22 @@ def render_with_projection(
 ) -> tuple[RenderOutput, ProjectedGaussians]:
     """`render`, and the projection it rendered from (the train step reads
     its tile counts for visibility instead of projecting a second time)."""
-    if cfg.stream_format != "f32":
-        raise NotImplementedError(
-            f"stream_format={cfg.stream_format!r} comes with the packed-stream "
-            "slice of the port (packed16/packed4, jumbo tiers); use 'f32'"
-        )
     with record_function("render.project"):
         proj = project_gaussians(scene, camera, cfg, uv_tap=uv_tap)
     with record_function("render.bin"), torch.no_grad():
         binned = bin_gaussians(proj, cfg)
-    with record_function("render.gather"):
-        features = gather_features(proj, binned, cfg)
-    with record_function("render.blend"):
-        image, trans = rasterize_tiles(features, binned.ranges, cfg)
+    if cfg.stream_format == "f32":
+        with record_function("render.gather"):
+            features = gather_features(proj, binned, cfg)
+        with record_function("render.blend"):
+            image, trans = rasterize_tiles(features, binned.ranges, cfg)
+    else:
+        with record_function("render.gather"):
+            feats = features_f32(proj, cfg)
+            with torch.no_grad():
+                slots = gather_packed(feats, binned.sorted_gid, cfg)
+        with record_function("render.blend"):
+            image, trans = rasterize_packed16(feats, slots, binned, cfg)
     if background is not None:
         image = image + trans[..., None] * background
     out = RenderOutput(

@@ -136,12 +136,42 @@ def test_gather_features_differentiates_through_the_slot_sort(segment_sum):
                                       grad_readout="bf16",
                                       segment_sum="pallas")])
 def test_bf16_gradient_paths_are_slice_3(opt):
+    """The bf16 gradient paths, which the port now runs: the read-out
+    rounded to bf16, and the 'bf16' strategy (slot gradients as bf16 pairs
+    through the sort and the packed segment sum, K5's plain version). Both
+    against JAX's `_gather_slots` VJP with the same options: the read-out
+    over JAX's doubling (the port's order of sums) bit for bit; the bf16
+    strategy, which JAX runs through its packed Pallas kernel (interpreted)
+    whose carry across blocks sums in another order, within 1e-5 + 1e-2 of
+    each row's largest value."""
     _, _, proj, tb, _ = both("tiered")
     cfg = RenderConfig(**KW, **MODES["tiered"], **opt)
-    # Forward-only use does not need the backward option.
-    tbin.gather_features(proj, tb, cfg)
-    proj.opacity = proj.opacity.detach().requires_grad_(True)
-    with torch.no_grad():
-        tbin.gather_features(proj, tb, cfg)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tbin.gather_features(proj, tb, cfg)
+    dslot = np.random.default_rng(6).normal(
+        size=(9, cfg.max_intersections)).astype(np.float32)
+    feats = tbin.features_f32(proj, cfg).detach().requires_grad_(True)
+    proj_f = type(proj)(**{**vars(proj)})
+    proj_f.uv = torch.stack([feats[0] / cfg.width, feats[1] / cfg.height], 1)
+    proj_f.conic = feats[2:5].T
+    proj_f.color = feats[5:8].T
+    proj_f.opacity = feats[8]
+    out = tbin.gather_features(proj_f, tb, cfg)
+    (got,) = torch.autograd.grad(out, feats, torch.from_numpy(dslot))
+    args = [jnp.asarray(getattr(tb, k).numpy()) for k in
+            ("sorted_gid", "sorted_gidk", "gauss_offsets", "gauss_counts")]
+    _, vjp = jax.vjp(
+        lambda f: jbin._gather_slots(
+            tbin.kmax_eff(cfg), cfg.gather_backward, cfg.grad_readout,
+            "pallas_interpret" if cfg.gather_backward == "bf16"
+            else "doubling", f, *args),
+        jnp.asarray(feats.detach().numpy()))
+    want = np.asarray(vjp(jnp.asarray(dslot))[0])
+    got = got.numpy()
+    assert np.abs(got).max() > 1.0
+    if cfg.gather_backward == "bf16":
+        scale = np.abs(want).max(axis=1, keepdims=True)
+        assert (np.abs(got - want) <= 1e-5 + 1e-2 * scale).all()
+    else:
+        np.testing.assert_array_equal(got, want)
+    # The read-out's values are bf16 values.
+    np.testing.assert_array_equal(
+        got, torch.from_numpy(got).to(torch.bfloat16).float().numpy())

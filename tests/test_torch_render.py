@@ -149,11 +149,20 @@ def test_golden_render_above_55db():
 
 @pytest.mark.parametrize("fmt", ["packed16", "packed4"])
 def test_packed_streams_are_a_later_slice(fmt):
+    """The packed streams, which the port now runs: `render` takes
+    them on the CPU through the plain walk of the unpacked stream, counts
+    no launch, and renders the float32 stream's image to the quantisation
+    (tests/test_stream16.py: bf16 conic and opacity, 11/11/10-bit colour);
+    tests/test_torch_stream16.py holds them to JAX."""
     scene = random_scene(50, 0, generator=torch.Generator().manual_seed(0),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="packed-stream slice"):
-        render(scene, Camera.default(64, 64, device="cpu"),
-               RenderConfig(**KW, stream_format=fmt))
+    cam = Camera.default(64, 64, device="cpu")
+    before = (raster.launches, raster.packed_launches)
+    out = render(scene, cam, RenderConfig(**KW, stream_format=fmt))
+    assert (raster.launches, raster.packed_launches) == before
+    ref = render(scene, cam, RenderConfig(**KW))
+    assert not bool(out.overflow) and float(out.image.max()) > 0.01
+    assert float((out.image - ref.image).abs().max()) < 0.05
 
 
 def test_render_needs_no_gradients():
@@ -225,7 +234,8 @@ def test_kernels_build_on_first_use_only(monkeypatch):
     raises and names the toolkit."""
     assert _build._libs == {}
     assert sorted(p.name for p in _build._sources()) == [
-        "cull.cu", "raster_bwd.cu", "raster_fwd.cu", "segsum.cu"]
+        "cull.cu", "raster_bwd.cu", "raster_fwd.cu", "segsum.cu",
+        "segsum_packed.cu"]
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setattr(_build, "DEFAULT_NVCC", "/nonexistent/nvcc")
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -244,7 +254,8 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "gsplat_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch_render.py",
-              ROOT / "scripts" / "profile_torch_train.py"]
+              ROOT / "scripts" / "profile_torch_train.py",
+              ROOT / "scripts" / "profile_torch_train_default.py"]
     assert len(files) > 20
     for path in files:
         for mod in _imported_modules(path):

@@ -1,6 +1,7 @@
-"""The segmented suffix sum of the port (the plain doubling, the CPU side of
-kernel K4) against the JAX package's Pallas kernel in interpret mode and a
-numpy per-run reduction, on the data of tests/test_pallas.py:173-206."""
+"""The segmented suffix sums of the port (the plain doubling, the CPU side of
+kernel K4, and its bf16-pair twin, the CPU side of K5) against the JAX
+package's Pallas kernels in interpret mode and a numpy per-run reduction,
+on the data of tests/test_pallas.py:173-206."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ torch.set_num_threads(2)
 import jax.numpy as jnp  # noqa: E402
 
 from gsplat_tpu.ops.pallas.segsum import segmented_suffix_sum as jax_segsum  # noqa: E402
+from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs  # noqa: E402
 from gsplat_tpu_torch.ops.cuda import segsum  # noqa: E402
 
 KMAX, F = 16, 5
@@ -95,3 +97,73 @@ def test_segsum_wrapper_checks_its_inputs(runs):
     segsum.segmented_suffix_sum(torch.from_numpy(x), torch.from_numpy(rows),
                                 KMAX)
     assert segsum.launches == before
+
+
+def _pairs_and_runs(n_runs, max_len, seed, tail=50):
+    """bf16 pairs (P = 5) over sorted runs of 1..max_len slots, the (8|0)
+    opacity pairing included (row 9 is zero, so pair 4 has a zero high
+    half), and an invalid tail carrying zeros."""
+    rng = np.random.default_rng(seed)
+    ids = np.cumsum(rng.integers(1, 4, size=n_runs))
+    rows = np.repeat(ids, rng.integers(1, max_len + 1, size=n_runs))
+    m = rows.shape[0]
+    rows = np.concatenate([rows, np.full(tail, (2**31 - 1) >> 11)]).astype(
+        np.int32)
+    x = rng.normal(size=(10, rows.shape[0])).astype(np.float32)
+    x[9] = 0.0
+    x[:, m:] = 0.0
+    return pack_bf16_pairs(torch.from_numpy(x)), rows
+
+
+def _jax_packed(xp, rows, kmax, block_size):
+    want = jax_segsum(jnp.asarray(xp.numpy()), jnp.asarray(rows), kmax=kmax,
+                      block_size=block_size, interpret=True, packed=True)
+    return np.array(want)[:, : rows.shape[0]]
+
+
+@pytest.mark.parametrize("kmax, max_len, block_size", [
+    (16, 16, 8192),     # one block
+    (2048, 2048, 32768),  # one block, runs up to 2048 slots long
+])
+def test_packed_plain_segsum_is_bit_exact_with_jax_kernel(kmax, max_len,
+                                                          block_size):
+    """K5's plain version sums in the order of the TPU kernel's in-block
+    doubling and rounds the same way: over one block the int32 words are
+    equal. The zero-high opacity pairs keep their low halves."""
+    xp, rows = _pairs_and_runs(300 if kmax == 16 else 12, max_len, 2)
+    assert rows.shape[0] <= block_size
+    got = segsum.segmented_suffix_sum(xp, torch.from_numpy(rows), kmax)
+    assert got.dtype == torch.int32 and got.shape == xp.shape
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_packed(xp, rows, kmax, block_size))
+    opacity = got[4].numpy()
+    assert (opacity & np.int32(-65536) == 0).all() and (opacity != 0).any()
+
+
+def test_packed_plain_segsum_across_blocks_within_one_bf16_ulp():
+    """With runs crossing the TPU kernel's block edges its carry adds in
+    another order: the halves agree to one bf16 ulp (2^-7 relative to the
+    bf16 value's exponent)."""
+    xp, rows = _pairs_and_runs(300, 16, 3)
+    got = segsum.segmented_suffix_sum(xp, torch.from_numpy(rows), 16)
+    want = torch.from_numpy(_jax_packed(xp, rows, 16, 256))
+    a, b = unpack_bf16_pairs(got, 10), unpack_bf16_pairs(want, 10)
+    ulp = torch.exp2(torch.floor(torch.log2(b.abs().clamp_min(1e-30))) - 7)
+    assert bool(((a - b).abs() <= ulp).all())
+    assert float((got == want).float().mean()) > 0.9
+
+
+def test_packed_segsum_wrapper_checks_its_inputs(runs):
+    x, rows, _, _ = runs
+    xp = pack_bf16_pairs(torch.from_numpy(x))
+    # A float32 stream of pairs is refused before any launch or build.
+    with pytest.raises(ValueError, match="int32"):
+        segsum.segmented_suffix_sum_packed_cuda(xp.view(torch.float32),
+                                                torch.from_numpy(rows), KMAX)
+    with pytest.raises(ValueError, match="CUDA"):
+        segsum.segmented_suffix_sum_packed_cuda(xp, torch.from_numpy(rows),
+                                                KMAX)
+    before = (segsum.launches, segsum.packed_launches)
+    out = segsum.segmented_suffix_sum(xp, torch.from_numpy(rows), KMAX)
+    assert (segsum.launches, segsum.packed_launches) == before
+    assert out.dtype == torch.int32
