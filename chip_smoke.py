@@ -53,7 +53,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
      every step no overflow, finite gradients and a finite loss, and the
      last round's mean loss below the first's; each path launched each of
      its kernels;
- 10. golden gradients: `render_loss_and_grad` of the golden scene on the
+ 10. the cost probes of scripts/micro_kernel_costs.py (P1-P4) at its
+     shapes, each kernel against its plain version on the card: P1 (2^29
+     elements) mults and fast3 bit for bit, exact and exact3 within 2 ulp;
+     P2 (4096 x 1024 rows of 128; first 16 and 37 rows) each precision
+     within 1e-5 of the plain passes, and against the float32 cumsum of
+     x[:4] `default` within 2^-8 of the running sum of |x|, `high` and
+     `highest` within 1e-5; P3 and P4 bit for bit. Kernel ms, bound, plain
+     ms and, for P2 highest (torch.matmul), P3 (take_along_dim) and P4
+     (advanced indexing), the library call's ms; P4 also after an L2 flush.
+     Then the `probes` main path: `micro_kernel_costs.main(["all"])` with
+     the counts at 0, which must launch all four;
+ 11. golden gradients: `render_loss_and_grad` of the golden scene on the
      card against the port's plain path on the CPU, which the CPU tests hold
      to JAX: exact f32 (K2, K4) every field within rtol 5e-3 / atol 1e-5;
      bench default (packed K1 and K2, K5) every field within 1e-5 + 1e-2 of
@@ -106,6 +117,16 @@ BLEND_BWD_OPS_PER_SLOT = 7
 # bf16 half, two per int32 lane.
 SEGSUM_OPS_PER_ELEMENT = 1
 SEGSUM_PACKED_OPS_PER_LANE = 2
+# Dense bf16 tensor-core FLOP/s (NVIDIA data sheet): the rate of P2's passes.
+TC_BF16_OPS_PER_S = 989e12
+# P1: FP32 operations per element of each mode, from the SASS of
+# csrc/probe_transc.cu (scripts/probe_kernel_report.py: the kernel's FADD,
+# FMUL, FMNMX, FRND and 2 x FFMA over the 17 elements of its loop and tail).
+TRANSC_OPS_PER_ELEMENT = {"mults": 7.4, "exact": 44.7, "exact3": 55.9,
+                          "fast3": 40.2}
+# P2: FP32 subtractions per element of the bf16 split (the rests x - hi and
+# x - hi - mid), by precision.
+SPLIT_OPS_PER_ELEMENT = {"default": 0, "high": 1, "highest": 2}
 
 BENCH = dict(
     width=1920, height=1080, tile_size=32, max_intersections=4_100_000,
@@ -153,7 +174,20 @@ KERNELS = {
     "segsum_packed": ("segsum.packed_launches",
                       "gsplat_tpu_torch/csrc/segsum_packed.cu",
                       "gsplat_tpu/ops/pallas/segsum.py:86"),
+    "probe_transc": ("probes.transc_launches",
+                     "gsplat_tpu_torch/csrc/probe_transc.cu",
+                     "scripts/micro_kernel_costs.py:37"),
+    "probe_tricumsum": ("probes.tricumsum_launches",
+                        "gsplat_tpu_torch/csrc/probe_tricumsum.cu",
+                        "scripts/micro_kernel_costs.py:117"),
+    "probe_gather": ("probes.gather_launches",
+                     "gsplat_tpu_torch/csrc/probe_gather.cu",
+                     "scripts/micro_kernel_costs.py:156"),
+    "probe_coldma": ("probes.coldma_launches",
+                     "gsplat_tpu_torch/csrc/probe_coldma.cu",
+                     "scripts/micro_kernel_costs.py:213"),
 }
+PROBES = ("probe_transc", "probe_tricumsum", "probe_gather", "probe_coldma")
 
 
 def log(msg: str) -> None:
@@ -248,17 +282,19 @@ def views(width: int, height: int, device):
     return cams
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """The least time the card needs for the work, in ms, and what sets it."""
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    """The least time the card needs for the work, in ms, and what sets it:
+    n_ops at ops_per_s, FP32 unless said otherwise."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def launch_counts() -> dict:
-    from gsplat_tpu_torch.ops.cuda import cull, raster, segsum
+    from gsplat_tpu_torch.ops.cuda import cull, probes, raster, segsum
 
-    mods = {"cull": cull, "raster": raster, "segsum": segsum}
+    mods = {"cull": cull, "raster": raster, "segsum": segsum, "probes": probes}
     out = {}
     for name, (attr, _, _) in KERNELS.items():
         mod, var = attr.split(".")
@@ -267,11 +303,13 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    from gsplat_tpu_torch.ops.cuda import cull, raster, segsum
+    from gsplat_tpu_torch.ops.cuda import cull, probes, raster, segsum
 
     cull.launches = raster.launches = raster.packed_launches = 0
     raster.bwd_launches = raster.bwd_packed_launches = 0
     segsum.launches = segsum.packed_launches = 0
+    probes.transc_launches = probes.tricumsum_launches = 0
+    probes.gather_launches = probes.coldma_launches = 0
 
 
 def make_trainer(scene, cams, cfg, dev):
@@ -366,6 +404,180 @@ def train(tag, scene, cams, cfg, dev, card):
         f"{min(step_ms)}, max {max(step_ms)}) at {cfg.width}x{cfg.height}, "
         f"{scene.num_gaussians} Gaussians, on {card}")
     return med
+
+
+def check_probes(kernels: dict, dev) -> None:
+    """The probe kernels P1-P4 against their plain versions on the card at
+    the TPU script's shapes (gsplat_tpu_torch/micro_kernel_costs.py); kernel
+    ms a CUDA-event mean over 20 launches, plain ms one call. Fills the
+    probes' entries of `kernels`; exits on any check that fails."""
+    import torch
+
+    from gsplat_tpu_torch import micro_kernel_costs as mkc
+    from gsplat_tpu_torch.ops.cuda import probes
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # P2's plain version
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def plain_once(fn):
+        """timed_once after one untimed call: the probes' plain versions
+        take milliseconds, and a first call's set-up would dominate."""
+        fn()
+        return timed_once(fn)
+
+    # P1 over (524,288, 1,024): mults and fast3 bit for bit, exact and
+    # exact3 within 2 ulp of the plain version's expf / log1pf.
+    x = -torch.randn((mkc.BLOCKS * mkc.P // 8, mkc.G * 8), generator=gen(0),
+                     device=dev).abs()
+    p1_bytes = 2 * x.numel() * 4
+    p1 = {}
+    for mode in probes.TRANSC_MODES:
+        out_k = probes.transc_cuda(x, mode)
+        out_p, ms_p = plain_once(lambda: probes.transc_plain(x, mode))
+        err = (out_k - out_p).abs()
+        differ = int((out_k != out_p).sum())
+        if mode in ("mults", "fast3"):
+            ok, what = differ == 0, "bit for bit"
+        else:
+            ok = bool((err <= 2.4e-7 * out_p.abs()).all())
+            what = "within 2 ulp (|d| <= 2.4e-7 |plain|)"
+        log(f"[P1 {mode}] {x.numel()} elements, {differ} differ from the "
+            f"plain version, max abs err {float(err.max())}; {what}: {ok}")
+        if not ok:
+            raise SystemExit(f"P1 {mode}: kernel outside the stated "
+                             "tolerance of the plain version")
+        ms_k = cuda_ms(lambda: probes.transc_cuda(x, mode), 20)
+        ops = x.numel() * TRANSC_OPS_PER_ELEMENT[mode]
+        bound_ms, bound_by = bound(p1_bytes, ops)
+        log(f"[P1 {mode}] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms}"
+            f" ms ({p1_bytes} B, {ops} ops, {bound_by})")
+        p1[mode] = dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
+                        bound_by=bound_by, max_abs_err=float(err.max()),
+                        differ=differ)
+        del out_k, out_p, err
+    del x
+    kernels["probe_transc"].update(
+        max_abs_err=max(v["max_abs_err"] for v in p1.values()),
+        **{k: p1["exact3"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
+        library_ms=None, headline="exact3", by_mode=p1)
+
+    # P2: one 16-row strip and a ragged 37 rows first (the mma fragment
+    # layouts, the edge mask), then (4096, 1024, 128).
+    tri = probes.make_triangular(mkc.G, device=dev)
+    for rows in (16, 37):
+        xs = -torch.randn((rows, mkc.G), generator=gen(5),
+                          device=dev).abs() * 0.05
+        for prec in probes.PASSES:
+            e = float((probes.tricumsum_cuda(xs, prec)
+                       - probes.tricumsum_plain(xs, tri, prec)).abs().max())
+            if not e <= 1e-5:
+                raise SystemExit(f"P2 {prec} at {rows} rows: {e} from the "
+                                 "plain version")
+    log("[P2] 16 and 37 rows: every precision within 1e-5 of the plain "
+        "version")
+    x = -torch.randn((mkc.BLOCKS, mkc.P, mkc.G), generator=gen(0),
+                     device=dev).abs() * 0.05
+    ref = torch.cumsum(x[:4], dim=-1)
+    scale = torch.cumsum(x[:4].abs(), dim=-1)
+    p2_bytes = 2 * x.numel() * 4
+    p2 = {}
+    for prec, passes in probes.PASSES.items():
+        out_k = probes.tricumsum_cuda(x, prec)
+        out_p, ms_p = plain_once(
+            lambda: probes.tricumsum_plain(x, tri, prec))
+        err = float((out_k - out_p).abs().max())
+        err_ref = (out_k[:4] - ref).abs()
+        if prec == "default":
+            ok_ref = bool((err_ref <= 2.0 ** -8 * scale).all())
+            what = "within 2^-8 cumsum|x|"
+        else:
+            ok_ref, what = float(err_ref.max()) <= 1e-5, "within 1e-5"
+        log(f"[P2 {prec}] {len(passes)} passes: max abs err {err} from the "
+            f"plain version (1e-5 allowed); against the float32 cumsum of "
+            f"x[:4] max abs err {float(err_ref.max())}, {what}: {ok_ref}")
+        if not (err <= 1e-5 and ok_ref):
+            raise SystemExit(f"P2 {prec}: kernel outside the stated tolerance")
+        ms_k = cuda_ms(lambda: probes.tricumsum_cuda(x, prec), 20)
+        mma_ops = 2 * (x.numel() // mkc.G) * mkc.G * mkc.G * len(passes)
+        split_ops = x.numel() * SPLIT_OPS_PER_ELEMENT[prec]
+        bound_ms, bound_by = max(bound(p2_bytes, mma_ops, TC_BF16_OPS_PER_S),
+                                 bound(p2_bytes, split_ops))
+        log(f"[P2 {prec}] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms}"
+            f" ms ({p2_bytes} B, {mma_ops} tensor-core FLOP, {split_ops} "
+            f"FP32 ops, {bound_by})")
+        p2[prec] = dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
+                        bound_by=bound_by, max_abs_err=err,
+                        cumsum_err=float(err_ref.max()))
+        del out_k, out_p, err_ref
+    lib_ms = cuda_ms(lambda: torch.matmul(x, tri), 20)
+    log(f"[P2] library: torch.matmul in float32 (TF32 off) {lib_ms} ms")
+    del x, ref, scale
+    kernels["probe_tricumsum"].update(
+        max_abs_err=max(v["max_abs_err"] for v in p2.values()),
+        **{k: p2["highest"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by")},
+        library_ms=lib_ms, headline="highest", by_precision=p2)
+
+    # P3 at (8, 512) and P4 at (8, 2^20) x (2048, 128): bit for bit.
+    tab = torch.randn((8, 512), generator=gen(0), device=dev)
+    idx = torch.randint(0, 512, (8, 512), generator=gen(1), device=dev,
+                        dtype=torch.int32)
+    table = torch.randn((8, 1 << 20), generator=gen(0), device=dev)
+    cols = torch.randint(0, 1 << 20, (2048, mkc.G), generator=gen(1),
+                         device=dev, dtype=torch.int32)
+    idx64 = idx.long()
+    # P4's least traffic: one 32-byte sector (8 floats of a row) per row for
+    # each distinct sector the columns touch.
+    sectors = int(torch.unique(cols.long() // 8).numel())
+    for name, tag, kernel, plain, library, n_bytes in (
+            ("probe_gather", "P3", lambda: probes.lane_gather_cuda(tab, idx),
+             lambda: probes.lane_gather_plain(tab, idx),
+             lambda: torch.take_along_dim(tab, idx64, dim=-1),
+             3 * tab.numel() * 4),
+            ("probe_coldma", "P4",
+             lambda: probes.column_copy_cuda(table, cols),
+             lambda: probes.column_copy_plain(table, cols),
+             lambda: table[:, cols],
+             sectors * table.shape[0] * 32
+             + cols.numel() * (1 + table.shape[0]) * 4)):
+        out_k = kernel()
+        out_p, ms_p = plain_once(plain)
+        same = torch.equal(out_k, out_p)
+        log(f"[{tag}] {tuple(out_k.shape)}: bit-identical to the plain "
+            f"version: {same}")
+        if not same:
+            raise SystemExit(f"{tag}: kernel differs from the plain version")
+        # Queued behind a spin kernel: these kernels are shorter than a
+        # launch from Python, and host-paced events would time the host.
+        ms_k = mkc.timeit(dev, kernel, 20)[0]
+        lib_ms = mkc.timeit(dev, library, 20)[0]
+        bound_ms, bound_by = bound(n_bytes, 0)
+        log(f"[{tag}] kernel {ms_k} ms, plain {ms_p} ms, library {lib_ms} ms,"
+            f" bound {bound_ms} ms ({n_bytes} B, bytes)")
+        kernels[name].update(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=lib_ms)
+    # P4 with the table out of L2: each launch right after a 512 MB write,
+    # which also holds the card while the launch is queued.
+    flush = torch.empty(128 << 20, dtype=torch.float32, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cold = []
+    for _ in range(10):
+        flush.zero_()
+        start.record()
+        probes.column_copy_cuda(table, cols)
+        end.record()
+        torch.cuda.synchronize()
+        cold.append(start.elapsed_time(end))
+    del flush
+    log(f"[P4] {sectors} distinct sectors per row; after an L2 flush "
+        f"{statistics.median(cold)} ms (median of 10; min {min(cold)}, max "
+        f"{max(cold)})")
+    kernels["probe_coldma"].update(cold_ms=statistics.median(cold))
 
 
 def drive(path, needs, fn):
@@ -822,7 +1034,18 @@ def run(dev) -> int:
     del rscene
     torch.cuda.empty_cache()
 
-    # 10. Golden gradients: the card's kernels against the CPU plain path
+    # 10. The cost probes: each kernel against its plain version at the TPU
+    # script's shapes, then their entry point as a main path.
+    t0 = time.perf_counter()
+    check_probes(kernels, dev)
+    torch.cuda.empty_cache()
+    from gsplat_tpu_torch import micro_kernel_costs
+    by_path["probes"] = drive("probes", PROBES,
+                              lambda: micro_kernel_costs.main(["all"]))
+    torch.cuda.empty_cache()
+    log(f"[probes] {time.perf_counter() - t0:.1f} s")
+
+    # 11. Golden gradients: the card's kernels against the CPU plain path
     # (last, so that its CPU threads do not share the host with the main
     # paths' timing).
     target = np.random.default_rng(0).uniform(size=(64, 64, 3)).astype(np.float32)
