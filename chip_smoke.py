@@ -14,7 +14,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and packed4: kernel against the plain tiled walk (of the unpacked
      stream) on the card, PSNR >= 60 dB and >= 99.99% of pixels within 1e-4
      on image and transmittance (the serial product and the log-domain
-     cumsum round differently at the 1e-4 termination threshold);
+     cumsum round differently at the 1e-4 termination threshold); the
+     pairs walked when each pixel, each 32-pixel warp, each warp of the
+     kernels' walk (a 32x2 strip) or each tile walks as far as its slowest
+     pixel (`raster_torch.walked_pairs`), and the share of the walk's
+     (warp, Gaussian) steps that the power floor skips;
   5. K2 blend backward on the same streams, with N(0, 1) upstream gradients
      of image and transmittance: kernel (fed K1's outputs) against the plain
      re-walk (fed the plain forward's). Float32: each feature row within
@@ -24,7 +28,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      1e-3 relative L2 and >= 99.9% of the walked slots within the float32
      tolerance plus one bf16 ulp (each side rounds its float32 sum by at
      most half an ulp; the share within one ulp alone is printed). The
-     slots past the stream exactly 0 in both;
+     slots past the stream exactly 0 in both, and a second launch on the
+     same inputs bit-identical (no atomics);
   6. K4 segmented suffix sum on K2's float32 gradients sorted gid-major,
      and K5 on K2's bf16 pairs: kernel against the plain doubling, each
      value within 1e-6 + 1e-5 times the summed span's absolute sum (only
@@ -33,8 +38,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      keep their low halves;
   7. the realistic scene (1M Gaussians, heavy-tailed) with the jumbo tiers
      of bench.py:246-253: K3 on the (14,848, 2048) jumbo grid against its
-     plain version (0 differing lanes), and K5 at depth 2048 on K2's pairs
-     of that stream against its plain version;
+     plain version (0 differing lanes); K1 and K2 (packed4, bf16 pairs out)
+     on its view-0 stream, whose jumbo splats make the longest segments,
+     against their plain versions with the tolerances of 4 and 5; and K5 at
+     depth 2048 on K2's pairs of that stream against its plain version;
   8. golden: the JAX reference scene (tests/golden/scene_42_300.npz) through
      K3 and K1, above 55 dB against tests/golden/render_64.npz; packed16 K1
      and K2 at that shape against their plain versions;
@@ -289,6 +296,45 @@ def bound(n_bytes: float, n_ops: float,
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def warp_skip_counts(feats, ranges, walk, cfg, rows) -> dict:
+    """The (warp, Gaussian) steps of the blend kernels' walk at tile 32 (a
+    warp: a 32 x `rows` strip, walking as far as its slowest pixel) on the
+    float32 stream `feats`, and how many of them the power floor skips:
+    every live pixel's power (as the kernels' pair_power forms it) lies
+    below the Gaussian's `raster_torch.power_floor`."""
+    import torch
+
+    from gsplat_tpu_torch.ops.raster_torch import power_floor
+
+    t_count = walk.shape[0]
+    ts = cfg.tile_size
+    dev = walk.device
+    lengths = (ranges[1:] - ranges[:-1]).long()
+    tile = torch.repeat_interleave(torch.arange(t_count, device=dev), lengths)
+    pos = torch.arange(tile.numel(), device=dev) - ranges[:-1].long()[tile]
+    f = feats[:, : tile.numel()]
+    gxr = f[0] - (tile % cfg.tiles_x * ts).float()
+    gyr = f[1] - (tile // cfg.tiles_x * ts).float()
+    floor = power_floor(f[8], cfg)
+    strips = walk.view(t_count, ts // rows, rows * ts)
+    lin = torch.arange(rows * ts, device=dev)
+    xs, ys0 = (lin % ts).float(), (lin // ts).float()
+    out = dict(steps=0, floor=0)
+    for s in range(ts // rows):
+        idx = (pos < strips[:, s].amax(-1)[tile]).nonzero()[:, 0]
+        out["steps"] += idx.numel()
+        for c in idx.split(1 << 15):
+            live = pos[c, None] < strips[tile[c], s]
+            dx = xs - gxr[c, None]
+            dy = ys0 + s * rows - gyr[c, None]
+            power = (-0.5 * ((f[2, c, None] * dx) * dx
+                             + (f[4, c, None] * dy) * dy)
+                     - (f[3, c, None] * dx) * dy)
+            near = (live & (power >= floor[c, None])).any(1)
+            out["floor"] += int((~near).sum())
+    return out
 
 
 def launch_counts() -> dict:
@@ -630,6 +676,7 @@ def run(dev) -> int:
         _raster_tiles_bwd_walk,
         _tiles_to_image,
         _tiles_to_scalar_image,
+        walked_pairs,
     )
     from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS, render_loss_and_grad
 
@@ -688,21 +735,14 @@ def run(dev) -> int:
         f"({cull_bytes} B, {cull_ops} ops, {bound_by})")
     del mask_k, mask_p
 
-    # 4. K1 blend at the bench shape on the port's own binned stream: the
-    # float32 stream and the packed4 stream of the same binning.
-    with torch.no_grad():
-        binned = binning.bin_gaussians(proj, cfg)
-        features = binning.gather_features(proj, binned, cfg)
-        slots = stream16.gather_packed(binning.features_f32(proj, cfg4),
-                                       binned.sorted_gid, cfg4)
-    ranges = binned.ranges
-    total = int(binned.num_intersections)
-    fwd = {}
-    for name, c, stream in (("raster_fwd", cfg, features),
-                            ("raster_fwd_packed", cfg4, slots)):
+    def check_k1(tag, stream, ranges, c):
+        """K1 on `stream` against the plain tiled walk (of the unpacked
+        stream): (kernel colour, T, plain colour, T, per-pixel walk, max abs
+        error, plain ms); exits outside the stated tolerance."""
         col_k, tr_k = raster.raster_tiles_cuda(stream, ranges, c)
-        plain_in = features if stream is features else stream16.unpack_block(stream, c)
-        (col_p, tr_p, pairs), ms_p = timed_once(
+        plain_in = stream if c.stream_format == "f32" else \
+            stream16.unpack_block(stream, c)
+        (col_p, tr_p, walk), ms_p = timed_once(
             lambda: _raster_tiles(plain_in, ranges, 0, c))
         img_k, img_p = _tiles_to_image(col_k, c), _tiles_to_image(col_p, c)
         t_k, t_p = _tiles_to_scalar_image(tr_k, c), _tiles_to_scalar_image(tr_p, c)
@@ -711,46 +751,31 @@ def run(dev) -> int:
         p_db = psnr(img_k, img_p)
         within_img = float((err_img.amax(-1) <= 1e-4).float().mean())
         within_t = float((err_t <= 1e-4).float().mean())
-        log(f"[K1 {c.stream_format}] {total} intersections, {int(pairs)} "
+        log(f"[K1 {tag}] {int(ranges[-1])} intersections, {int(walk.sum())} "
             f"pixel-Gaussian pairs walked; PSNR {p_db} dB, max abs err image "
             f"{float(err_img.max())} trans {float(err_t.max())}, within "
             f"1e-4: image {within_img} trans {within_t}")
         if not (p_db >= 60.0 and within_img >= 0.9999 and within_t >= 0.9999):
-            raise SystemExit(f"K1 {c.stream_format}: kernel outside the "
-                             "stated tolerance of the plain version")
-        ms_k = cuda_ms(lambda: raster.raster_tiles_cuda(stream, ranges, c), 20)
-        blend_bytes = (total * stream.shape[0] * 4 + ranges.numel() * 4
-                       + (col_k.numel() + tr_k.numel()) * 4)
-        blend_ops = int(pairs) * BLEND_OPS_PER_PAIR
-        bound_ms, bound_by = bound(blend_bytes, blend_ops)
-        kernels[name].update(
-            max_abs_err=max(float(err_img.max()), float(err_t.max())),
-            ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None,
-        )
-        log(f"[K1 {c.stream_format}] kernel {ms_k} ms, plain {ms_p} ms, bound "
-            f"{bound_ms} ms ({blend_bytes} B, {blend_ops} ops, {bound_by})")
-        fwd[name] = (col_k, tr_k, col_p, tr_p, int(pairs))
-        del img_p, t_p, err_img, err_t, plain_in
+            raise SystemExit(f"K1 {tag}: kernel outside the stated "
+                             "tolerance of the plain version")
+        err = max(float(err_img.max()), float(err_t.max()))
+        return col_k, tr_k, col_p, tr_p, walk, err, ms_p
 
-    # 5. K2 blend backward on the same streams: float32 in and out, and
-    # packed4 in with bf16 pairs out.
-    gen = torch.Generator(device=dev).manual_seed(1)
-    g_image = torch.randn((cfg.height, cfg.width, 3), generator=gen, device=dev)
-    g_trans = torch.randn((cfg.height, cfg.width), generator=gen, device=dev)
-    g_col = _image_to_tiles(g_image, cfg)
-    g_tt = _image_to_tiles(g_trans[..., None], cfg)[:, 0]
-    bwd = {}
-    for name, fname, c, stream in (
-            ("raster_bwd", "raster_fwd", cfg, features),
-            ("raster_bwd_packed", "raster_fwd_packed", cfg4, slots)):
-        col_k, tr_k, col_p, tr_p, pairs = fwd.pop(fname)
-        pack = stream is slots
+    def check_k2(tag, stream, ranges, c, fwd_out, g_col, g_tt, pack):
+        """K2 on `stream` (fed K1's outputs) against the plain re-walk (fed
+        the plain forward's), then a second launch that must give the same
+        bits: (kernel output, pairs applied, max abs error, plain ms);
+        exits outside the stated tolerance."""
+        col_k, tr_k, col_p, tr_p = fwd_out
+        total = int(ranges[-1])
         b_k = ((g_col * col_k).sum(1) + g_tt * tr_k).contiguous()
         b_p = (g_col * col_p).sum(1) + g_tt * tr_p
         d_k = raster.raster_bwd_cuda(stream, ranges, g_col, b_k, c,
                                      pack_out=pack)
-        plain_in = features if not pack else stream16.unpack_block(stream, c)
+        same = torch.equal(d_k, raster.raster_bwd_cuda(
+            stream, ranges, g_col, b_k, c, pack_out=pack))
+        plain_in = stream if c.stream_format == "f32" else \
+            stream16.unpack_block(stream, c)
         (d_p, applied), ms_p = timed_once(
             lambda: _raster_tiles_bwd_walk(plain_in, ranges, 0, g_col,
                                            b_p[..., None], c))
@@ -770,29 +795,98 @@ def run(dev) -> int:
         rel = ((walked_k - walked_p).norm(dim=1)
                / walked_p.norm(dim=1).clamp_min(1e-30)).tolist()
         tail_zero = bool((d_k[:, total:] == 0).all())
-        log(f"[K2 {c.stream_format}] {int(applied)} pixel-Gaussian pairs "
-            f"applied; relative L2 error per feature row {rel}, within {what}:"
-            f" {within}, max abs err {float(err.max())}, slots past the "
-            f"stream exactly 0: {tail_zero}")
-        if not (max(rel) <= 1e-3 and within >= 0.999 and tail_zero):
-            raise SystemExit(f"K2 {c.stream_format}: kernel outside the "
-                             "stated tolerance of the plain version")
+        log(f"[K2 {tag}] {int(applied)} pixel-Gaussian pairs applied; "
+            f"relative L2 error per feature row {rel}, within {what}: "
+            f"{within}, max abs err {float(err.max())}, slots past the "
+            f"stream exactly 0: {tail_zero}; a second launch bit-identical: "
+            f"{same}")
+        if not (max(rel) <= 1e-3 and within >= 0.999 and tail_zero and same):
+            raise SystemExit(f"K2 {tag}: kernel outside the stated tolerance "
+                             "of the plain version, or not deterministic")
+        return d_k, int(applied), float(err.max()), ms_p
+
+    # 4. K1 blend at the bench shape on the port's own binned stream: the
+    # float32 stream and the packed4 stream of the same binning. The walk
+    # lengths price the walk at the granularity of one pixel, a 32-pixel
+    # warp, a warp of the kernels' multi-pixel walk (a 32 x `strip_rows`
+    # strip of a 32x32 tile: the build's pixels per thread) and a whole tile.
+    strip_rows = raster.pixels_per_thread()
+    with torch.no_grad():
+        binned = binning.bin_gaussians(proj, cfg)
+        features = binning.gather_features(proj, binned, cfg)
+        slots = stream16.gather_packed(binning.features_f32(proj, cfg4),
+                                       binned.sorted_gid, cfg4)
+    ranges = binned.ranges
+    total = int(binned.num_intersections)
+    fwd = {}
+    for name, c, stream in (("raster_fwd", cfg, features),
+                            ("raster_fwd_packed", cfg4, slots)):
+        col_k, tr_k, col_p, tr_p, walk, err, ms_p = check_k1(
+            c.stream_format, stream, ranges, c)
+        strip = 32 * strip_rows
+        walked = {g: walked_pairs(walk, g)
+                  for g in (1, 32, strip, c.pixels_per_tile)}
+        log(f"[K1 {c.stream_format}] pairs walked per pixel {walked[1]}, "
+            f"per 32-pixel warp {walked[32]} ({walked[32] / walked[1]}x), "
+            f"per 32x{strip_rows}-strip warp {walked[strip]} "
+            f"({walked[strip] / walked[1]}x), per tile "
+            f"{walked[c.pixels_per_tile]} "
+            f"({walked[c.pixels_per_tile] / walked[1]}x); longest pixel walk "
+            f"{int(walk.amax())}, longest segment "
+            f"{int((ranges[1:] - ranges[:-1]).amax())}")
+        if c.stream_format == "f32":
+            skips = warp_skip_counts(stream, ranges, walk, c, strip_rows)
+            log(f"[K1 f32] (32x{strip_rows}-strip warp, Gaussian) steps "
+                f"walked {skips['steps']}: the power floor skips "
+                f"{skips['floor']} ({skips['floor'] / skips['steps']})")
+            kernels[name].update(warp_steps=skips)
+        ms_k = cuda_ms(lambda: raster.raster_tiles_cuda(stream, ranges, c), 20)
+        blend_bytes = (total * stream.shape[0] * 4 + ranges.numel() * 4
+                       + (col_k.numel() + tr_k.numel()) * 4)
+        blend_ops = walked[1] * BLEND_OPS_PER_PAIR
+        bound_ms, bound_by = bound(blend_bytes, blend_ops)
+        kernels[name].update(
+            max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None,
+            walked_pairs={str(g): v for g, v in walked.items()},
+        )
+        log(f"[K1 {c.stream_format}] kernel {ms_k} ms, plain {ms_p} ms, bound "
+            f"{bound_ms} ms ({blend_bytes} B, {blend_ops} ops, {bound_by})")
+        fwd[name] = (col_k, tr_k, col_p, tr_p, walked[1])
+        del walk
+
+    # 5. K2 blend backward on the same streams: float32 in and out, and
+    # packed4 in with bf16 pairs out.
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g_image = torch.randn((cfg.height, cfg.width, 3), generator=gen, device=dev)
+    g_trans = torch.randn((cfg.height, cfg.width), generator=gen, device=dev)
+    g_col = _image_to_tiles(g_image, cfg)
+    g_tt = _image_to_tiles(g_trans[..., None], cfg)[:, 0]
+    bwd = {}
+    for name, fname, c, stream in (
+            ("raster_bwd", "raster_fwd", cfg, features),
+            ("raster_bwd_packed", "raster_fwd_packed", cfg4, slots)):
+        *fwd_out, pairs = fwd.pop(fname)
+        pack = stream is slots
+        d_k, applied, err, ms_p = check_k2(c.stream_format, stream, ranges, c,
+                                           fwd_out, g_col, g_tt, pack)
+        b_k = ((g_col * fwd_out[0]).sum(1) + g_tt * fwd_out[1]).contiguous()
         ms_k = cuda_ms(lambda: raster.raster_bwd_cuda(
             stream, ranges, g_col, b_k, c, pack_out=pack), 20)
         rbwd_bytes = (total * stream.shape[0] * 4 + d_k.numel() * 4
                       + (g_col.numel() + b_k.numel() + ranges.numel()) * 4)
         rbwd_ops = (pairs * BLEND_BWD_OPS_PER_WALKED
-                    + int(applied) * BLEND_BWD_OPS_PER_APPLIED
+                    + applied * BLEND_BWD_OPS_PER_APPLIED
                     + total * BLEND_BWD_OPS_PER_SLOT)
         bound_ms, bound_by = bound(rbwd_bytes, rbwd_ops)
         kernels[name].update(
-            max_abs_err=float(err.max()), ms=ms_k, plain_ms=ms_p,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, deterministic=True,
         )
         log(f"[K2 {c.stream_format}] kernel {ms_k} ms, plain {ms_p} ms, bound "
             f"{bound_ms} ms ({rbwd_bytes} B, {rbwd_ops} ops, {bound_by})")
         bwd[name] = d_k
-        del d_p, col_p, tr_p, err, walked_p, walked_k, plain_in, b_k, b_p
+        del fwd_out, b_k
 
     # 6. K4 on K2's float32 gradients and K5 on its bf16 pairs, sorted
     # gid-major as the gather backward sorts them.
@@ -926,14 +1020,30 @@ def run(dev) -> int:
         f"{bool(rbinned.overflow)}")
     if bool(rbinned.overflow):
         raise SystemExit("realistic: view 0 overflows the bench capacity")
-    col_k, tr_k = raster.raster_tiles_cuda(rslots, rbinned.ranges, rcfg)
+    # K1 and K2 (packed4, bf16 pairs out) on the realistic stream, whose
+    # jumbo splats make the longest segments.
+    rranges = rbinned.ranges
+    col_k, tr_k, col_p, tr_p, walk, err1, ms1_p = check_k1(
+        "packed4 realistic", rslots, rranges, rcfg)
     gen = torch.Generator(device=dev).manual_seed(3)
     g_col = _image_to_tiles(torch.randn((cfg.height, cfg.width, 3),
                                         generator=gen, device=dev), rcfg)
-    b_k = ((g_col * col_k).sum(1) + tr_k * torch.randn(
-        tr_k.shape, generator=gen, device=dev)).contiguous()
-    d_k = raster.raster_bwd_cuda(rslots, rbinned.ranges, g_col, b_k, rcfg,
-                                 pack_out=True)
+    g_tt = torch.randn(tr_k.shape, generator=gen, device=dev)
+    d_k, _, err2, ms2_p = check_k2("packed4 realistic", rslots, rranges, rcfg,
+                                   (col_k, tr_k, col_p, tr_p), g_col, g_tt,
+                                   True)
+    b_k = ((g_col * col_k).sum(1) + g_tt * tr_k).contiguous()
+    ms1 = cuda_ms(lambda: raster.raster_tiles_cuda(rslots, rranges, rcfg), 20)
+    ms2 = cuda_ms(lambda: raster.raster_bwd_cuda(rslots, rranges, g_col, b_k,
+                                                 rcfg, pack_out=True), 20)
+    log(f"[K1/K2 packed4 realistic] {int(walk.sum())} pairs walked, per "
+        f"tile {walked_pairs(walk, rcfg.pixels_per_tile)}; kernel ms K1 {ms1}"
+        f" (plain {ms1_p}), K2 {ms2} (plain {ms2_p})")
+    kernels["raster_fwd_packed"].update(realistic_ms=ms1,
+                                        realistic_max_abs_err=err1)
+    kernels["raster_bwd_packed"].update(realistic_ms=ms2,
+                                        realistic_max_abs_err=err2)
+    del col_p, tr_p, walk, b_k
     kmax_j = binning.kmax_eff(rcfg)
     key = torch.where(rbinned.sorted_gidk >= 0, rbinned.sorted_gidk,
                       2**31 - 1)
@@ -945,8 +1055,8 @@ def run(dev) -> int:
     kernels["segsum_packed"].update(
         kmax2048_ms=ms_k, kmax2048_plain_ms=ms_p, kmax2048_bound_ms=bound_ms,
         kmax2048_max_abs_err=max_err)
-    del xp, rows, s_key, perm, key, d_k, g_col, b_k, col_k, tr_k, rslots
-    del rbinned, proj, area, ids_r
+    del xp, rows, s_key, perm, key, d_k, g_col, g_tt, col_k, tr_k, rslots
+    del rbinned, rranges, proj, area, ids_r
 
     # 8. Golden: the JAX reference scene through K3 and K1; packed16 K1 and
     # K2 at that shape against their plain versions.

@@ -8,15 +8,17 @@ one path: its kernel wrappers launch the CUDA kernel for a CUDA tensor and
 run the plain PyTorch version for a CPU tensor.
 
 The TPU VMEM guard of the JAX config (pixels_per_tile * pallas_block_size)
-is replaced by the CUDA blend kernel's own limit: it runs one thread per
-pixel of a tile, and a CUDA block holds at most 1024 threads.
+is replaced by the CUDA blend kernels' own limit: a tile of at most 32x32
+pixels, which they walk with 2 pixels of a column per thread, in at most 16
+warps (each a 32x2 strip at tile 32; csrc/blend.cuh).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-# Threads of one CUDA block: the blend kernel's one-thread-per-pixel tile.
+# The blend kernels' largest tile, 32x32: 16 warps, each a 32x2 strip
+# (csrc/blend.cuh); their C entry points refuse a larger tile.
 MAX_PIXELS_PER_TILE = 1024
 
 
@@ -209,6 +211,6 @@ class RenderConfig:
         if self.pixels_per_tile > MAX_PIXELS_PER_TILE:
             raise ValueError(
                 f"pixels_per_tile = {self.pixels_per_tile} exceeds the CUDA "
-                f"blend kernel's {MAX_PIXELS_PER_TILE} threads per block "
-                "(one thread per pixel); use tile_size <= 32"
+                f"blend kernels' {MAX_PIXELS_PER_TILE} (a 32x32 tile); use "
+                "tile_size <= 32"
             )

@@ -23,19 +23,24 @@
 // walks costs about 20 FP32 operations (the forward test), each pair it
 // applies about 33 more (the gradient terms and their pixel sums); it moves
 // the stream twice (read and write, 148 MB each at the bench shape) and the
-// per-pixel gradients once. Design: one CTA per tile and one thread per
-// pixel (blockDim is P rounded up to a warp; threads past P only join the
-// barriers and shuffles). The segment is staged through shared memory in
-// batches of 32 Gaussians. Per Gaussian, each warp sums its 32 pixels' 9
-// terms with shuffles (skipped when no pixel of the warp applied the pair)
-// and writes one partial per warp to shared memory; after the batch, the
-// partials are summed in warp order, so the result does not depend on
-// scheduling: no atomics, deterministic. Each slot lies in exactly one
-// tile's segment, so a CTA writes only its own slots: there is no cross-CTA
-// state, and the TPU kernel's block-0 read-modify-write (only there for TPU
-// DMA alignment) has no counterpart. The CTA leaves the walk when every
-// pixel is done, as K1 does; the wrapper zero-fills the output, so slots
-// past an early exit and the invalid tail [ranges[T], max_I) stay exactly 0.
+// per-pixel gradients once. Design: blend.cuh's multi-pixel walk, as K1's
+// (2 pixels of one column per thread, the power-floor skip, eval_pair's
+// decisions), so that the two kernels' decisions cannot drift, in one CTA
+// per tile: the slot sums need every pixel of the tile. Per Gaussian each
+// thread sums its pixels' 9 terms in registers in pixel order; a warp any
+// of whose pixels applied the Gaussian reduces the terms across its lanes
+// in 14 shuffles (blend.cuh's halving_sum: a halving exchange of 8 terms, a
+// butterfly of the ninth) and writes one partial per term to shared
+// memory. Batches hold kBatch Gaussians; every warp zero-fills its partials
+// per batch, a warp whose pixels are all done leaves the batch, and after
+// the batch the tile's sums add the warps' partials in warp order, so the
+// result does not depend on scheduling: no atomics, deterministic. Each
+// slot lies in exactly one tile's segment, so a CTA writes only its own
+// slots: there is no cross-CTA state, and the TPU kernel's block-0
+// read-modify-write (only there for TPU DMA alignment) has no counterpart.
+// The CTA leaves the walk when every pixel is done, as K1's warps do; the
+// wrapper zero-fills the output, so slots past an early exit and the
+// invalid tail [ranges[T], max_I) stay exactly 0.
 //
 // Formats: the stream is read in any of K1's formats (blend.cuh's load_slot,
 // a template parameter). With a packed stream and gather_backward='bf16' the
@@ -55,146 +60,165 @@ namespace {
 
 using namespace gsplat;
 
-constexpr int kBatch = 32;     // Gaussians staged per batch
-constexpr int kMaxWarps = 32;  // 1024 threads: a 32x32 tile
-constexpr int kSums = 9;       // pixel sums per Gaussian
+// Pixels of one column per thread (blend.cuh's walk).
+constexpr int PPT = kPixelsPerThread;
+
+// Gaussians staged per batch: 64 at 16 warps (the partials take 36 KB).
+constexpr int kBatch = 1024 / kMaxWarps;
+constexpr int kSums = 9;     // pixel sums per Gaussian
 constexpr int kPairs = (kFeatures + 1) / 2;  // rows of the packed output
 enum { S_DX, S_DY, S_DXX, S_DXY, S_DYY, S_R, S_G, S_B, S_OP };
 
 template <int FMT, bool PACK_OUT>
-__global__ void __launch_bounds__(1024, 1)
+__global__ void __launch_bounds__(kMaxWarps * 32)
 raster_bwd_kernel(const void* __restrict__ stream, int64_t max_i,
                   const int32_t* __restrict__ ranges,
                   const float* __restrict__ g_color,
-                  const float* __restrict__ b_total, int p, int tile_offset,
+                  const float* __restrict__ b_total, int tile_offset,
                   int tiles_x, int ts, BlendParams bp, Quant q,
                   void* __restrict__ dfeat) {
-  __shared__ float s_feat[kFeatures][kBatch];
-  __shared__ float s_part[kMaxWarps][kSums][kBatch];
-  __shared__ float s_sum[kSums][kBatch];
+  __shared__ Staged s_batch[kBatch];
+  // Per (warp, Gaussian) partials, term last: the 8 lanes that write one
+  // Gaussian's terms, and the threads that sum one Gaussian each, hit
+  // distinct banks.
+  __shared__ __align__(16) float s_part[kMaxWarps][kBatch][kSums];
+  const unsigned full = 0xffffffffu;
   const int lin = threadIdx.x;
   const int lane = lin & 31;
   const int warp = lin >> 5;
   const int nwarps = blockDim.x >> 5;
   const int t = blockIdx.x;
+  const int p = ts * ts;
 
   const int gt = t + tile_offset;
   const float ox = (float)((gt % tiles_x) * ts);
   const float oy = (float)((gt / tiles_x) * ts);
-  const float xr = (float)(lin % ts);
-  const float yr = (float)(lin / ts);
+  const int x = lin % ts;
+  const int row0 = (lin / ts) * PPT;
+  const int rows = max(0, min(PPT, ts - row0));
+  const float xr = (float)x;
   const int start = ranges[t];
   const int end = ranges[t + 1];
 
-  const bool pixel = lin < p;
-  float g0 = 0.f, g1 = 0.f, g2 = 0.f, bt = 0.f;
-  if (pixel) {
-    const float* gc = g_color + (int64_t)t * 3 * p;
-    g0 = gc[lin];
-    g1 = gc[p + lin];
-    g2 = gc[2 * p + lin];
-    bt = b_total[(int64_t)t * p + lin];
+  float g0[PPT], g1[PPT], g2[PPT], bt[PPT], trans[PPT], accum_b[PPT];
+  bool live[PPT];
+  const float* gc = g_color + (int64_t)t * 3 * p;
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    live[k] = k < rows;
+    const int px = live[k] ? (row0 + k) * ts + x : 0;
+    g0[k] = live[k] ? gc[px] : 0.f;
+    g1[k] = live[k] ? gc[p + px] : 0.f;
+    g2[k] = live[k] ? gc[2 * p + px] : 0.f;
+    bt[k] = live[k] ? b_total[(int64_t)t * p + px] : 0.f;
+    trans[k] = 1.f;
+    accum_b[k] = 0.f;
   }
-  float trans = 1.f, accum_b = 0.f;
-  int done = pixel ? 0 : 1;
+  int done = rows == 0;
   for (int b0 = start; b0 < end; b0 += kBatch) {
     // Barrier before the batch overwrites shared memory, and early exit of
     // the whole CTA once every pixel has terminated.
     if (__syncthreads_and(done)) break;
     const int n = min(kBatch, end - b0);
-    // The first warp stages the batch, one slot per lane.
-    if (lin < kBatch) {
-      float v[kFeatures];
-      if (lin < n) {
-        load_slot<FMT>(stream, max_i, (int64_t)b0 + lin, q, v);
-        v[F_GX] = __fsub_rn(v[F_GX], ox);
-        v[F_GY] = __fsub_rn(v[F_GY], oy);
-      } else {
-#pragma unroll
-        for (int f = 0; f < kFeatures; ++f) v[f] = 0.f;
-      }
-#pragma unroll
-      for (int f = 0; f < kFeatures; ++f) s_feat[f][lin] = v[f];
+    for (int i = lin; i < n; i += blockDim.x) {
+      s_batch[i] = stage_slot<FMT>(stream, max_i, (int64_t)b0 + i, q, ox, oy,
+                                   bp);
     }
+    // Each warp zero-fills its partials and, while any of its pixels is
+    // live, walks the batch and writes those of the Gaussians it applies.
+    {
+      float4* part = reinterpret_cast<float4*>(&s_part[warp][0][0]);
+      for (int i = lane; i < kSums * kBatch / 4; i += 32)
+        part[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    const bool took_part = __any_sync(full, !done);
     __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      float v[kSums];
+    for (int j = 0; took_part && j < n; ++j) {
+      const float4 geo = s_batch[j].geo;
+      const float4 geo2 = s_batch[j].geo2;
+      const Column col = column_terms(xr, geo.x, geo.z, geo.w);
+      Pair pr[PPT];
+      float power[PPT];
+      bool near = false;
 #pragma unroll
-      for (int k = 0; k < kSums; ++k) v[k] = 0.f;
-      bool applied = false;
-      if (!done) {
-        Pair pr;
-        const int outcome = eval_pair(
-            xr, yr, s_feat[F_GX][j], s_feat[F_GY][j], s_feat[F_CA][j],
-            s_feat[F_CB][j], s_feat[F_CC][j], s_feat[F_OP][j], trans, bp, pr);
-        if (outcome == kStop) {
-          done = 1;
-        } else if (outcome == kApply) {
-          applied = true;
-          const float w = __fmul_rn(pr.alpha, trans);
-          const float dw = g0 * s_feat[F_R][j] + g1 * s_feat[F_G][j] +
-                           g2 * s_feat[F_B][j];
-          accum_b += dw * w;
-          const float da =
-              dw * trans - (bt - accum_b) / (1.f - pr.alpha);
-          if (pr.alpha_u < bp.alpha_clamp) {
-            const float dpower = da * pr.alpha_u;
-            const float px = dpower * pr.dx;
-            const float py = dpower * pr.dy;
-            v[S_DX] = px;
-            v[S_DY] = py;
-            v[S_DXX] = px * pr.dx;
-            v[S_DXY] = px * pr.dy;
-            v[S_DYY] = py * pr.dy;
-            v[S_OP] = da * pr.e;
-          }
-          v[S_R] = g0 * w;
-          v[S_G] = g1 * w;
-          v[S_B] = g2 * w;
-          trans = pr.test_t;
+      for (int k = 0; k < PPT; ++k) {
+        power[k] = pair_power(col, (float)(row0 + k), geo.y, geo2.x, pr[k]);
+        near = near || (live[k] && power[k] >= geo2.z);
+      }
+      // The 8 terms S_DX ... S_B, and the opacity term apart.
+      float v[8], v8[1] = {0.f};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = 0.f;
+      bool any_app = false;
+      if (near) {  // else every live pixel skips: no exp
+        const float4 rgb = s_batch[j].rgb;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k) {
+          // Every pixel's terms are formed and those of the pixels that
+          // apply the pair are added, in pixel order, with no branch.
+          Pair& r = pr[k];
+          const int outcome = eval_pair(power[k], geo2.y, trans[k], bp, r);
+          const bool app = live[k] && outcome == kApply;
+          live[k] = live[k] && outcome != kStop;
+          any_app = any_app || app;
+          const float w = __fmul_rn(r.alpha, trans[k]);
+          const float dw = g0[k] * rgb.x + g1[k] * rgb.y + g2[k] * rgb.z;
+          const float acc = accum_b[k] + dw * w;
+          const float da = dw * trans[k] - (bt[k] - acc) / (1.f - r.alpha);
+          const bool grad = app && r.alpha_u < bp.alpha_clamp;
+          const float dpower = da * r.alpha_u;
+          const float px = dpower * r.dx;
+          const float py = dpower * r.dy;
+          v[S_DX] += grad ? px : 0.f;
+          v[S_DY] += grad ? py : 0.f;
+          v[S_DXX] += grad ? px * r.dx : 0.f;
+          v[S_DXY] += grad ? px * r.dy : 0.f;
+          v[S_DYY] += grad ? py * r.dy : 0.f;
+          v[S_R] += app ? g0[k] * w : 0.f;
+          v[S_G] += app ? g1[k] * w : 0.f;
+          v[S_B] += app ? g2[k] * w : 0.f;
+          v8[0] += grad ? da * r.e : 0.f;
+          accum_b[k] = app ? acc : accum_b[k];
+          trans[k] = app ? r.test_t : trans[k];
         }
       }
-      // The warp's sum of each term; a warp none of whose pixels applied
-      // the pair has nothing to sum and writes its zeros.
-      if (__any_sync(0xffffffffu, applied)) {
-#pragma unroll
-        for (int k = 0; k < kSums; ++k) {
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
-        }
+      if (__any_sync(full, any_app)) {  // warp-uniform
+        // Lane l ends with term l / 4; every lane with the opacity term.
+        const float s = halving_sum<8>(v, lane);
+        const float s8 = halving_sum<1>(v8, lane);
+        if (lane % 4 == 0) s_part[warp][j][lane / 4] = s;
+        if (lane == 0) s_part[warp][j][S_OP] = s8;
       }
-      if (lane == 0) {
+      bool all_done = true;
 #pragma unroll
-        for (int k = 0; k < kSums; ++k) s_part[warp][k][j] = v[k];
-      }
+      for (int k = 0; k < PPT; ++k) all_done = all_done && !live[k];
+      done = all_done;
+      if (__all_sync(full, done)) break;
     }
     __syncthreads();
-    // The tile's sums: the warps' partials added in warp order.
-    for (int idx = lin; idx < kSums * kBatch; idx += blockDim.x) {
-      const int k = idx / kBatch, j = idx % kBatch;
-      if (j < n) {
-        float acc = 0.f;
-        for (int w = 0; w < nwarps; ++w) acc += s_part[w][k][j];
-        s_sum[k][j] = acc;
+    // The tile's sums: the warps' partials added in warp order (nine
+    // independent chains); then the chain rule per Gaussian.
+    for (int j = lin; j < n; j += blockDim.x) {
+      float sum[kSums];
+#pragma unroll
+      for (int k = 0; k < kSums; ++k) sum[k] = 0.f;
+#pragma unroll 4
+      for (int w = 0; w < nwarps; ++w) {
+#pragma unroll
+        for (int k = 0; k < kSums; ++k) sum[k] += s_part[w][j][k];
       }
-    }
-    __syncthreads();
-    if (lin < n) {
-      const int j = lin;
-      const float sdx = s_sum[S_DX][j], sdy = s_sum[S_DY][j];
-      const float ca = s_feat[F_CA][j], cb = s_feat[F_CB][j],
-                  cc = s_feat[F_CC][j];
+      const float4 geo = s_batch[j].geo;
+      const float ca = geo.z, cb = geo.w, cc = s_batch[j].geo2.x;
       float d[kFeatures];
-      d[F_GX] = ca * sdx + cb * sdy;
-      d[F_GY] = cc * sdy + cb * sdx;
-      d[F_CA] = -0.5f * s_sum[S_DXX][j];
-      d[F_CB] = -s_sum[S_DXY][j];
-      d[F_CC] = -0.5f * s_sum[S_DYY][j];
-      d[F_R] = s_sum[S_R][j];
-      d[F_G] = s_sum[S_G][j];
-      d[F_B] = s_sum[S_B][j];
-      d[F_OP] = s_sum[S_OP][j];
+      d[F_GX] = ca * sum[S_DX] + cb * sum[S_DY];
+      d[F_GY] = cc * sum[S_DY] + cb * sum[S_DX];
+      d[F_CA] = -0.5f * sum[S_DXX];
+      d[F_CB] = -sum[S_DXY];
+      d[F_CC] = -0.5f * sum[S_DYY];
+      d[F_R] = sum[S_R];
+      d[F_G] = sum[S_G];
+      d[F_B] = sum[S_B];
+      d[F_OP] = sum[S_OP];
       const int64_t s = (int64_t)b0 + j;
       if (PACK_OUT) {
         // bf16 pairs (0|1) (2|3) (4|5) (6|7) (8|0), the pairing of the TPU
@@ -219,11 +243,10 @@ void launch(const void* stream, int64_t max_i, const int32_t* ranges,
             int num_tiles, const float* g_color, const float* b_total,
             int tile_offset, int tiles_x, int tile_size, BlendParams bp,
             Quant q, void* dfeat, cudaStream_t st) {
-  const int p = tile_size * tile_size;
-  const int threads = (p + 31) / 32 * 32;
-  raster_bwd_kernel<FMT, PACK_OUT><<<num_tiles, threads, 0, st>>>(
-      stream, max_i, ranges, g_color, b_total, p, tile_offset, tiles_x,
-      tile_size, bp, q, dfeat);
+  raster_bwd_kernel<FMT, PACK_OUT>
+      <<<num_tiles, walk_threads(tile_size), 0, st>>>(
+          stream, max_i, ranges, g_color, b_total, tile_offset, tiles_x,
+          tile_size, bp, q, dfeat);
 }
 
 }  // namespace
@@ -240,9 +263,7 @@ extern "C" int gsplat_raster_bwd(const void* stream, int fmt, int64_t max_i,
                                  float loy, float inv_sy, float rg_step,
                                  float b_step, int pack_out, void* dfeat,
                                  void* cuda_stream) {
-  const int p = tile_size * tile_size;
-  const int threads = (p + 31) / 32 * 32;
-  if (threads > kMaxWarps * 32) return (int)cudaErrorInvalidValue;
+  if (tile_size < 1 || tile_size > 32) return (int)cudaErrorInvalidValue;
   if (num_tiles > 0) {
     const gsplat::BlendParams bp{alpha_clamp, alpha_min, t_min};
     const gsplat::Quant q{lox, inv_sx, loy, inv_sy, rg_step, b_step};

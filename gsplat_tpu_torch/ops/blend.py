@@ -115,15 +115,15 @@ def _block_weights(carry: BlendCarry, feat, px, py, in_range,
 
 def blend_block(carry: BlendCarry, feat, px, py, in_range, cfg: RenderConfig):
     """Blend one depth-ordered block of G Gaussians into P pixels. Returns
-    (new carry, number of (pixel, Gaussian) pairs the block had to
-    evaluate)."""
+    (new carry, walked (..., P) int64): the (pixel, Gaussian) pairs each
+    pixel had to evaluate in the block."""
     w, new_trans, new_done, walked, _ = _block_weights(
         carry, feat, px, py, in_range, cfg
     )
     colors = feat[..., FEAT_R : FEAT_R + 3, :]  # (..., 3, G)
     # sum_g colors[c, g] * w[p, g] -> (..., 3, P), elementwise in f32.
     new_color = carry.color + (colors[..., :, None, :] * w[..., None, :, :]).sum(-1)
-    return BlendCarry(new_color, new_trans, new_done), walked.sum()
+    return BlendCarry(new_color, new_trans, new_done), walked.sum(-1)
 
 
 def blend_block_bwd(carry: BlendCarry, feat, px, py, in_range, g_color,

@@ -186,6 +186,15 @@ def raster_bwd_cuda(stream, ranges, g_color_tiles, b_total_tiles,
     return dfeat
 
 
+def pixels_per_thread() -> int:
+    """The pixels of one column each thread of K1 and K2 walks
+    (csrc/blend.cuh's kPixelsPerThread, read from the build): the rows of a
+    warp's strip at tile 32."""
+    fn = _build.load("raster_fwd").gsplat_raster_pixels_per_thread
+    fn.restype = ctypes.c_int
+    return fn()
+
+
 def _check_device(stream) -> None:
     if stream.device.type not in ("cpu", "cuda"):
         raise ValueError(f"raster: unsupported device {stream.device}")

@@ -5,7 +5,11 @@
     It is the plain version of kernel K1 (`ops/cuda/raster.py`). Unlike the
     JAX walk, which stops at cfg.max_per_tile, it walks to the longest
     segment actually present (a host read of `ranges`): the kernel has no
-    per-tile cap either.
+    per-tile cap either. It also returns each pixel's walk length, which
+    `walked_pairs` sums at the granularity of a warp or a tile.
+  - `power_floor`: the plain copy of the kernels' per-Gaussian power floor,
+    below which no pair reaches alpha_min, so that a warp skips the exp
+    (`csrc/blend.cuh::power_floor`).
   - `_raster_tiles_bwd_walk`: the analytic backward, a forward re-walk with
     the suffix-sum identity (`ops/blend.py::blend_block_bwd`), batched over
     tiles like the forward. It is the plain version of kernel K2
@@ -59,9 +63,11 @@ def _image_to_tiles(img: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
 
 
 def _raster_tiles(features, ranges, tile_offset, cfg: RenderConfig):
-    """Forward walk -> (tile_colors (T, 3, P), tile_trans (T, P), pairs):
-    `pairs` is the () int64 count of (pixel, Gaussian) evaluations the data
-    needs (each pixel walks its tile's segment until it terminates)."""
+    """Forward walk -> (tile_colors (T, 3, P), tile_trans (T, P), walk):
+    `walk` (T, P) int64 is each pixel's walk length, the (pixel, Gaussian)
+    evaluations the data needs (a pixel walks its tile's segment until it
+    terminates, that Gaussian included); its sum is the pairs that size the
+    kernels' bounds."""
     dev = features.device
     max_i = features.shape[1]
     num_tiles = ranges.shape[0] - 1
@@ -73,7 +79,8 @@ def _raster_tiles(features, ranges, tile_offset, cfg: RenderConfig):
         torch.arange(num_tiles, device=dev) + tile_offset, cfg
     )
     carry = init_carry(cfg.pixels_per_tile, (num_tiles,), dev)
-    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    walk = torch.zeros((num_tiles, cfg.pixels_per_tile), dtype=torch.int64,
+                       device=dev)
     lane = torch.arange(g, device=dev)[None, :]
     for i in range(cdiv(longest, g)):
         idx = start + i * g + lane                      # (T, G)
@@ -82,8 +89,31 @@ def _raster_tiles(features, ranges, tile_offset, cfg: RenderConfig):
         carry, walked = blend_block(
             carry, feat.permute(1, 0, 2), px, py, in_range, cfg
         )
-        pairs += walked
-    return carry.color, carry.trans[..., 0], pairs
+        walk += walked
+    return carry.color, carry.trans[..., 0], walk
+
+
+def walked_pairs(walk: torch.Tensor, group: int) -> int:
+    """The pairs walked when each run of `group` consecutive pixels of a
+    tile (row-major) walks as far as its longest-walking pixel, as the
+    threads of one warp or one CTA do: walk (T, P) from `_raster_tiles`.
+    group 1 is the pairs the data needs, P the pairs of a tile-wide walk."""
+    t, p = walk.shape
+    if p % group:
+        raise ValueError(f"walked_pairs: group {group} does not divide P {p}")
+    return int(walk.reshape(t, p // group, group).amax(-1).sum()) * group
+
+
+def power_floor(op, cfg: RenderConfig):
+    """The kernels' power floor of Gaussians of opacity `op` (float32), the
+    plain copy of `csrc/blend.cuh::power_floor`: no pair whose power lies
+    below it reaches alpha >= alpha_min. It is -tau, tau = log(op /
+    alpha_min) + 1e-3 (a margin for the log, exp and product roundings);
+    +inf for op < alpha_min (nothing reaches), -inf where tau is not
+    finite."""
+    tau = torch.log(op / cfg.alpha_min) + 1e-3
+    floor = torch.where(tau < float("inf"), -tau, -float("inf"))
+    return torch.where(op < cfg.alpha_min, float("inf"), floor)
 
 
 def _raster_tiles_bwd_walk(features, ranges, tile_offset, g_color_tiles,

@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
-"""Registers, shared memory and SASS instruction counts of the probe kernels
-(`gsplat_tpu_torch/csrc/probe_*.cu`).
+"""Registers, shared memory and SASS instruction counts of the port's CUDA
+kernels: the probes (`gsplat_tpu_torch/csrc/probe_*.cu`) and the blend
+kernels K1 and K2 (`raster_fwd.cu`, `raster_bwd.cu`).
 
-    python3 scripts/probe_kernel_report.py [--sass-out DIR]
+    python3 scripts/probe_kernel_report.py [SOURCE ...] [--csrc DIR]
+        [--sass-out DIR]
 
-For each probe source: `nvcc` with the port's build flags plus `-Xptxas -v`
-(each kernel's registers, shared memory and spills), then `cuobjdump -sass`
-of the library and, per kernel, the count of each SASS opcode, its FP32
-operations (FADD, FMUL, FMNMX, FRND, and FFMA counted as 2) and its MUFU
-and HMMA instructions. P1's loop (`transc_kernel<mode>`) is unrolled over
-four float4s, 16 elements, and has a one-element tail, so its operations
-per element are the kernel's count over 17. With --sass-out, writes each
-library's full SASS there. Needs the CUDA toolkit (nvcc, cuobjdump), not a
-card; imports nothing of JAX.
+SOURCE names csrc/<SOURCE>.cu (default: every probe). For each source:
+`nvcc` with the port's build flags plus `-Xptxas -v` (each kernel's
+registers, shared memory and spills), then `cuobjdump -sass` of the library
+and, per kernel, the count of each SASS opcode, its FP32 operations (FADD,
+FMUL, FMNMX, FRND, and FFMA counted as 2) and its MUFU and HMMA
+instructions. P1's loop (`transc_kernel<mode>`) is unrolled over four
+float4s, 16 elements, and has a one-element tail, so its operations per
+element are the kernel's count over 17. For a blend kernel it also counts
+the pair loop: the shortest backward branch whose body holds an exp
+(`MUFU.EX2`), with LDS, SHFL, FFMA/FMUL/FADD, MUFU and BAR in that body,
+total and per evaluated pair (over its EX2 count: one exp per pair a pixel
+evaluates; a static count, as if every branch in the body were taken).
+--csrc reads the sources from another checkout (a parent's, to compare).
+With --sass-out, writes each library's full SASS there. Needs the CUDA
+toolkit (nvcc, cuobjdump), not a card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+from pathlib import Path
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
@@ -32,7 +41,10 @@ sys.path.insert(0, HERE)
 from gsplat_tpu_torch.ops.cuda import _build  # noqa: E402
 
 FP32 = {"FADD": 1, "FMUL": 1, "FFMA": 2, "FMNMX": 1, "FRND": 1}
-INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+BRANCH = re.compile(
+    r"\bBRA(?:\.[A-Z0-9_]+)*\s+(?:!?U?P[T0-9]+,\s*)?(?:`\()?0x([0-9a-f]+)")
+LOOP_OPS = ("LDS", "SHFL", "FFMA", "FMUL", "FADD", "MUFU", "BAR")
 
 
 def _tool(name: str) -> str:
@@ -43,33 +55,64 @@ def _tool(name: str) -> str:
     return path
 
 
-def sass_counts(sass: str) -> dict:
-    """{kernel symbol: Counter of opcodes} from `cuobjdump -sass` output."""
+def sass_kernels(sass: str) -> dict:
+    """{kernel symbol: [(address, opcode, line)]} from `cuobjdump -sass`."""
     out, cur = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            cur = out.setdefault(line.split("Function :")[1].strip(),
-                                 collections.Counter())
+            cur = out.setdefault(line.split("Function :")[1].strip(), [])
             continue
         m = INSN.search(line)
         if cur is not None and m:
-            cur[m.group(1).removesuffix("32I")] += 1  # FADD32I is an FADD
+            # FADD32I is an FADD.
+            cur.append((int(m.group(1), 16), m.group(2).removesuffix("32I"),
+                        line))
     return out
+
+
+def sass_counts(sass: str) -> dict:
+    """{kernel symbol: Counter of opcodes} from `cuobjdump -sass` output."""
+    return {k: collections.Counter(op for _, op, _ in insns)
+            for k, insns in sass_kernels(sass).items()}
+
+
+def pair_loop(insns: list) -> tuple[collections.Counter, int] | None:
+    """(opcode counts, EX2 count) of the shortest loop (backward branch to
+    its target) whose body holds a MUFU.EX2, or None."""
+    best = None
+    for addr, op, line in insns:
+        m = BRANCH.search(line) if op == "BRA" else None
+        if not m or int(m.group(1), 16) > addr:
+            continue
+        lo = int(m.group(1), 16)
+        body = [(o, ln) for a, o, ln in insns if lo <= a <= addr]
+        ex2 = sum("MUFU.EX2" in ln for _, ln in body)
+        if ex2 and (best is None or len(body) < len(best[0])):
+            best = (body, ex2)
+    if best is None:
+        return None
+    return collections.Counter(o for o, _ in best[0]), best[1]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("sources", nargs="*",
+                    help="csrc/<SOURCE>.cu to report (default: the probes)")
+    ap.add_argument("--csrc", default=str(_build.CSRC),
+                    help="the directory of the sources")
     ap.add_argument("--sass-out", help="directory for the full SASS")
     args = ap.parse_args()
     nvcc, cuobjdump = _tool("nvcc"), _tool("cuobjdump")
-    sources = [s for s in _build._sources() if s.stem.startswith("probe_")]
+    csrc = Path(args.csrc)
+    sources = ([csrc / f"{name}.cu" for name in args.sources] if args.sources
+               else sorted(csrc.glob("probe_*.cu")))
     with tempfile.TemporaryDirectory() as tmp:
         for src in sources:
             lib = os.path.join(tmp, f"lib{src.stem}.so")
             build = subprocess.run(
                 [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
                  str(src)], capture_output=True, text=True, check=True)
-            print(f"== {src.name}: ptxas")
+            print(f"== {src}: ptxas")
             for line in (build.stdout + build.stderr).splitlines():
                 print("  " + line.strip())
             sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
@@ -79,15 +122,24 @@ def main() -> int:
                 with open(os.path.join(args.sass_out, f"{src.stem}.sass"),
                           "w") as f:
                     f.write(sass)
-            for name, ops in sass_counts(sass).items():
+            for name, insns in sass_kernels(sass).items():
+                ops = collections.Counter(op for _, op, _ in insns)
                 fp32 = sum(n * ops[op] for op, n in FP32.items())
                 per = (f", per element {fp32 / 17:.1f} FP32 ops, "
                        f"{ops['MUFU'] / 17:.2f} MUFU"
                        if "transc_kernel" in name else "")
                 print(f"  {name}: {sum(ops.values())} instructions, FP32 "
                       f"operations {fp32}, MUFU {ops['MUFU']}, HMMA "
-                      f"{ops['HMMA']}{per}")
+                      f"{ops['HMMA']}, BAR {ops['BAR']}{per}")
                 print(f"    {dict(ops.most_common())}")
+                loop = pair_loop(insns) if "raster" in name else None
+                if loop:
+                    body, ex2 = loop
+                    n = sum(body.values())
+                    counts = ", ".join(f"{op} {body[op]} ({body[op] / ex2:.2f})"
+                                       for op in LOOP_OPS)
+                    print(f"    pair loop: {n} instructions, {ex2} EX2, "
+                          f"{n / ex2:.1f} per pair; {counts}")
     return 0
 
 

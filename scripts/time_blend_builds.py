@@ -1,0 +1,196 @@
+#!/usr/bin/env python3
+"""Time builds of the blend kernels K1 and K2 from several source trees side
+by side on one CUDA card.
+
+    python3 scripts/time_blend_builds.py [--csrc DIR ...] [--rounds N]
+        [--out F]
+
+The first build is the package's own `gsplat_tpu_torch/csrc`; each --csrc
+DIR adds one, from a directory holding a `raster_fwd.cu` and a
+`raster_bwd.cu` with the same C interface (a parent commit's
+`gsplat_tpu_torch/csrc`, unpacked with `git archive`). Every build is
+compiled with the package's nvcc flags, all at once, and launched through
+the package's wrappers (`ops/cuda/raster.py`) with its libraries loaded in
+place of the package's.
+
+Streams, on chip_smoke.py's bench config (1920x1080, tile 32, 1M Gaussians
+at SH 3, seed 0, the four views of `chip_smoke.views`): view 0 of the random
+scene as float32 and packed4 (chip_smoke.py's K1 and K2 phases), and every
+view of the realistic scene with the jumbo ladder, packed4: the frames of
+the `serve packed4 realistic` path. K2 takes N(0, 1) upstream gradients
+(seed 1) and the first build's K1 outputs, and writes bf16 pairs on a packed
+stream. For each build and stream it prints K1's largest difference from
+the first build, K2's largest and its relative L2 difference (K2's sums
+may add in another order), and CUDA-event means over 20 launches in
+every round, the builds in alternating order from round to round. Then the
+card's name and power limit, and one JSON line of the times. Needs a CUDA
+card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+import chip_smoke  # noqa: E402  (the bench config, views and timer)
+
+SOURCES = ("raster_fwd", "raster_bwd")
+
+
+def build(dirs) -> list[dict]:
+    """[{source: loaded library}] for each directory, one nvcc per source,
+    all started together."""
+    from gsplat_tpu_torch.ops.cuda import _build
+
+    nvcc = _build._nvcc()
+    procs = []
+    for i, d in enumerate(dirs):
+        out = _build.BUILD_ROOT / "blend_builds" / str(i)
+        out.mkdir(parents=True, exist_ok=True)
+        for name in SOURCES:
+            lib = out / f"lib{name}.so"
+            procs.append((i, name, lib, subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS, "-o", str(lib),
+                 str(Path(d) / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs: list[dict] = [{} for _ in dirs]
+    for i, name, lib, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {dirs[i]}/{name}.cu:\n{log}")
+        libs[i][name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def streams(dev) -> list:
+    """[(tag, cfg, stream, ranges)] of the bench config's streams."""
+    import torch
+
+    from gsplat_tpu_torch import RenderConfig, random_scene, realistic_scene
+    from gsplat_tpu_torch.ops import binning, stream16
+    from gsplat_tpu_torch.ops.projection import project_gaussians
+
+    cfg = RenderConfig(**chip_smoke.BENCH)
+    cfg4 = RenderConfig(**dict(chip_smoke.BENCH, **chip_smoke.DEFAULT))
+    rcfg = RenderConfig(**dict(chip_smoke.BENCH, **chip_smoke.DEFAULT,
+                               **chip_smoke.JUMBO))
+    cams = chip_smoke.views(cfg.width, cfg.height, dev)
+    out = []
+    with torch.no_grad():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        scene = random_scene(chip_smoke.NUM_GAUSSIANS, sh_degree=3,
+                             generator=gen, device=dev)
+        proj = project_gaussians(scene, cams[0], cfg)
+        b = binning.bin_gaussians(proj, cfg)
+        out.append(("random f32 view 0", cfg,
+                    binning.gather_features(proj, b, cfg), b.ranges))
+        out.append(("random packed4 view 0", cfg4, stream16.gather_packed(
+            binning.features_f32(proj, cfg4), b.sorted_gid, cfg4), b.ranges))
+        del scene, proj, b
+        gen = torch.Generator(device=dev).manual_seed(0)
+        scene = realistic_scene(chip_smoke.NUM_GAUSSIANS, sh_degree=3,
+                                generator=gen, device=dev)
+        for v, cam in enumerate(cams):
+            proj = project_gaussians(scene, cam, rcfg)
+            b = binning.bin_gaussians(proj, rcfg)
+            if bool(b.overflow):
+                raise SystemExit(f"realistic view {v} overflows the capacity")
+            out.append((f"realistic packed4 view {v}", rcfg,
+                        stream16.gather_packed(binning.features_f32(proj, rcfg),
+                                               b.sorted_gid, rcfg), b.ranges))
+    return out
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--csrc", action="append", default=[],
+                    help="a directory of K1 and K2 sources to time")
+    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--out", help="JSON file for the numbers")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_blend_builds: needs a CUDA card", file=sys.stderr)
+        return 1
+    from gsplat_tpu_torch.ops.bf16_pairs import unpack_bf16_pairs
+    from gsplat_tpu_torch.ops.cuda import _build, raster
+
+    dev = torch.device("cuda", 0)
+    card = chip_smoke.gpu_line()
+    dirs = [str(_build.CSRC), *args.csrc]
+    libs = build(dirs)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    times = {}
+    for tag, cfg, stream, ranges in streams(dev):
+        pack = cfg.stream_format != "f32"
+        g_col = torch.randn((cfg.num_tiles, 3, cfg.pixels_per_tile),
+                            generator=gen, device=dev)
+        g_tt = torch.randn((cfg.num_tiles, cfg.pixels_per_tile),
+                           generator=gen, device=dev)
+        _build._libs.update(libs[0])
+        col0, tr0 = raster.raster_tiles_cuda(stream, ranges, cfg)
+        b_tot = ((g_col * col0).sum(1) + g_tt * tr0).contiguous()
+        calls, d0 = [], None
+        for i, lib in enumerate(libs):
+
+            def k1(lib=lib):
+                _build._libs.update(lib)
+                return raster.raster_tiles_cuda(stream, ranges, cfg)
+
+            def k2(lib=lib):
+                _build._libs.update(lib)
+                return raster.raster_bwd_cuda(stream, ranges, g_col, b_tot,
+                                              cfg, pack_out=pack)
+
+            col, tr = k1()
+            d = unpack_bf16_pairs(k2(), 9) if pack else k2()
+            d0 = d if d0 is None else d0
+            diff1 = max(float((col - col0).abs().max()),
+                        float((tr - tr0).abs().max()))
+            rel2 = float((d - d0).norm() / d0.norm().clamp_min(1e-30))
+            print(f"[{tag}] build {i} ({dirs[i]}): K1 max abs difference "
+                  f"from build 0 {diff1}; K2 max abs difference "
+                  f"{float((d - d0).abs().max())}, relative L2 {rel2}",
+                  flush=True)
+            calls.append((k1, k2))
+        for r in range(args.rounds):
+            order = range(len(libs)) if r % 2 == 0 else reversed(range(len(libs)))
+            for i in order:
+                k1, k2 = calls[i]
+                t = times.setdefault(tag, {}).setdefault(i, {"k1": [], "k2": []})
+                t["k1"].append(chip_smoke.cuda_ms(k1, 20))
+                t["k2"].append(chip_smoke.cuda_ms(k2, 20))
+        _build._libs.update(libs[0])
+    for tag, by_build in times.items():
+        for i, t in by_build.items():
+            print(f"[{tag}] build {i}: K1 ms {t['k1']} (median "
+                  f"{statistics.median(t['k1'])}), K2 ms {t['k2']} (median "
+                  f"{statistics.median(t['k2'])})", flush=True)
+    for i in range(len(libs)):
+        frame = sum(statistics.median(t[i]["k1"]) for tag, t in times.items()
+                    if tag.startswith("realistic"))
+        print(f"[realistic packed4] build {i}: K1 over the four views "
+              f"{frame} ms (sum of medians)", flush=True)
+    print(card, flush=True)
+    result = {"card": card, "builds": dirs,
+              "times": {tag: {str(i): t for i, t in by.items()}
+                        for tag, by in times.items()}}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

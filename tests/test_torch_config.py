@@ -79,7 +79,7 @@ def test_valid_jumbo_config_accepted():
 
 def test_blend_kernel_thread_limit_replaces_vmem_guard():
     # tile 32 with the TPU-illegal Pallas block of 256 is fine here: the
-    # CUDA blend kernel's limit is one thread per pixel, 1024 per block.
+    # CUDA blend kernels' limit is a 32x32 tile.
     RenderConfig(width=64, height=64, tile_size=32, pallas_block_size=256,
                  block_size=8, max_per_tile=256)
     assert MAX_PIXELS_PER_TILE == 1024

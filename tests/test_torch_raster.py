@@ -123,9 +123,10 @@ def test_plain_walk_has_no_per_tile_cap(stream):
 
 
 def _serial_pairs(feats, ranges, cfg):
-    """(pixel, Gaussian) evaluations of a serial per-pixel walk that stops
-    at (and counts) the Gaussian that terminates the pixel: numpy, in f64."""
-    total = 0
+    """(T, P) (pixel, Gaussian) evaluations of a serial per-pixel walk that
+    stops at (and counts) the Gaussian that terminates the pixel: numpy, in
+    f64."""
+    walk = np.zeros((cfg.num_tiles, cfg.pixels_per_tile), np.int64)
     px, py = (t.numpy()[..., 0].astype(np.float64) for t in
               tile_pixel_coords(torch.arange(cfg.num_tiles), cfg))
     f = feats.astype(np.float64)
@@ -133,7 +134,7 @@ def _serial_pairs(feats, ranges, cfg):
         trans = np.ones(cfg.pixels_per_tile)
         live = np.ones(cfg.pixels_per_tile, bool)
         for s in range(ranges[t], ranges[t + 1]):
-            total += int(live.sum())
+            walk[t] += live
             dx, dy = px[t] - f[0, s], py[t] - f[1, s]
             power = -0.5 * (f[2, s] * dx * dx + f[4, s] * dy * dy) \
                 - f[3, s] * dx * dy
@@ -144,12 +145,13 @@ def _serial_pairs(feats, ranges, cfg):
             stop = ok & (test_t < cfg.transmittance_min)
             trans = np.where(ok & ~stop, test_t, trans)
             live &= ~stop
-    return total
+    return walk
 
 
-def test_walk_counts_the_pairs_the_data_needs():
-    """The pair count that sizes the blend kernel's bound equals a serial
-    walk's, on a scene where many pixels terminate early."""
+@pytest.fixture(scope="module")
+def saturated():
+    """JAX-binned features and ranges of a scene of opaque Gaussians, where
+    many pixels terminate early."""
     jscene = jax_random_scene(jax.random.key(2), 300, sh_degree=0)
     jscene = jscene.replace(
         opacity_logits=jnp.full_like(jscene.opacity_logits, 4.0),
@@ -158,14 +160,89 @@ def test_walk_counts_the_pairs_the_data_needs():
     jcfg = JaxConfig(**KW)
     jproj = jax_project(jscene, JaxCamera.default(64, 64), jcfg)
     jb = jax_bin(jproj, jcfg)
-    feats = np.array(jax_gather(jproj, jb, jcfg))
-    ranges = np.array(jb.ranges)
+    return np.array(jax_gather(jproj, jb, jcfg)), np.array(jb.ranges)
+
+
+def test_walk_counts_the_pairs_the_data_needs(saturated):
+    """Each pixel's walk length (whose sum sizes the blend kernels' bound)
+    equals a serial walk's, on a scene where many pixels terminate early."""
+    feats, ranges = saturated
     cfg = RenderConfig(**KW)
-    _, tr, pairs = raster_torch._raster_tiles(
+    _, tr, walk = raster_torch._raster_tiles(
         torch.from_numpy(feats), torch.from_numpy(ranges), 0, cfg)
     assert float(tr.min()) < 1e-3  # pixels did terminate
-    assert int(pairs) == _serial_pairs(feats, ranges, cfg)
-    assert int(pairs) < cfg.pixels_per_tile * int(ranges[-1])
+    np.testing.assert_array_equal(walk.numpy(),
+                                  _serial_pairs(feats, ranges, cfg))
+    assert int(walk.sum()) < cfg.pixels_per_tile * int(ranges[-1])
+
+
+def test_walked_pairs_at_warp_and_tile_granularity(saturated):
+    """The pairs walked when a warp of 32 pixels, or a whole tile, walks as
+    far as its slowest pixel: at least the per-pixel count, ordered, and at
+    tile granularity P times each tile's longest walk."""
+    feats, ranges = saturated
+    cfg = RenderConfig(**KW)
+    walk = raster_torch._raster_tiles(
+        torch.from_numpy(feats), torch.from_numpy(ranges), 0, cfg)[2]
+    p = cfg.pixels_per_tile
+    per_pixel, per_warp, per_tile = (raster_torch.walked_pairs(walk, g)
+                                     for g in (1, 32, p))
+    assert per_pixel == int(walk.sum()) == _serial_pairs(feats, ranges,
+                                                         cfg).sum()
+    assert per_pixel < per_warp < per_tile
+    assert per_tile == p * int(walk.amax(1).sum())
+    with pytest.raises(ValueError, match="divide"):
+        raster_torch.walked_pairs(walk, 48)
+
+
+def test_power_floor_holds_every_pair_that_reaches_alpha_min():
+    """The kernels' warp-level skip: on a dense pixel grid around seeded
+    random Gaussians (opacities up to the 0.99 clamp and past it, tiny and
+    very anisotropic conics, centres off the tile), no pair whose power,
+    formed as eval_pair forms it in float32, lies below the Gaussian's power
+    floor reaches alpha >= alpha_min; and the floor is tight."""
+    cfg = RenderConfig(**KW)
+    rng = np.random.default_rng(7)
+    n = 160
+    # Covariance eigenvalues (sigma 0.3 .. 300 px), a random rotation, and
+    # the conic as the covariance's inverse; then a few hand-made extremes.
+    sig = np.exp(rng.uniform(np.log(0.3), np.log(300.0), size=(n, 2)))
+    th = rng.uniform(0, np.pi, n)
+    c, s = np.cos(th), np.sin(th)
+    l1, l2 = 1 / sig[:, 0] ** 2, 1 / sig[:, 1] ** 2
+    conic = np.stack([l1 * c * c + l2 * s * s, (l1 - l2) * c * s,
+                      l1 * s * s + l2 * c * c], 1)
+    conic[:4] = [[1e-5, 0, 1e-5], [10.0, 9.9999, 10.0], [3.3, -3.2999, 3.3],
+                 [1e-4, 0, 3.3]]
+    op = rng.uniform(cfg.alpha_min * 0.5, 1.0, n)
+    op[:8] = [0.99, 1.0, 0.999, 0.99, cfg.alpha_min, cfg.alpha_min * 0.99,
+              1.0, 0.5]
+    centre = rng.uniform(-100, 132, size=(n, 2))
+    f32 = {k: torch.tensor(v, dtype=torch.float32) for k, v in dict(
+        gx=centre[:, 0], gy=centre[:, 1], ca=conic[:, 0], cb=conic[:, 1],
+        cc=conic[:, 2], op=op).items()}
+    floor = raster_torch.power_floor(f32["op"], cfg)
+    grid = torch.arange(-640, 672, dtype=torch.float32)
+    xs, ys = grid[None, :], grid[:, None]
+    gaps = []
+    for i in range(n):
+        dx = xs - f32["gx"][i]
+        dy = ys - f32["gy"][i]
+        power = -0.5 * (f32["ca"][i] * dx * dx + f32["cc"][i] * dy * dy) \
+            - f32["cb"][i] * dx * dy
+        alpha = torch.clamp_max(
+            f32["op"][i] * torch.exp(torch.clamp_max(power, 0.0)),
+            cfg.alpha_clamp)
+        hit = (power <= 0) & (alpha >= cfg.alpha_min)
+        assert not bool((hit & (power < floor[i])).any()), \
+            f"Gaussian {i} reaches alpha_min below its power floor"
+        if bool(hit.any()):
+            gaps.append(float(power[hit].min()) - float(floor[i]))
+    # Most Gaussians reach a pixel, and the floor is tight: some pixel comes
+    # within 1e-2 of it.
+    assert len(gaps) >= 0.9 * n and min(gaps) < 1e-2
+    # Below alpha_min nothing reaches: the floor is +inf.
+    assert float(floor[5]) == float("inf")
 
 
 def test_blend_block_batches_like_a_single_tile(stream):
