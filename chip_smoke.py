@@ -8,8 +8,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
   2. build: compile every kernel of `gsplat_tpu_torch/csrc/` (nvcc, sm_90a,
      one process per source, all at once);
   3. K3 cull at the bench shape (1M Gaussians, 1920x1080, tile 32, K 64):
-     the kernel's mask against the plain PyTorch version on the card,
-     0 differing lanes allowed; both timed with CUDA events;
+     the compact stage (compact_k and counts, the base tiers' route) and the
+     mask stage against their plain PyTorch versions on the card, 0
+     differing entries allowed; the kernel, the plain version and the route
+     it replaced (the mask stage, where, row sort, sum) timed with CUDA
+     events; then hand-made rows with a NaN in each parameter (count > 0
+     where the NaN is elsewhere) through all three stages, 0 differing
+     entries;
   4. K1 blend at the bench shape on the port's own binned stream, float32
      and packed4: kernel against the plain tiled walk (of the unpacked
      stream) on the card, PSNR >= 60 dB and >= 99.99% of pixels within 1e-4
@@ -35,16 +40,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      value within 1e-6 + 1e-5 times the summed span's absolute sum (only
      the float32 addition order differs; for K5 or within one bf16 ulp,
      where that order flips a rounding); K5's zero-high (opacity) lanes
-     keep their low halves;
+     keep their low halves; a second K5 launch bit-identical;
   7. the realistic scene (1M Gaussians, heavy-tailed) with the jumbo tiers
-     of bench.py:246-253: K3 on the (14,848, 2048) jumbo grid against its
-     plain version (0 differing lanes); K1 and K2 (packed4, bf16 pairs out)
+     of bench.py:246-253: K3's rank stage on the (14,848, 2048) jumbo grid
+     against its plain version (mask, rank and counts, 0 differing entries
+     each), timed beside the route it replaced (the mask stage, cumsum,
+     sum); K1 and K2 (packed4, bf16 pairs out)
      on its view-0 stream, whose jumbo splats make the longest segments,
      against their plain versions with the tolerances of 4 and 5; and K5 at
      depth 2048 on K2's pairs of that stream against its plain version;
   8. golden: the JAX reference scene (tests/golden/scene_42_300.npz) through
      K3 and K1, above 55 dB against tests/golden/render_64.npz; packed16 K1
-     and K2 at that shape against their plain versions;
+     and K2 at that shape against their plain versions; its stream at
+     tile_culling=False (no cull drops a Gaussian before the blend) with
+     every 17th slot's opacity NaN, float32 and packed4: K1's image and T
+     within 1e-4 of the plain walk's and K2's float32 and bf16-pair
+     gradients within the tolerances of 5, NaNs at the same places in both
+     (a NaN-opacity pair is skipped, as the plain version skips it);
   9. main paths, each driven with the launch counts set to 0 just before
      and read just after:
      - serving, float32 (bench.py --exact-grads's stream): `render` of the
@@ -105,10 +117,12 @@ FP32_OPS_PER_S = 67e12
 # K3: FP32 operations the cull does, as csrc/cull.cu's note counts them:
 # per (row, k) lane, k div/mod w 5, tile origin 2, pixel-rect offsets 8,
 # inside test 4, four edges of 11, min and tests 7; per row, -b/a, -b/c and
-# 2b: 5 (the kernel repeats them in every lane of the row; the function needs
-# them once).
+# 2b: 5. Bytes per row, besides its 10 float32 parameters: the mask stage
+# writes kmax (bool), the compact stage 4 kmax + 4 (compact_k, counts), the
+# rank stage 5 kmax + 4 (mask, krank, counts).
 CULL_OPS_PER_LANE = 70
 CULL_OPS_PER_ROW = 5
+CULL_OUT_BYTES = {"mask": (1, 0), "compact": (4, 4), "rank": (5, 4)}
 # K1: FP32 operations per (pixel, Gaussian) pair a pixel walks: 12 for the
 # offset, the quadratic and its test on every walked pair, about 15 more
 # (one exp) for the pairs that pass it -- about 20 on average.
@@ -335,6 +349,38 @@ def warp_skip_counts(feats, ranges, walk, cfg, rows) -> dict:
             near = (live & (power >= floor[c, None])).any(1)
             out["floor"] += int((~near).sum())
     return out
+
+
+def cull_bound(stage: str, rows: int, kmax: int) -> tuple[float, str]:
+    """K3's bound for `stage` on `rows` parameter rows of kmax lanes."""
+    per_lane, per_row = CULL_OUT_BYTES[stage]
+    n_bytes = rows * (4 * 10 + per_row) + rows * kmax * per_lane
+    return bound(n_bytes, rows * kmax * CULL_OPS_PER_LANE
+                 + rows * CULL_OPS_PER_ROW)
+
+
+def cull_nan_rows(params, rows_per_field: int = 64):
+    """Hand-made K3 rows: the first rows of `params` whose walk bound is
+    positive, each of the 10 parameters NaN in its own group of
+    `rows_per_field` rows."""
+    import torch
+
+    from gsplat_tpu_torch.ops.cuda import cull
+
+    live = (params[cull.R_COUNT] > 0).nonzero()[:, 0]
+    out = params[:, live[: cull.NUM_ROWS * rows_per_field]].clone()
+    for f in range(cull.NUM_ROWS):
+        out[f, f * rows_per_field : (f + 1) * rows_per_field] = float("nan")
+    return out.contiguous()
+
+
+def nan_same(a, b):
+    """(NaN at the same places in a and b, a and b with those NaNs zeroed)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (torch.equal(na, nb), torch.where(na, 0.0, a),
+            torch.where(nb, 0.0, b))
 
 
 def launch_counts() -> dict:
@@ -626,6 +672,75 @@ def check_probes(kernels: dict, dev) -> None:
     kernels["probe_coldma"].update(cold_ms=statistics.median(cold))
 
 
+def check_nan_opacity(gscene, gcam, dev) -> None:
+    """K1 and K2 on the golden scene's stream at tile_culling=False (no
+    cull drops a Gaussian before the blend) with every 17th slot's opacity
+    NaN, float32 and packed4, against the plain walks: K1's image and T
+    within 1e-4, K2's gradients within phase 5's tolerances, NaNs at the
+    same places. Exits on a difference."""
+    import torch
+
+    from gsplat_tpu_torch import RenderConfig
+    from gsplat_tpu_torch.ops import binning, stream16
+    from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs
+    from gsplat_tpu_torch.ops.cuda import raster
+    from gsplat_tpu_torch.ops.projection import project_gaussians
+    from gsplat_tpu_torch.ops.raster_torch import (
+        _raster_tiles,
+        _raster_tiles_bwd_walk,
+    )
+
+    c32 = RenderConfig(**GOLDEN, tile_culling=False)
+    with torch.no_grad():
+        proj = project_gaussians(gscene, gcam, c32)
+        binned = binning.bin_gaussians(proj, c32)
+        feats = binning.gather_features(proj, binned, c32)
+    total = int(binned.num_intersections)
+    nan_slots = torch.arange(0, total, 17, device=dev)
+    feats[binning.FEAT_OPACITY, nan_slots] = float("nan")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for fmt in ("f32", "packed4"):
+        c = (c32 if fmt == "f32" else
+             RenderConfig(**GOLDEN, tile_culling=False, **DEFAULT))
+        stream = feats if fmt == "f32" else stream16.pack_stream(feats, c)
+        plain_in = feats if fmt == "f32" else stream16.unpack_block(stream, c)
+        col_k, tr_k = raster.raster_tiles_cuda(stream, binned.ranges, c)
+        col_p, tr_p, _ = _raster_tiles(plain_in, binned.ranges, 0, c)
+        same1, *ct = nan_same(torch.cat([col_k.flatten(), tr_k.flatten()]),
+                              torch.cat([col_p.flatten(), tr_p.flatten()]))
+        err1 = float((ct[0] - ct[1]).abs().max())
+        g_col = torch.randn(col_k.shape, generator=gen, device=dev)
+        g_tt = torch.randn(tr_k.shape, generator=gen, device=dev)
+        pack = fmt != "f32"
+        d_k = raster.raster_bwd_cuda(
+            stream, binned.ranges, g_col,
+            ((g_col * col_k).sum(1) + g_tt * tr_k).contiguous(), c,
+            pack_out=pack)
+        d_p = _raster_tiles_bwd_walk(
+            plain_in, binned.ranges, 0, g_col,
+            ((g_col * col_p).sum(1) + g_tt * tr_p)[..., None], c)[0]
+        if pack:
+            d_k = unpack_bf16_pairs(d_k[:, :total], binning.NUM_FEATURES)
+            d_p = unpack_bf16_pairs(pack_bf16_pairs(d_p)[:, :total],
+                                    binning.NUM_FEATURES)
+        else:
+            d_k, d_p = d_k[:, :total], d_p[:, :total]
+        same2, u_k, u_p = nan_same(d_k, d_p)
+        rel = ((u_k - u_p).norm(dim=1)
+               / u_p.norm(dim=1).clamp_min(1e-30)).tolist()
+        within = (pair_shares(u_k, u_p)[0] if pack else float(
+            ((u_k - u_p).abs() <= 2e-4 + 2e-3 * u_p.abs()).float().mean()))
+        log(f"[NaN opacity {fmt}] {total} slots, {nan_slots.numel()} with a "
+            f"NaN opacity, tile_culling=False: K1 NaNs at the same places "
+            f"{same1}, max abs err image and T {err1}; K2 NaNs at the same "
+            f"places {same2} ({int(torch.isnan(d_k).sum())} NaN entries), "
+            f"relative L2 per feature row {rel}, within tolerance {within}")
+        if not (same1 and err1 <= 1e-4 and same2 and max(rel) <= 1e-3
+                and within >= 0.999):
+            raise SystemExit(f"NaN opacity {fmt}: K1 or K2 differs from the "
+                             "plain version")
+
+
 def drive(path, needs, fn):
     """Run one main path with the launch counts set to 0 just before and
     read just after; fail unless each kernel in `needs` was launched."""
@@ -708,32 +823,67 @@ def run(dev) -> int:
     kernels = {name: dict(name=name, route="cuda", source=src, replaces=rep)
                for name, (_, src, rep) in KERNELS.items()}
 
-    # 3. K3 cull at the bench shape.
+    # 3. K3 at the bench shape: the compact stage (the base tiers' route)
+    # and the mask stage against their plain versions; the route the
+    # compact stage replaced (the mask stage, where, row sort, sum) timed
+    # beside it; then rows with NaN parameters through every stage.
     with torch.no_grad():
         proj = project_gaussians(scene, cams[0], cfg)
         params = cull.cull_params(proj, cfg)
-    kmax = cfg.max_tiles_per_gaussian
-    mask_k = cull.cull_mask_from_params(params, kmax, cfg.tile_size)
-    mask_p, ms_p = timed_once(
-        lambda: cull.cull_mask_plain(params, kmax, cfg.tile_size))
-    differ = int((mask_k != mask_p).sum())
-    lanes = params.shape[1] * kmax
-    log(f"[K3] {params.shape[1]} rows x K {kmax}: {int(mask_k.sum())} lanes "
-        f"kept, {differ} lanes differ from the plain version")
-    if differ:
-        raise SystemExit("K3: kernel mask differs from the plain version")
-    ms_k = cuda_ms(lambda: cull.cull_mask_from_params(params, kmax, cfg.tile_size), 50)
-    cull_bytes = params.numel() * 4 + lanes
-    cull_ops = lanes * CULL_OPS_PER_LANE + params.shape[1] * CULL_OPS_PER_ROW
-    bound_ms, bound_by = bound(cull_bytes, cull_ops)
+    kmax, ts = cfg.max_tiles_per_gaussian, cfg.tile_size
+    n_rows = params.shape[1]
+    mask_k = cull.cull_mask_cuda(params, kmax, ts)
+    mask_p, mask_ms_p = timed_once(
+        lambda: cull.cull_mask_plain(params, kmax, ts))
+    mask_differ = int((mask_k != mask_p).sum())
+    ck_k, cnt_k = cull.cull_compact_cuda(params, kmax, ts)
+    (ck_p, cnt_p), ms_p = timed_once(
+        lambda: cull.cull_compact_plain(params, kmax, ts))
+    ck_differ = int((ck_k != ck_p).sum())
+    cnt_differ = int((cnt_k != cnt_p).sum())
+    log(f"[K3] {n_rows} rows x K {kmax}: {int(cnt_k.sum())} lanes kept; "
+        f"compact stage: {ck_differ} entries of compact_k and {cnt_differ} "
+        f"counts differ from the plain version; mask stage: {mask_differ} "
+        f"lanes differ")
+    if ck_differ or cnt_differ or mask_differ:
+        raise SystemExit("K3: kernel differs from the plain version")
+    ms_k = cuda_ms(lambda: cull.cull_compact_cuda(params, kmax, ts), 50)
+    route_ms = cuda_ms(lambda: cull.compact_from_mask(
+        cull.cull_mask_cuda(params, kmax, ts)), 50)
+    mask_ms = cuda_ms(lambda: cull.cull_mask_cuda(params, kmax, ts), 50)
+    bound_ms, bound_by = cull_bound("compact", n_rows, kmax)
+    mask_bound, _ = cull_bound("mask", n_rows, kmax)
     kernels["cull"].update(
-        max_abs_err=float((mask_k.float() - mask_p.float()).abs().max()),
+        max_abs_err=float(max((ck_k - ck_p).abs().max(),
+                              (cnt_k - cnt_p).abs().max())),
         ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None,
+        library_ms=None, route_ms=route_ms, mask_ms=mask_ms,
+        mask_plain_ms=mask_ms_p, mask_bound_ms=mask_bound,
     )
-    log(f"[K3] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms} ms "
-        f"({cull_bytes} B, {cull_ops} ops, {bound_by})")
-    del mask_k, mask_p
+    log(f"[K3] compact stage {ms_k} ms, plain {ms_p} ms, bound {bound_ms} ms "
+        f"({bound_by}); the route it replaced (mask stage, where, row sort, "
+        f"sum) {route_ms} ms; mask stage {mask_ms} ms, plain {mask_ms_p} ms, "
+        f"bound {mask_bound} ms")
+    del mask_k, mask_p, ck_k, ck_p, cnt_k, cnt_p
+    nan_rows = cull_nan_rows(params)
+    nan_differ = {}
+    for stage, kernel, plain in (
+            ("mask", cull.cull_mask_cuda, cull.cull_mask_plain),
+            ("compact", cull.cull_compact_cuda, cull.cull_compact_plain),
+            ("rank", cull.cull_rank_cuda, cull.cull_rank_plain)):
+        got, want = kernel(nan_rows, kmax, ts), plain(nan_rows, kmax, ts)
+        if stage == "mask":
+            got, want = (got,), (want,)
+        nan_differ[stage] = [int((g != w).sum()) for g, w in zip(got, want)]
+    kept = cull.cull_mask_plain(nan_rows, kmax, ts).view(
+        cull.NUM_ROWS, -1).sum(1).tolist()
+    log(f"[K3 NaN rows] {nan_rows.shape[1]} rows, one parameter NaN per "
+        f"group ({cull.R_GX}..{cull.R_COUNT}); lanes the plain version keeps "
+        f"per group {kept}; differing entries per stage and output "
+        f"{nan_differ}")
+    if any(any(d) for d in nan_differ.values()):
+        raise SystemExit("K3 NaN rows: kernel differs from the plain version")
+    del nan_rows
 
     def check_k1(tag, stream, ranges, c):
         """K1 on `stream` against the plain tiled walk (of the unpacked
@@ -925,6 +1075,8 @@ def run(dev) -> int:
         """K5 against its plain version on gid-major pairs; returns the
         kernel's and the plain version's ms, the bound and the max error."""
         sum_k = segsum.segmented_suffix_sum_packed_cuda(xp, rows, kmax_s)
+        relaunch = torch.equal(
+            sum_k, segsum.segmented_suffix_sum_packed_cuda(xp, rows, kmax_s))
         sum_p, ms_p = timed_once(
             lambda: segsum.segmented_suffix_sum_packed_plain(xp, rows, kmax_s))
         f = 2 * xp.shape[0]
@@ -949,10 +1101,11 @@ def run(dev) -> int:
             f"max abs err {float(err.max())}, within one bf16 ulp or 1e-6 + "
             f"1e-5 span abs sum: {bool(ok.all())}; {n_zero_high} nonzero "
             f"zero-high lanes, their low halves kept: {low_kept}, "
-            f"bit-identical: {low_same}")
-        if not (bool(ok.all()) and low_kept and n_zero_high > 0):
+            f"bit-identical: {low_same}; a second launch bit-identical: "
+            f"{relaunch}")
+        if not (bool(ok.all()) and low_kept and n_zero_high > 0 and relaunch):
             raise SystemExit(f"K5 {tag}: kernel outside the stated tolerance "
-                             "of the plain version")
+                             "of the plain version, or not deterministic")
         ms_k = cuda_ms(lambda: segsum.segmented_suffix_sum_packed_cuda(
             xp, rows, kmax_s), 20)
         k5_bytes = (xp.numel() + rows.numel() + sum_k.numel()) * 4
@@ -986,30 +1139,36 @@ def run(dev) -> int:
         area = torch.where(proj.mask, area, 0)
         ids_r = torch.sort(-area).indices[: rcfg.jumbo_tier_spec[0][1]]
         kj = rcfg.max_tiles_jumbo
-        jparams = cull.cull_params(proj, rcfg, counts=torch.clamp_max(
-            area, kj))[:, ids_r].contiguous()
-    mask_k = cull.cull_mask_from_params(jparams, kj, rcfg.tile_size)
-    mask_p, jms_p = timed_once(
-        lambda: cull.cull_mask_plain(jparams, kj, rcfg.tile_size))
-    differ = int((mask_k != mask_p).sum())
+        # The walk bound of binning._jumbo_candidates: the raw rect up to
+        # kj, 0 for the rows that are not jumbo.
+        jbound = torch.where(area > rcfg.max_tiles_per_gaussian,
+                             torch.clamp_max(area, kj), 0)
+        jparams = cull.cull_params(proj, rcfg, counts=jbound)[
+            :, ids_r].contiguous()
+    got = cull.cull_rank_cuda(jparams, kj, rcfg.tile_size)
+    want, jms_p = timed_once(
+        lambda: cull.cull_rank_plain(jparams, kj, rcfg.tile_size))
+    differ = [int((g != w).sum()) for g, w in zip(got, want)]
     log(f"[K3 jumbo] {int((area > rcfg.max_tiles_per_gaussian).sum())} "
         f"splats past K {rcfg.max_tiles_per_gaussian} (largest rect "
-        f"{int(area.max())} tiles); {jparams.shape[1]} rows x K {kj}: "
-        f"{int(mask_k.sum())} lanes kept, {differ} lanes differ from the "
-        f"plain version")
-    if differ:
-        raise SystemExit("K3 jumbo: kernel mask differs from the plain version")
-    jms_k = cuda_ms(lambda: cull.cull_mask_from_params(jparams, kj,
-                                                       rcfg.tile_size), 20)
-    jlanes = jparams.shape[1] * kj
-    jbound, jbound_by = bound(jparams.numel() * 4 + jlanes,
-                              jlanes * CULL_OPS_PER_LANE
-                              + jparams.shape[1] * CULL_OPS_PER_ROW)
-    log(f"[K3 jumbo] kernel {jms_k} ms, plain {jms_p} ms, bound {jbound} ms "
-        f"({jbound_by})")
+        f"{int(area.max())} tiles); rank stage on {jparams.shape[1]} rows x "
+        f"K {kj}: {int(got[2].sum())} lanes kept; mask, rank, counts: "
+        f"{differ} entries differ from the plain version")
+    if any(differ):
+        raise SystemExit("K3 jumbo: kernel differs from the plain version")
+    jms_k = cuda_ms(lambda: cull.cull_rank_cuda(jparams, kj, rcfg.tile_size),
+                    20)
+    jroute_ms = cuda_ms(lambda: cull.rank_from_mask(
+        cull.cull_mask_cuda(jparams, kj, rcfg.tile_size)), 20)
+    jbound_ms, jbound_by = cull_bound("rank", jparams.shape[1], kj)
+    log(f"[K3 jumbo] rank stage {jms_k} ms, plain {jms_p} ms, bound "
+        f"{jbound_ms} ms ({jbound_by}); the route it replaced (mask stage, "
+        f"cumsum, sum) {jroute_ms} ms")
     kernels["cull"].update(jumbo_ms=jms_k, jumbo_plain_ms=jms_p,
-                           jumbo_bound_ms=jbound, jumbo_bound_by=jbound_by)
-    del mask_k, mask_p, jparams
+                           jumbo_bound_ms=jbound_ms,
+                           jumbo_bound_by=jbound_by,
+                           jumbo_route_ms=jroute_ms)
+    del got, want, jparams, jbound
 
     with torch.no_grad():
         rbinned = binning.bin_gaussians(proj, rcfg)
@@ -1110,6 +1269,7 @@ def run(dev) -> int:
         raise SystemExit("golden packed16: K1 or K2 outside the stated "
                          "tolerance of the plain version")
     del s16, f16, d_k, d_p, col_k, tr_k, col_p, tr_p, g_col, g_tt
+    check_nan_opacity(gscene, gcam, dev)
     torch.cuda.empty_cache()
     log(f"[phases 1-8] {time.perf_counter() - t_start:.1f} s")
 

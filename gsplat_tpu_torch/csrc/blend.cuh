@@ -102,7 +102,7 @@ struct Pair {
   float dx, dy;    // pixel centre minus Gaussian centre
   float e;         // exp(min(power, 0))
   float alpha_u;   // opacity * e, before the clamp
-  float alpha;     // min(alpha_clamp, alpha_u)
+  float alpha;     // min(alpha_clamp, alpha_u), a NaN kept
   float test_t;    // trans * (1 - alpha): the transmittance after the pair
 };
 
@@ -148,7 +148,10 @@ __device__ __forceinline__ int eval_pair(float power, float op, float trans,
                                          const BlendParams& bp, Pair& pr) {
   pr.e = expf(fminf(power, 0.f));
   pr.alpha_u = __fmul_rn(op, pr.e);
-  pr.alpha = fminf(bp.alpha_clamp, pr.alpha_u);
+  // A select, not fminf: fminf drops a NaN (a NaN opacity would become
+  // alpha_clamp and be applied), where the plain version's clamp_max keeps
+  // it and the test below then skips the pair. Same value on finite input.
+  pr.alpha = pr.alpha_u > bp.alpha_clamp ? bp.alpha_clamp : pr.alpha_u;
   pr.test_t = __fmul_rn(trans, __fsub_rn(1.f, pr.alpha));
   // !(power <= 0) also skips a NaN power.
   const bool pass = power <= 0.f && pr.alpha >= bp.alpha_min;

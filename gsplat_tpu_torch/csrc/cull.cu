@@ -1,31 +1,56 @@
-// K3: exact ellipse-tile cull mask of the tiled binning's rect walk.
+// K3: exact ellipse-tile cull of the tiled binning's rect walk, fused with
+// the per-row compaction that consumes it.
 //
-// Replaces the TPU kernel gsplat_tpu/ops/pallas/cull.py::_cull_kernel. For
-// Gaussian row r and rect-walk index k < kmax it takes the tile
+// Replaces the TPU kernel gsplat_tpu/ops/pallas/cull.py::_cull_kernel and,
+// in its compact stage, the XLA row sort that follows it
+// (compact_k = sort(where(mask, k, kmax)), gsplat_tpu/ops/binning.py:359).
+// For Gaussian row r and rect-walk index k < kmax it takes the tile
 // (x0 + k mod w, y0 + k div w), finds the minimum of the conic quadratic
 // q = A dx^2 + 2B dx dy + C dy^2 over that tile's pixel centres (0 if the
 // centre is inside, else the minimum over the 4 edges of the clamped 1-D
-// minimiser), and keeps the lane iff qmin <= tau and k < count.
+// minimiser), and keeps the lane iff qmin <= tau and k < count. One row walk
+// serves three output stages (`Stage`):
+//   mask     the (N, kmax) bool mask (the 'packed' and 'sort' oracles);
+//   compact  compact_k (N, kmax) int32, each row's kept k ascending padded
+//            with kmax, and counts (N,) int32 (the base tiers);
+//   rank     the mask, krank (N, kmax) int32 = cumsum(mask, 1) - 1, and
+//            counts (the jumbo grid).
 //
-// What bounds it on an H100: the (N, kmax) mask it writes. At the bench
-// shape (N = 1M, kmax = 64) that is 64 MB of output against 40 MB of
-// parameters, and 70 FP32 operations per lane (k div/mod w 5, tile origin 2,
-// pixel-rect offsets 8, inside test 4, four edges of 11, min and tests 7)
-// plus 5 per row (-b/a, -b/c, 2b, which each lane here repeats); both bounds
-// are tens of microseconds. Design: one thread per (row, k) lane, consecutive threads on
-// consecutive k of one row, so the one-byte mask stores coalesce and the ten
-// parameter loads of a row are shared by its kmax lanes through L1. kmax is
-// a runtime argument: the jumbo tiers run the kernel on their gathered rows
-// with kmax = max_tiles_jumbo, up to 2048. The mask is written as 0/1 bytes
-// straight into the (N, kmax) bool tensor: no f32 mask and no transpose as
-// on the TPU.
+// What bounds it on an H100: the bytes it writes. At the bench shape (N =
+// 1M, kmax = 64) the compact stage writes 256 MB of compact_k and 4 MB of
+// counts and reads 40 MB of parameters: 0.090 ms at 3.35 TB/s, against
+// 0.067 ms for the FP32 operations (70 per lane: k div/mod w 5, tile origin
+// 2, pixel-rect offsets 8, inside test 4, four edges of 11, min and tests
+// 7; 5 per row: -b/a, -b/c, 2b). The mask stage writes kmax bytes a row,
+// the rank stage kmax bytes and 4 kmax bytes a row (152 MB on the jumbo
+// grid of 14,848 x 2048).
+//
+// Design: a warp walks rows one after another, in chunks of 32 lanes
+// (consecutive k). The warp's lanes first load up to 32 rows' parameters
+// (lane i row i: the loads coalesce) and form each row's terms once, the two
+// per-row quotients -b/a and -b/c included; the walk then takes row j's
+// terms from lane j by shuffle. Chunks past the row's walk bound (k >=
+// count) test nothing: every lane there fails. A chunk's kept lanes are a
+// __ballot_sync; a kept lane's place in the compacted row is the running
+// count of the earlier chunks plus the popcount of the ballot below it, so
+// the compact stage stores each kept k once at its place and fills the rest
+// of the row with kmax: the row sort, the where and the sum that read the
+// mask before are gone. Rows per warp: 32 at kmax 64 (the parameter loads
+// of a row are shared by 32 rows' walks), down to 1 at kmax 2048 (so the
+// jumbo grid still has a warp per row).
 //
 // Exactness: every product, sum and quotient goes through __fmul_rn,
 // __fadd_rn, __fsub_rn and __fdiv_rn, which nvcc never contracts into FMAs,
 // in the operation order of the plain PyTorch version
-// (gsplat_tpu_torch/ops/cuda/cull.py::cull_mask_plain). Each rounds like one
-// PyTorch elementwise op, so the kernel's mask equals the plain one bit for
-// bit on the same parameters.
+// (gsplat_tpu_torch/ops/cuda/cull.py::cull_mask_plain), so the kept lanes
+// equal the plain ones bit for bit; the compaction and the ranks are
+// integer counts. k div w is the plain version's floor((k + 0.5) / w); where
+// w is an integer in [1, 4096] and kmax <= 4096 it is the same integer by a
+// multiply with ceil(2^24 / w) (exact since k w < 2^24; both are pinned by
+// tests/test_torch_binning.py), else the f32 division itself. Minima and
+// clamps keep NaNs (min.NaN / max.NaN) as torch.minimum and torch.clamp do:
+// a NaN centre, conic, bound or walk width drops the lane as in the plain
+// version, where fminf / fmaxf would drop the NaN and keep the lane.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,10 +59,33 @@ namespace {
 
 // Parameter rows of the (10, N) float32 input (cull.py::cull_params).
 enum { R_GX, R_GY, R_A, R_B, R_C, R_TAU, R_X0, R_Y0, R_W, R_COUNT };
+// Output stages (cull.py::STAGES).
+enum Stage { kMask = 0, kCompact = 1, kRank = 2 };
+
+constexpr unsigned kFull = 0xffffffffu;
+// k div w by the multiply for k < kMagicLimit and integral w <= kMagicLimit.
+constexpr int kMagicLimit = 4096;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// NaN if either operand is NaN, as torch.minimum / torch.maximum.
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// torch.clamp(x, lo, hi): NaN if any of the three is.
+__device__ __forceinline__ float clip(float x, float lo, float hi) {
+  return min_nan(max_nan(x, lo), hi);
+}
 
 // a*dx*dx + (2b)*dx*dy + c*dy*dy, left to right as Python evaluates it.
 __device__ __forceinline__ float quad(float a, float b2, float c, float dx,
@@ -46,66 +94,160 @@ __device__ __forceinline__ float quad(float a, float b2, float c, float dx,
              mul(mul(c, dy), dy));
 }
 
-__device__ __forceinline__ float clip(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
+// One row's parameters and the terms the test needs once per row.
+struct Row {
+  float gx, gy, a, b2, c, tau, x0, y0, w, count;
+  float nb_over_a, nb_over_c;  // -b / max(a, 1e-12), -b / max(c, 1e-12)
+  uint32_t magic;              // ceil(2^24 / w) for an integral w, else 0
+};
+
+__device__ __forceinline__ Row load_row(const float* __restrict__ params,
+                                        int64_t n, int64_t r, int kmax) {
+  Row q;
+  q.gx = params[R_GX * n + r];
+  q.gy = params[R_GY * n + r];
+  q.a = params[R_A * n + r];
+  const float b = params[R_B * n + r];
+  q.c = params[R_C * n + r];
+  q.tau = params[R_TAU * n + r];
+  q.x0 = params[R_X0 * n + r];
+  q.y0 = params[R_Y0 * n + r];
+  q.w = params[R_W * n + r];
+  q.count = params[R_COUNT * n + r];
+  q.nb_over_a = __fdiv_rn(-b, max_nan(q.a, 1e-12f));
+  q.nb_over_c = __fdiv_rn(-b, max_nan(q.c, 1e-12f));
+  q.b2 = mul(2.0f, b);
+  const bool int_w = q.w >= 1.f && q.w <= (float)kMagicLimit &&
+                     q.w == floorf(q.w) && kmax <= kMagicLimit;
+  const uint32_t w = int_w ? (uint32_t)q.w : 1u;
+  q.magic = int_w ? ((1u << 24) + w - 1u) / w : 0u;
+  return q;
 }
 
-__global__ void cull_kernel(const float* __restrict__ params,
-                            uint8_t* __restrict__ out, int64_t n, int kmax,
-                            float ts) {
-  int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n * kmax) return;
-  int64_t r = lane / kmax;
-  float k = (float)(int)(lane - r * kmax);
+// Row j of the warp's rows, from lane j.
+__device__ __forceinline__ Row shfl_row(const Row& m, int j) {
+  Row q;
+  q.gx = __shfl_sync(kFull, m.gx, j);
+  q.gy = __shfl_sync(kFull, m.gy, j);
+  q.a = __shfl_sync(kFull, m.a, j);
+  q.b2 = __shfl_sync(kFull, m.b2, j);
+  q.c = __shfl_sync(kFull, m.c, j);
+  q.tau = __shfl_sync(kFull, m.tau, j);
+  q.x0 = __shfl_sync(kFull, m.x0, j);
+  q.y0 = __shfl_sync(kFull, m.y0, j);
+  q.w = __shfl_sync(kFull, m.w, j);
+  q.count = __shfl_sync(kFull, m.count, j);
+  q.nb_over_a = __shfl_sync(kFull, m.nb_over_a, j);
+  q.nb_over_c = __shfl_sync(kFull, m.nb_over_c, j);
+  q.magic = __shfl_sync(kFull, m.magic, j);
+  return q;
+}
 
-  float gx = params[R_GX * n + r];
-  float gy = params[R_GY * n + r];
-  float a = params[R_A * n + r];
-  float b = params[R_B * n + r];
-  float c = params[R_C * n + r];
-  float tau = params[R_TAU * n + r];
-  float x0 = params[R_X0 * n + r];
-  float y0 = params[R_Y0 * n + r];
-  float w = params[R_W * n + r];
-  float count = params[R_COUNT * n + r];
+// The lane test of rect-walk index k of row q.
+__device__ __forceinline__ bool keep(const Row& q, int k, float ts,
+                                     float ts1) {
+  const float kf = (float)k;
+  // k div w: floor((k + 0.5) / w), the same integer as k * magic >> 24.
+  const float ky = q.magic
+      ? (float)__umulhi((uint32_t)k << 8, q.magic)
+      : floorf(__fdiv_rn(add(kf, 0.5f), q.w));
+  const float kx = sub(kf, mul(ky, q.w));
+  const float tx = add(q.x0, kx);
+  const float ty = add(q.y0, ky);
 
-  // k div w via exact f32 division ((k + 0.5) / w is never integral).
-  float ky = floorf(__fdiv_rn(add(k, 0.5f), w));
-  float kx = sub(k, mul(ky, w));
-  float tx = add(x0, kx);
-  float ty = add(y0, ky);
-
-  float dx0 = sub(mul(tx, ts), gx);
-  float dx1 = add(dx0, sub(ts, 1.0f));
-  float dy0 = sub(mul(ty, ts), gy);
-  float dy1 = add(dy0, sub(ts, 1.0f));
-  bool inside = (dx0 <= 0.f) && (0.f <= dx1) && (dy0 <= 0.f) && (0.f <= dy1);
-
-  float nb_over_a = __fdiv_rn(-b, fmaxf(a, 1e-12f));
-  float nb_over_c = __fdiv_rn(-b, fmaxf(c, 1e-12f));
-  float b2 = mul(2.0f, b);
+  const float dx0 = sub(mul(tx, ts), q.gx);
+  const float dx1 = add(dx0, ts1);
+  const float dy0 = sub(mul(ty, ts), q.gy);
+  const float dy1 = add(dy0, ts1);
+  const bool inside =
+      (dx0 <= 0.f) && (0.f <= dx1) && (dy0 <= 0.f) && (0.f <= dy1);
 
   // Edges dx = d (minimise over dy) and dy = d (minimise over dx).
-  float ex0 = quad(a, b2, c, dx0, clip(mul(nb_over_c, dx0), dy0, dy1));
-  float ex1 = quad(a, b2, c, dx1, clip(mul(nb_over_c, dx1), dy0, dy1));
-  float ey0 = quad(a, b2, c, clip(mul(nb_over_a, dy0), dx0, dx1), dy0);
-  float ey1 = quad(a, b2, c, clip(mul(nb_over_a, dy1), dx0, dx1), dy1);
-  float qmin = fminf(fminf(ex0, ex1), fminf(ey0, ey1));
+  const float ex0 =
+      quad(q.a, q.b2, q.c, dx0, clip(mul(q.nb_over_c, dx0), dy0, dy1));
+  const float ex1 =
+      quad(q.a, q.b2, q.c, dx1, clip(mul(q.nb_over_c, dx1), dy0, dy1));
+  const float ey0 =
+      quad(q.a, q.b2, q.c, clip(mul(q.nb_over_a, dy0), dx0, dx1), dy0);
+  const float ey1 =
+      quad(q.a, q.b2, q.c, clip(mul(q.nb_over_a, dy1), dx0, dx1), dy1);
+  float qmin = min_nan(min_nan(ex0, ex1), min_nan(ey0, ey1));
   if (inside) qmin = 0.f;
+  return (qmin <= q.tau) && (kf < q.count);
+}
 
-  out[lane] = (qmin <= tau) && (k < count);
+template <int STAGE>
+__global__ void cull_kernel(const float* __restrict__ params, int64_t n,
+                            int kmax, float ts, int rows_per_warp,
+                            uint8_t* __restrict__ mask,
+                            int32_t* __restrict__ idx,
+                            int32_t* __restrict__ counts) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r0 =
+      (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * rows_per_warp;
+  if (r0 >= n) return;  // the whole warp
+  const int rows = (int)(n - r0 < rows_per_warp ? n - r0 : rows_per_warp);
+  Row mine = {};
+  if (lane < rows) mine = load_row(params, n, r0 + lane, kmax);
+  const float ts1 = sub(ts, 1.0f);
+  const int chunks = (kmax + 31) >> 5;
+  const unsigned below_me = (1u << lane) - 1u;
+
+  for (int j = 0; j < rows; ++j) {
+    const Row q = shfl_row(mine, j);
+    const int64_t base = (r0 + j) * (int64_t)kmax;
+    int carry = 0;  // kept lanes of the earlier chunks
+    for (int c = 0; c < chunks; ++c) {
+      // Past the walk bound no lane is kept (nor for a NaN count).
+      const bool walk = (float)(c << 5) < q.count;
+      if (STAGE == kCompact && !walk) break;
+      const int k = (c << 5) + lane;
+      const bool kept = walk && k < kmax && keep(q, k, ts, ts1);
+      if (STAGE == kMask) {
+        if (k < kmax) mask[base + k] = kept;
+        continue;
+      }
+      const unsigned ballot = __ballot_sync(kFull, kept);
+      const int before = carry + __popc(ballot & below_me);
+      if (STAGE == kCompact) {
+        if (kept) idx[base + before] = k;
+      } else if (k < kmax) {
+        mask[base + k] = kept;
+        idx[base + k] = before + (int)kept - 1;
+      }
+      carry += __popc(ballot);
+    }
+    if (STAGE == kCompact) {
+      for (int p = lane; p < kmax; p += 32)
+        if (p >= carry) idx[base + p] = kmax;
+    }
+    if (STAGE != kMask && lane == 0) counts[r0 + j] = carry;
+  }
 }
 
 }  // namespace
 
-extern "C" int gsplat_cull(const float* params, uint8_t* out, int64_t n,
-                           int kmax, float tile_size, void* stream) {
-  int64_t lanes = n * (int64_t)kmax;
-  if (lanes > 0) {
+extern "C" int gsplat_cull(const float* params, int64_t n, int kmax,
+                           float tile_size, int stage, uint8_t* mask,
+                           int32_t* idx, int32_t* counts, void* stream) {
+  if (stage < kMask || stage > kRank) return (int)cudaErrorInvalidValue;
+  if (n > 0 && kmax > 0) {
+    const int chunks = (kmax + 31) / 32;
+    int rows_per_warp = 64 / chunks;
+    rows_per_warp = rows_per_warp < 1 ? 1 : rows_per_warp > 32 ? 32 : rows_per_warp;
     const int threads = 256;
-    int64_t blocks = (lanes + threads - 1) / threads;
-    cull_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        params, out, n, kmax, tile_size);
+    const int64_t warps = (n + rows_per_warp - 1) / rows_per_warp;
+    const int64_t blocks = (warps * 32 + threads - 1) / threads;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (stage == kMask)
+      cull_kernel<kMask><<<(unsigned)blocks, threads, 0, s>>>(
+          params, n, kmax, tile_size, rows_per_warp, mask, idx, counts);
+    else if (stage == kCompact)
+      cull_kernel<kCompact><<<(unsigned)blocks, threads, 0, s>>>(
+          params, n, kmax, tile_size, rows_per_warp, mask, idx, counts);
+    else
+      cull_kernel<kRank><<<(unsigned)blocks, threads, 0, s>>>(
+          params, n, kmax, tile_size, rows_per_warp, mask, idx, counts);
   }
   return (int)cudaGetLastError();
 }

@@ -5,9 +5,10 @@ gather's scatter-free backward.
 Port of `gsplat_tpu.ops.binning` for `binning='tiered'` (the production
 mode, with the jumbo tiers of `max_tiles_jumbo`), with `'packed'` and
 `'sort'` as oracles. The exact ellipse-tile cull runs through kernel K3
-(`ops/cuda/cull.py`), the backward's segmented suffix sum through kernel K4
-(`ops/cuda/segsum.py`), or K5 over bf16 pairs on the `gather_backward=
-'bf16'` path. Differences from the JAX package:
+(`ops/cuda/cull.py`), which also compacts each row of the tiers' walk, the
+backward's segmented suffix sum through kernel K4 (`ops/cuda/segsum.py`),
+or K5 over bf16 pairs on the `gather_backward='bf16'` path. Differences
+from the JAX package:
 
   - Keys are int64 with the values of the JAX u32 keys
     (`tile << depth_bits | depth_q`, sentinel 0xFFFFFFFF), because PyTorch's
@@ -33,8 +34,10 @@ import torch
 from gsplat_tpu_torch.config import RenderConfig
 from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs
 from gsplat_tpu_torch.ops.cuda.cull import (
-    cull_mask_from_params,
+    cull_compact_from_params,
     cull_params,
+    cull_rank_from_params,
+    rank_from_mask,
     tile_cull_mask,
 )
 from gsplat_tpu_torch.ops.cuda.segsum import segmented_suffix_sum
@@ -128,6 +131,20 @@ def _rect_cull_mask(proj, cfg: RenderConfig):
     return k < proj.counts[:, None]
 
 
+def _compact_candidates(proj, cfg: RenderConfig):
+    """(compact_k (N, K_max) int32: each Gaussian's surviving rect-walk k in
+    ascending order, then K_max; counts (N,) int32 of them): one K3 launch
+    (its compact stage) when the cull is enabled. Without the cull the
+    survivors are k < counts, already in order, so nothing is sorted."""
+    kmax = cfg.max_tiles_per_gaussian
+    if cfg.tile_culling:
+        return cull_compact_from_params(cull_params(proj, cfg), kmax,
+                                        cfg.tile_size)
+    k = torch.arange(kmax, dtype=torch.int32, device=proj.counts.device)
+    counts = torch.clamp(proj.counts, 0, kmax).to(torch.int32)
+    return torch.where(k[None, :] < counts[:, None], k, kmax), counts
+
+
 def _normalize_tier_plan(spec, kmax: int, n: int):
     """tier_spec -> [(k_lo, k_hi, budget_rows | None), ...].
 
@@ -178,8 +195,8 @@ def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig):
     depth_bits = _check_depth_bits(cfg.num_tiles)
 
     rect_w = torch.clamp_min(proj.rect[:, 2] - proj.rect[:, 0], 1)
-    valid_all = _rect_cull_mask(proj, cfg)
-    counts = valid_all.sum(dim=1, dtype=torch.int32)  # culled counts
+    # (N, kmax): surviving k ascending, then kmax; culled counts.
+    compact_k, counts = _compact_candidates(proj, cfg)
     if cfg.max_tiles_jumbo:
         # Splats whose raw rect exceeds the base walk go to the jumbo tiers
         # (`_jumbo_candidates`); zeroing their base counts takes them out of
@@ -189,11 +206,6 @@ def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig):
         area_raw = torch.where(proj.mask, area_raw, 0)
         is_jumbo = area_raw > kmax
         counts = torch.where(is_jumbo, 0, counts)
-    k = torch.arange(kmax, dtype=torch.int32, device=dev)[None, :]
-    compact_k = torch.sort(
-        torch.where(valid_all, k, torch.full_like(k, kmax)), dim=1,
-        stable=False,
-    ).values  # (N, kmax): surviving k ascending, then kmax
 
     tiers = _normalize_tier_plan(cfg.tier_spec, kmax, n)
 
@@ -280,24 +292,24 @@ def _jumbo_candidates(proj: ProjectedGaussians, cfg: RenderConfig, rect_w,
     overflow = (is_jumbo.sum() > budgets[0]) | (area_raw > jumbo).any()
     ids_r = torch.sort(-area_raw, stable=False).indices[: budgets[0]]
 
-    # The walk bound of each row is its whole raw rect (up to max_tiles_jumbo).
-    bound = torch.clamp_max(area_raw, jumbo)
+    # The walk bound of each row is its whole raw rect (up to
+    # max_tiles_jumbo), and 0 for the budget-padding rows (area <= K_max),
+    # which live in the base tiers.
+    bound = torch.where(is_jumbo, torch.clamp_max(area_raw, jumbo), 0)
     kj = torch.arange(jumbo, dtype=torch.int32, device=dev)[None, :]
     ky_r, kx_r = _rect_divmod(kj, rect_w[ids_r][:, None])
+    # The mask, each lane's rank among the splat's surviving tiles (the
+    # gidk candidate index, so keys stay unique and below the suffix sum's
+    # depth) and the culled counts: one K3 launch (its rank stage).
     if cfg.tile_culling:
         params = cull_params(proj, cfg, counts=bound)[:, ids_r].contiguous()
-        maskj = cull_mask_from_params(params, jumbo, cfg.tile_size)
+        maskj, krank, jcounts = cull_rank_from_params(params, jumbo,
+                                                      cfg.tile_size)
     else:
-        maskj = kj < bound[ids_r][:, None]
-    # Budget-padding rows (area <= K_max) live in the base tiers.
-    maskj = maskj & is_jumbo[ids_r][:, None]
-    jcounts = maskj.sum(dim=1, dtype=torch.int32)
+        maskj, krank, jcounts = rank_from_mask(kj < bound[ids_r][:, None])
     counts = counts.index_add(0, ids_r, jcounts)
     tile_j = ((proj.rect[ids_r, 1:2] + ky_r) * cfg.tiles_x
               + (proj.rect[ids_r, 0:1] + kx_r))
-    # The gidk candidate index is the rank among the splat's surviving
-    # tiles, so keys stay unique and below the suffix sum's depth.
-    krank = torch.cumsum(maskj, dim=1, dtype=torch.int32) - 1
     key_j = ((tile_j.to(torch.int64) << depth_bits)
              | _depth_q(proj.depth[ids_r], depth_bits)[:, None])
     gidk_j = ((ids_r[:, None] << kb) | krank).to(torch.int32)

@@ -153,8 +153,11 @@ def blend_block_bwd(carry: BlendCarry, feat, px, py, in_range, g_color,
     da = torch.where(a > 0.0, dw * aux["t_before"] - suffix / (1.0 - a), 0.0)
     # Lanes past a pixel's termination have w = 0 and no gradient.
     da = torch.where(aux["valid"], da, 0.0)
-    not_clamped = (aux["alpha_u"] < cfg.alpha_clamp).to(da.dtype)
-    dpower = da * aux["alpha_u"] * not_clamped  # (..., P, G)
+    # Selects, not products with the clamp mask: a skipped pair of a NaN
+    # opacity has da = 0 and alpha_u = NaN, and 0 * NaN would be NaN where
+    # the JAX package gives 0 (its VJPs, run on the CPU, return 0 there).
+    not_clamped = aux["alpha_u"] < cfg.alpha_clamp
+    dpower = torch.where(not_clamped, da * aux["alpha_u"], 0.0)  # (..., P, G)
 
     dx, dy = aux["dx"], aux["dy"]
     sdx = (dpower * dx).sum(-2)  # (..., G)
@@ -168,7 +171,7 @@ def blend_block_bwd(carry: BlendCarry, feat, px, py, in_range, g_color,
     d_cb = -(dpower * dx * dy).sum(-2)
     # d alpha_u / d opacity = e: the JAX package's m[0] / opacity without
     # the divide, so a zero-feature lane (zero opacity) gives 0, not 0/0.
-    d_op = (da * aux["e"] * not_clamped).sum(-2)
+    d_op = torch.where(not_clamped, da * aux["e"], 0.0).sum(-2)
     # dL/dcolor[c, g] = sum_p g_color[c, p] * w[p, g]
     d_colors = [(g_color[..., c, :, None] * w).sum(-2) for c in range(3)]
     dfeat = torch.stack([d_gx, d_gy, d_ca, d_cb, d_cc, *d_colors, d_op], -2)

@@ -17,7 +17,9 @@ and type. It is the JAX `segmented_suffix_sum` cut to its first M lanes: the
 TPU kernel pads M to its block size, which the CUDA kernels have no use for.
 A run longer than kmax is summed only as deep as the doubling reaches (kmax
 rounded up to a power of two); the pipeline's one long run, the invalid-slot
-tail, carries zeros.
+tail, carries zeros. K5, a linear-time scan, sums every run of at most that
+depth whole, as the doubling does; a longer run is the pipeline's all-zero
+invalid tail, whose sums are zero whatever the reach.
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ from gsplat_tpu import Camera as JaxCamera  # noqa: E402
 from gsplat_tpu import RenderConfig as JaxConfig  # noqa: E402
 from gsplat_tpu import random_scene as jax_random_scene  # noqa: E402
 from gsplat_tpu.ops import binning as jbin  # noqa: E402
+from gsplat_tpu.ops.pallas.cull import cull_mask_from_params as jax_cull_rows  # noqa: E402
 from gsplat_tpu.ops.pallas.cull import cull_params as jax_cull_params  # noqa: E402
 from gsplat_tpu.ops.pallas.cull import tile_cull_mask_pallas  # noqa: E402
 from gsplat_tpu.ops.projection import project_gaussians as jax_project  # noqa: E402
@@ -30,6 +31,15 @@ from gsplat_tpu_torch.ops.projection import project_gaussians  # noqa: E402
 BASE = dict(width=64, height=64, tile_size=8, max_intersections=1 << 13,
             max_tiles_per_gaussian=64, block_size=8, max_per_tile=512,
             pallas_block_size=32)
+
+
+# The scenes of the cull's parity tests.
+CULL_SCENES = [
+    BASE,
+    dict(BASE, tile_size=32, max_tiles_per_gaussian=16, block_size=8,
+         max_per_tile=256, pallas_block_size=128),
+    dict(BASE, width=48, height=40, tile_size=8, max_tiles_per_gaussian=32),
+]
 
 
 def both(kw, key=7, n=400, degree=1, scale_shift=0.0):
@@ -55,12 +65,7 @@ def both(kw, key=7, n=400, degree=1, scale_shift=0.0):
             jax_project(jscene, jcam, jcfg), jcfg)
 
 
-@pytest.mark.parametrize("kw", [
-    BASE,
-    dict(BASE, tile_size=32, max_tiles_per_gaussian=16, block_size=8,
-         max_per_tile=256, pallas_block_size=128),
-    dict(BASE, width=48, height=40, tile_size=8, max_tiles_per_gaussian=32),
-])
+@pytest.mark.parametrize("kw", CULL_SCENES)
 def test_cull_mask_matches_jax_pallas(kw):
     """The plain mask equals the Pallas (interpret) kernel's mask exactly on
     the same parameters. No lane flips at the tau threshold here; were one
@@ -86,6 +91,79 @@ def test_cull_mask_matches_jax_pallas(kw):
             jnp.maximum(jproj.rect[:, 2] - jproj.rect[:, 0], 1),
         )),
     )
+
+
+@pytest.mark.parametrize("tile_culling", [True, False])
+@pytest.mark.parametrize("kw", CULL_SCENES)
+def test_compaction_matches_jax_row_sort(kw, tile_culling):
+    """The base tiers' compact_k and counts (K3's compact stage; its plain
+    route here) equal the JAX package's compaction bit for bit:
+    sort(where(_rect_cull_mask, k, kmax), axis=1) and the row sums."""
+    proj, cfg, jproj, jcfg = both(dict(kw, tile_culling=tile_culling),
+                                  scale_shift=1.0)
+    kmax = cfg.max_tiles_per_gaussian
+    valid = jbin._rect_cull_mask(
+        jproj, jcfg, jproj.mask.shape[0], kmax,
+        jnp.maximum(jproj.rect[:, 2] - jproj.rect[:, 0], 1))
+    want = jnp.sort(jnp.where(valid, jnp.arange(kmax, dtype=jnp.int32)[None],
+                              kmax), axis=1)
+    compact, counts = tbin._compact_candidates(proj, cfg)
+    assert compact.dtype == counts.dtype == torch.int32
+    np.testing.assert_array_equal(compact.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        counts.numpy(), np.asarray(valid.sum(axis=1, dtype=jnp.int32)))
+    assert 0 < int(counts.sum()) < counts.numel() * kmax
+    if tile_culling:  # the plain compact route of the kernel's stage
+        got = cull.cull_compact_plain(cull.cull_params(proj, cfg), kmax,
+                                      cfg.tile_size)
+        assert all(torch.equal(g, w) for g, w in zip(got, (compact, counts)))
+
+
+def test_unculled_compaction_is_not_sorted(monkeypatch):
+    """Without the cull the surviving k are 0 .. counts - 1, already in
+    order: the compaction takes where(k < counts, k, kmax) as it is, with
+    no sort, and it equals the sorted route bit for bit."""
+    proj, cfg, _, _ = both(dict(BASE, tile_culling=False), scale_shift=1.0)
+    kmax = cfg.max_tiles_per_gaussian
+    k = torch.arange(kmax, dtype=torch.int32)[None, :]
+    valid = k < proj.counts[:, None]
+    want = torch.sort(torch.where(valid, k, kmax), dim=1).values
+    monkeypatch.setattr(torch, "sort", None)
+    compact, counts = tbin._compact_candidates(proj, cfg)
+    assert torch.equal(compact, want)
+    assert torch.equal(counts, valid.sum(dim=1, dtype=torch.int32))
+
+
+def test_plain_cull_keeps_nans_like_jax():
+    """Hand-made rows with a NaN in each of the ten parameters: the plain
+    mask (which K3 is held to on the card) equals the JAX cull's, which
+    keeps NaNs through its minima and clamps. A NaN centre, threshold,
+    origin, width or bound drops every lane; a NaN conic term keeps only
+    the lanes whose tile holds the centre (qmin is 0 there)."""
+    rng = np.random.default_rng(0)
+    n, per = 120, 12
+    p = np.zeros((cull.NUM_ROWS, n), np.float32)
+    p[cull.R_GX], p[cull.R_GY] = rng.uniform(8, 56, (2, n))
+    p[cull.R_A], p[cull.R_C] = rng.uniform(1e-3, 5e-2, (2, n))
+    p[cull.R_B] = rng.uniform(-5e-3, 5e-3, n)
+    p[cull.R_TAU] = rng.uniform(1.0, 8.0, n)
+    p[cull.R_X0] = np.floor(p[cull.R_GX] / 8) - 1
+    p[cull.R_Y0] = np.floor(p[cull.R_GY] / 8) - 1
+    p[cull.R_W], p[cull.R_COUNT] = 3.0, 9.0
+    for f in range(cull.NUM_ROWS):
+        p[f, f * per:(f + 1) * per] = np.nan
+    got = cull.cull_mask_plain(torch.from_numpy(p), 16, 8)
+    want = np.asarray(jax_cull_rows(jnp.asarray(p), 16, 8, True))
+    np.testing.assert_array_equal(got.numpy(), want)
+    kept = got.reshape(cull.NUM_ROWS, per, 16).sum(dim=(1, 2)).tolist()
+    conic = (cull.R_A, cull.R_B, cull.R_C)
+    assert all((kept[f] > 0) == (f in conic) for f in range(cull.NUM_ROWS))
+    assert all(kept[f] <= per for f in conic)  # one centre tile per row
+    # The other stages' plain routes on the same rows.
+    compact, counts = cull.cull_compact_plain(torch.from_numpy(p), 16, 8)
+    mask, krank, counts_r = cull.cull_rank_plain(torch.from_numpy(p), 16, 8)
+    assert torch.equal(mask, got) and torch.equal(counts, counts_r)
+    assert torch.equal(krank, torch.cumsum(got, 1, dtype=torch.int32) - 1)
 
 
 def test_cull_on_unsupported_device_raises():
@@ -217,6 +295,21 @@ def test_rect_divmod_matches_jax():
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(r.numpy(), np.asarray(jr))
     np.testing.assert_array_equal(q.numpy(), k // w)
+
+
+def test_rect_divmod_is_integer_division_exhaustively():
+    """floor((k + 0.5) / w) in float32 is k // w for every k < 4096 and
+    w <= 4096, and so is K3's multiply by ceil(2^24 / w) (csrc/cull.cu:
+    ((k << 8) * m) >> 32, exact since k w < 2^24), which the kernel takes
+    for an integral w in that range instead of the division."""
+    k = torch.arange(4096, dtype=torch.int32)[None, :]
+    for w0 in range(1, 4097, 512):
+        w = torch.arange(w0, w0 + 512, dtype=torch.int32)[:, None]
+        q, r = tbin._rect_divmod(k, w)
+        want = torch.div(k, w, rounding_mode="floor")
+        assert torch.equal(q, want) and torch.equal(r, k - want * w)
+        magic = ((1 << 24) + w.long() - 1) // w.long()
+        assert torch.equal(((k.long() << 8) * magic) >> 32, want.long())
 
 
 def test_scatter_binning_is_a_later_slice():

@@ -18,6 +18,8 @@ from gsplat_tpu import Camera as JaxCamera  # noqa: E402
 from gsplat_tpu import RenderConfig as JaxConfig  # noqa: E402
 from gsplat_tpu import random_scene as jax_random_scene  # noqa: E402
 from gsplat_tpu.ops import binning as jbin  # noqa: E402
+from gsplat_tpu.ops.pallas.cull import cull_mask_from_params as jax_cull_rows  # noqa: E402
+from gsplat_tpu.ops.pallas.cull import cull_params as jax_cull_params  # noqa: E402
 from gsplat_tpu.ops.projection import project_gaussians as jax_project  # noqa: E402
 from gsplat_tpu.render.pipeline import render as jax_render  # noqa: E402
 from gsplat_tpu_torch import RenderConfig, realistic_scene  # noqa: E402
@@ -103,6 +105,55 @@ def test_jumbo_counts_and_offsets_match_jax(tile_culling):
     jg = np.asarray(jb.sorted_gidk)
     assert [sorted(g[r[t]:r[t + 1]]) for t in range(len(r) - 1)] == \
         [sorted(jg[r[t]:r[t + 1]]) for t in range(len(r) - 1)]
+
+
+@pytest.mark.parametrize("tile_culling", [True, False])
+def test_jumbo_rank_route_matches_jax(tile_culling):
+    """The jumbo grid's mask, krank and counts (K3's rank stage; its plain
+    route here) equal the JAX package's maskj & is_jumbo, cumsum - 1 and
+    row sums on the same rows, the walk bound 0 on rows that are not
+    jumbo taking the place of the & is_jumbo."""
+    jscene = big_splat_scene()
+    jcam = JaxCamera.default(64, 64)
+    scene, cam = to_port(jscene, jcam)
+    kw = dict(JUMBO, tile_culling=tile_culling)
+    cfg, jcfg = RenderConfig(**kw), JaxConfig(**kw, impl="pallas",
+                                              pallas_interpret=True)
+    proj, jproj = project_gaussians(scene, cam, cfg), jax_project(
+        jscene, jcam, jcfg)
+    jumbo, kmax = cfg.max_tiles_jumbo, cfg.max_tiles_per_gaussian
+    area = (torch.clamp_min(proj.rect[:, 2] - proj.rect[:, 0], 0)
+            * torch.clamp_min(proj.rect[:, 3] - proj.rect[:, 1], 0))
+    area = torch.where(proj.mask, area, 0)
+    # More rows than jumbo splats: budget-padding rows are in the grid.
+    ids_r = torch.sort(-area, stable=True).indices[: 16]
+    assert 0 < int((area[ids_r] > kmax).sum()) < ids_r.numel()
+    bound = torch.where(area > kmax, torch.clamp_max(area, jumbo), 0)
+    kj = torch.arange(jumbo, dtype=torch.int32)[None, :]
+    if tile_culling:
+        params = cull.cull_params(proj, cfg, counts=bound)[:, ids_r]
+        got = cull.cull_rank_from_params(params.contiguous(), jumbo,
+                                         cfg.tile_size)
+    else:
+        got = cull.rank_from_mask(kj < bound[ids_r][:, None])
+    ids = jnp.asarray(ids_r.numpy())
+    rect = jproj.rect
+    j_area = jnp.where(jproj.mask, jnp.maximum(rect[:, 2] - rect[:, 0], 0)
+                       * jnp.maximum(rect[:, 3] - rect[:, 1], 0), 0)
+    if tile_culling:
+        jparams = jax_cull_params(jproj, jcfg,
+                                  counts=jnp.minimum(j_area, jumbo))
+        maskj = jax_cull_rows(jnp.take(jparams, ids, axis=1), jumbo,
+                              cfg.tile_size, True)
+    else:
+        maskj = jnp.asarray(kj.numpy()) < jnp.minimum(
+            j_area, jumbo)[ids][:, None]
+    maskj = maskj & (j_area > kmax)[ids][:, None]
+    want = (maskj, jnp.cumsum(maskj, axis=1).astype(jnp.int32) - 1,
+            jnp.sum(maskj, axis=1).astype(jnp.int32))
+    for g, w, name in zip(got, want, ("mask", "krank", "counts")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), name)
+    assert int(got[2].sum()) > 0
 
 
 def test_jumbo_cull_params_take_the_walk_bound():

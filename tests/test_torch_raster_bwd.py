@@ -106,6 +106,26 @@ def test_early_exit_backward_is_finite_and_matches_jax():
         np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+def test_nan_opacity_slots_backward_like_jax(stream):
+    """Every 17th slot with a NaN opacity (reachable at tile_culling=False):
+    the forward skips its pairs, and both JAX VJPs give the slot 0 in every
+    gradient, the rest finite. The plain backward, which K2 is held to on
+    the card, does the same: its clamp masks are selects, for a product
+    with the mask would turn the skipped pair's da = 0 times alpha_u = NaN
+    into NaN geometry gradients."""
+    feats, ranges = stream
+    feats = feats.copy()
+    nan = np.zeros(feats.shape[1], bool)
+    nan[: int(ranges[-1]): 17] = True
+    feats[8, nan] = np.nan
+    g_img, g_trans = upstream()
+    got, _ = port_grad(feats, ranges, g_img, g_trans, RenderConfig(**KW))
+    assert np.isfinite(got).all() and not got[:, nan].any()
+    assert np.abs(got[:, ~nan]).max() > 1e-3
+    for want in jax_grads(feats, ranges, g_img, g_trans):
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
 def test_empty_tiles_give_zero_gradients(stream):
     feats, ranges = stream
     g_img, g_trans = upstream()

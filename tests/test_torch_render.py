@@ -12,6 +12,8 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 torch.set_num_threads(2)
 
+import jax.numpy as jnp  # noqa: E402
+
 from gsplat_tpu import Camera as JaxCamera  # noqa: E402
 from gsplat_tpu import RenderConfig as JaxConfig  # noqa: E402
 from gsplat_tpu import random_scene as jax_random_scene  # noqa: E402
@@ -88,6 +90,32 @@ def test_render_matches_jax(kw, jax_impls):
         np.testing.assert_allclose(out.transmittance.numpy(),
                                    np.asarray(jout.transmittance),
                                    rtol=1e-4, atol=1e-6)
+
+
+def test_nan_opacity_render_without_cull_matches_jax():
+    """At tile_culling=False no cull drops a Gaussian with a NaN opacity
+    before the blend; every pair of it is skipped (its alpha stays NaN and
+    fails alpha >= alpha_min), in the port as in the JAX jnp render: the
+    image is finite and equal at the image tolerance."""
+    jscene = jax_random_scene(jax.random.key(8), 250, sh_degree=3)
+    nan = np.zeros(250, bool)
+    nan[::7] = True
+    jscene = jscene.replace(opacity_logits=jnp.where(
+        nan, jnp.nan, jscene.opacity_logits))
+    jcam = JaxCamera.default(64, 64)
+    scene, cam = to_port(jscene, jcam)
+    kw = dict(KW, binning="tiered", tile_culling=False)
+    out = render(scene, cam, RenderConfig(**kw))
+    jout = jax_render(jscene, jcam, JaxConfig(**kw, **JAX_JNP))
+    assert int(out.num_intersections) == int(jout.num_intersections) > 0
+    assert bool(torch.isfinite(out.image).all())
+    np.testing.assert_allclose(out.image.numpy(), np.asarray(jout.image),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(out.transmittance.numpy(),
+                               np.asarray(jout.transmittance),
+                               rtol=1e-4, atol=1e-6)
+    # The NaN Gaussians were binned, so the blend met their pairs.
+    assert int(out.gauss_counts[torch.from_numpy(nan)].sum()) > 0
 
 
 def test_undersized_capacity_overflows_like_jax():
