@@ -36,19 +36,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      slots past the stream exactly 0 in both, and a second launch on the
      same inputs bit-identical (no atomics);
   6. K4 segmented suffix sum on K2's float32 gradients sorted gid-major,
-     and K5 on K2's bf16 pairs: kernel against the plain doubling, each
-     value within 1e-6 + 1e-5 times the summed span's absolute sum (only
-     the float32 addition order differs; for K5 or within one bf16 ulp,
-     where that order flips a rounding); K5's zero-high (opacity) lanes
-     keep their low halves; a second K5 launch bit-identical;
+     and K5 on K2's bf16 pairs (depth 64): kernel against the plain
+     doubling, each value within 1e-6 + 1e-5 times the summed span's
+     absolute sum (only the float32 addition order differs; for K5 or
+     within one bf16 ulp, where that order flips a rounding); K5's
+     zero-high (opacity) lanes keep their low halves; a second launch of
+     each bit-identical. Then hand-made run layouts (`segsum_layout`, at
+     kmax 2048 and 64: runs of 1 to 2048 slots starting and ending on the
+     scan's warp, round and chunk edges, a run of kmax crossing a chunk
+     edge, M not a multiple of 2048, a zero tail longer than the depth, one
+     run holding a NaN) through K4 (F = 9) and K5 (P = 5) against their
+     plain versions: the same tolerances, NaNs at the same places and only
+     inside their run, a relaunch bit-identical;
   7. the realistic scene (1M Gaussians, heavy-tailed) with the jumbo tiers
      of bench.py:246-253: K3's rank stage on the (14,848, 2048) jumbo grid
      against its plain version (mask, rank and counts, 0 differing entries
      each), timed beside the route it replaced (the mask stage, cumsum,
      sum); K1 and K2 (packed4, bf16 pairs out)
      on its view-0 stream, whose jumbo splats make the longest segments,
-     against their plain versions with the tolerances of 4 and 5; and K5 at
-     depth 2048 on K2's pairs of that stream against its plain version;
+     against their plain versions with the tolerances of 4 and 5; and K5
+     and K4 at depth 2048 on K2's pairs of that stream (K4 on the pairs
+     unpacked to float32) against their plain versions with the tolerances
+     of 6, each relaunch bit-identical;
   8. golden: the JAX reference scene (tests/golden/scene_42_300.npz) through
      K3 and K1, above 55 dB against tests/golden/render_64.npz; packed16 K1
      and K2 at that shape against their plain versions; its stream at
@@ -63,7 +72,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
        1M-Gaussian SH-3 random scene at 1920x1080 for four views;
      - training, exact (bench.py --exact-grads): L1 + 0.2 DSSIM, Adam at lr
        1e-2, from a copy of the scene whose SH DC carries seeded noise,
-       against renders of the scene itself, one view per step;
+       against renders of the scene itself, one view per step; the random
+       scene, then the realistic scene with the jumbo tiers (K4 at depth
+       2048);
      - serving, packed4 (bench.py's default stream): the random scene, and
        the realistic scene with the jumbo tiers;
      - training, bench default (bench.py with no flags: packed4, bf16-pair
@@ -174,6 +185,11 @@ SSIM_WEIGHT = 0.2
 DC_NOISE = 0.2       # std of the seeded noise on the trained scene's SH DC
 TRAIN_ROUNDS = 4     # rounds of the four views: one warm-up, three measured
 SERVE_REPS = 4       # repetitions of the four views: one warm-up, three timed
+# The hand-made run layouts of K4 and K5 (`segsum_layout`): run lengths, and
+# the scan's warp, round and chunk (csrc/segscan.cuh), whose edges the runs
+# start and end on.
+SEGSUM_LENGTHS = (1, 31, 32, 33, 255, 256, 257, 2047, 2048)
+SEGSUM_EDGES = (32, 256, 2048)
 
 # The kernels, in the order of the JSON line: name -> (module attribute of
 # its launch count, source, the TPU kernel it replaces).
@@ -381,6 +397,166 @@ def nan_same(a, b):
     na, nb = torch.isnan(a), torch.isnan(b)
     return (torch.equal(na, nb), torch.where(na, 0.0, a),
             torch.where(nb, 0.0, b))
+
+
+def segsum_layout(kmax: int):
+    """Hand-made gid-major run layouts for K4 and K5 at `kmax`, in numpy:
+    a run of min(33, kmax) slots across a round edge (256) whose middle
+    slot is NaN in rows 0-8; for each length of SEGSUM_LENGTHS up to kmax,
+    and kmax itself, and each edge of SEGSUM_EDGES, one run that starts on
+    a multiple of the edge and one that ends on one, with runs of 1-7 slots
+    between; a run of kmax slots across a chunk edge (2048); then a zero
+    tail of doubling_depth(kmax) + 1000 slots or one more, one run of id
+    2^31 - 1, so that M is not a multiple of 2048. Run ids rise by 1-3
+    from run to run. Values N(0, 1) from numpy's generator seeded 0; row 9 is
+    zero, so that K5's pair (8|9) has a zero high half as in the pipeline.
+    Returns (rows (M,) int32, x (10, M) float32, (first, last + 1) of the
+    NaN run)."""
+    from gsplat_tpu_torch.ops.cuda.segsum import doubling_depth
+
+    rng = np.random.default_rng(0)
+    lengths = []
+    pos = 0  # the slots placed so far
+
+    def put(n):
+        nonlocal pos
+        lengths.append(n)
+        pos += n
+
+    def fill_to(target):
+        while pos < target:
+            put(min(int(rng.integers(1, 8)), target - pos))
+
+    def up(n, edge):
+        return -(-n // edge) * edge
+
+    nan_len = min(33, kmax)
+    fill_to(SEGSUM_EDGES[1] - nan_len // 3)
+    nan_run = (pos, pos + nan_len)
+    put(nan_len)
+    for n in sorted({n for n in SEGSUM_LENGTHS if n <= kmax} | {kmax}):
+        for edge in SEGSUM_EDGES:
+            fill_to(up(pos, edge))
+            put(n)
+            fill_to(up(pos + n, edge) - n)
+            put(n)
+    chunk = SEGSUM_EDGES[-1]
+    fill_to(up(pos + kmax // 2 + 1, chunk) - kmax // 2 - 1)
+    put(kmax)
+    ids = np.cumsum(rng.integers(1, 4, size=len(lengths)))
+    rows = np.repeat(ids, lengths)
+    tail = doubling_depth(kmax) + 1000
+    tail += (rows.size + tail) % chunk == 0
+    rows = np.concatenate([rows, np.full(tail, 2**31 - 1)]).astype(np.int32)
+    x = rng.standard_normal((10, rows.size)).astype(np.float32)
+    x[9] = 0.0
+    x[:, rows.size - tail:] = 0.0
+    x[:9, nan_run[0] + nan_len // 2] = np.nan
+    return rows, x, nan_run
+
+
+def check_segsum(tag, x, rows, kmax, nan_run=None, time_it=True) -> dict:
+    """K4 (float32 x) or K5 (int32 bf16 pairs) on gid-major `rows` against
+    the plain doubling: every value within 1e-6 + 1e-5 times the summed
+    span's absolute sum (for K5 or within one bf16 ulp), NaNs at the same
+    places in both and, given `nan_run` (first, last + 1), only inside it;
+    K5's zero-high (opacity) lanes keep their low halves; a second launch
+    bit-identical. Returns the kernel's and the plain version's ms, the
+    bound and the max error (with time_it, else the error only); exits on a
+    failed check."""
+    import torch
+
+    from gsplat_tpu_torch.ops.bf16_pairs import unpack_bf16_pairs
+    from gsplat_tpu_torch.ops.cuda import segsum
+
+    packed = x.dtype == torch.int32
+    name = "K5" if packed else "K4"
+    kernel, plain = ((segsum.segmented_suffix_sum_packed_cuda,
+                      segsum.segmented_suffix_sum_packed_plain) if packed else
+                     (segsum.segmented_suffix_sum_cuda,
+                      segsum.segmented_suffix_sum_plain))
+    sum_k = kernel(x, rows, kmax)
+    relaunch = torch.equal(sum_k.view(torch.int32),
+                           kernel(x, rows, kmax).view(torch.int32))
+    sum_p, ms_p = timed_once(lambda: plain(x, rows, kmax))
+    if packed:
+        f = 2 * x.shape[0]
+        vk, vp = unpack_bf16_pairs(sum_k, f), unpack_bf16_pairs(sum_p, f)
+        vx = unpack_bf16_pairs(x, f)
+    else:
+        vk, vp, vx = sum_k, sum_p, x
+    same_nan, uk, up = nan_same(vk, vp)
+    scale = segsum.segmented_suffix_sum_plain(torch.nan_to_num(vx).abs(),
+                                              rows, kmax)
+    err = (uk - up).abs()
+    tol = 1e-6 + 1e-5 * scale
+    if packed:
+        tol = torch.maximum(tol, bf16_ulp(torch.maximum(uk.abs(), up.abs())))
+    within = bool((err <= tol).all())
+    ok = within
+    nan_cols = torch.isnan(vk).any(0).nonzero()[:, 0]
+    what = ""
+    if nan_run is not None:
+        inside = bool(((nan_cols >= nan_run[0])
+                       & (nan_cols < nan_run[1])).all())
+        ok = ok and inside and nan_cols.numel() > 0
+        what = (f"; NaN columns {nan_cols.numel()}, all inside the NaN run "
+                f"{nan_run}: {inside}")
+    if packed:
+        # Zero-high lanes with a nonzero low half: float32 denormal bit
+        # patterns (all of the opacity pair (8|0) that carries a sum). Their
+        # low halves must survive: nonzero in the kernel's output wherever
+        # they are in the plain version's (their values are in `ok`).
+        low_p, low_k = sum_p & 0xFFFF, sum_k & 0xFFFF
+        zero_high = ((sum_p & -65536) == 0) & (low_p != 0)
+        low_kept = bool((low_k[zero_high] != 0).all())
+        ok = ok and low_kept and bool(zero_high.any())
+        what += (f"; {int(zero_high.sum())} nonzero zero-high lanes, their "
+                 f"low halves kept: {low_kept}, bit-identical: "
+                 f"{float((low_k[zero_high] == low_p[zero_high]).float().mean())}")
+    share = float((err <= 1e-6 + 1e-5 * up.abs()).float().mean())
+    log(f"[{name} {tag}] {tuple(x.shape)}, depth "
+        f"{segsum.doubling_depth(kmax)}: bit-identical to the plain version "
+        f"{float((sum_k.view(torch.int32) == sum_p.view(torch.int32)).float().mean())}"
+        f", max abs err {float(err.max())}, max err / span abs sum "
+        f"{float((err / scale.clamp_min(1e-30)).max())}; within 1e-6 + 1e-5 "
+        f"span abs sum{' or one bf16 ulp' if packed else ''}: {within}; "
+        f"share within rtol 1e-5 / atol 1e-6 of "
+        f"the value {share}; NaNs at the same places: {same_nan}{what}; a "
+        f"second launch bit-identical: {relaunch}")
+    if not (ok and same_nan and relaunch):
+        raise SystemExit(f"{name} {tag}: kernel outside the stated tolerance "
+                         "of the plain version, or not deterministic")
+    out = dict(max_abs_err=float(err.max()))
+    if time_it:
+        ms_k = cuda_ms(lambda: kernel(x, rows, kmax), 20)
+        n_bytes = (x.numel() + rows.numel() + sum_k.numel()) * 4
+        n_ops = x.numel() * (SEGSUM_PACKED_OPS_PER_LANE if packed
+                             else SEGSUM_OPS_PER_ELEMENT)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        log(f"[{name} {tag}] kernel {ms_k} ms, plain {ms_p} ms, bound "
+            f"{bound_ms} ms ({n_bytes} B, {n_ops} ops, {bound_by})")
+        out.update(ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
+                   bound_by=bound_by)
+    return out
+
+
+def check_segsum_layouts(dev) -> None:
+    """K4 (F = 9) and K5 (P = 5) on `segsum_layout` at kmax 2048 and 64
+    against their plain versions (`check_segsum`); exits on a failure."""
+    import torch
+
+    from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs
+
+    for kmax in (2048, 64):
+        rows_np, x_np, nan_run = segsum_layout(kmax)
+        rows = torch.from_numpy(rows_np).to(dev)
+        x = torch.from_numpy(x_np).to(dev)
+        log(f"[segsum layouts kmax {kmax}] M {rows.numel()} (M mod 2048 = "
+            f"{rows.numel() % 2048}), {int(torch.unique(rows).numel())} runs")
+        for xin in (x[:9].contiguous(), pack_bf16_pairs(x)):
+            check_segsum(f"layouts kmax {kmax}", xin, rows, kmax,
+                         nan_run=nan_run, time_it=False)
 
 
 def launch_counts() -> dict:
@@ -783,7 +959,7 @@ def run(dev) -> int:
     from gsplat_tpu_torch.convert import scene_from_numpy
     from gsplat_tpu_torch.ops import binning, stream16
     from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs
-    from gsplat_tpu_torch.ops.cuda import _build, cull, raster, segsum
+    from gsplat_tpu_torch.ops.cuda import _build, cull, raster
     from gsplat_tpu_torch.ops.projection import project_gaussians
     from gsplat_tpu_torch.ops.raster_torch import (
         _image_to_tiles,
@@ -1039,94 +1215,24 @@ def run(dev) -> int:
         del fwd_out, b_k
 
     # 6. K4 on K2's float32 gradients and K5 on its bf16 pairs, sorted
-    # gid-major as the gather backward sorts them.
+    # gid-major as the gather backward sorts them; then the hand-made run
+    # layouts.
     kmax_s = binning.kmax_eff(cfg)
     key = torch.where(binned.sorted_gidk >= 0, binned.sorted_gidk, 2**31 - 1)
     s_key, perm = torch.sort(key)
     rows = (s_key >> binning._kbits(kmax_s)).to(torch.int32)
-    x = bwd.pop("raster_bwd").index_select(1, perm).contiguous()
-    sum_k = segsum.segmented_suffix_sum_cuda(x, rows, kmax_s)
-    sum_p, ms_p = timed_once(
-        lambda: segsum.segmented_suffix_sum_plain(x, rows, kmax_s))
-    scale = segsum.segmented_suffix_sum_plain(x.abs(), rows, kmax_s)
-    err = (sum_k - sum_p).abs()
-    seg_ok = bool((err <= 1e-6 + 1e-5 * scale).all())
-    plain_tol = float((err <= 1e-6 + 1e-5 * sum_p.abs()).float().mean())
-    log(f"[K4] {x.shape[1]} slots, max abs err {float(err.max())}, max "
-        f"err / span abs sum {float((err / scale.clamp_min(1e-30)).max())}, "
-        f"within 1e-6 + 1e-5 span abs sum: {seg_ok}; share within rtol "
-        f"1e-5 / atol 1e-6 of the value: {plain_tol}")
-    if not seg_ok:
-        raise SystemExit("K4: kernel outside the stated tolerance of the "
-                         "plain version")
-    ms_k = cuda_ms(lambda: segsum.segmented_suffix_sum_cuda(x, rows, kmax_s), 20)
-    seg_bytes = (x.numel() + rows.numel() + sum_k.numel()) * 4
-    seg_ops = x.numel() * SEGSUM_OPS_PER_ELEMENT
-    bound_ms, bound_by = bound(seg_bytes, seg_ops)
-    kernels["segsum"].update(
-        max_abs_err=float(err.max()), ms=ms_k, plain_ms=ms_p,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-    )
-    log(f"[K4] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms} ms "
-        f"({seg_bytes} B, {seg_ops} ops, {bound_by})")
-    del x, sum_k, sum_p, scale, err
-
-    def check_k5(tag, xp, rows, kmax_s):
-        """K5 against its plain version on gid-major pairs; returns the
-        kernel's and the plain version's ms, the bound and the max error."""
-        sum_k = segsum.segmented_suffix_sum_packed_cuda(xp, rows, kmax_s)
-        relaunch = torch.equal(
-            sum_k, segsum.segmented_suffix_sum_packed_cuda(xp, rows, kmax_s))
-        sum_p, ms_p = timed_once(
-            lambda: segsum.segmented_suffix_sum_packed_plain(xp, rows, kmax_s))
-        f = 2 * xp.shape[0]
-        vk, vp = unpack_bf16_pairs(sum_k, f), unpack_bf16_pairs(sum_p, f)
-        scale = segsum.segmented_suffix_sum_plain(
-            unpack_bf16_pairs(xp, f).abs(), rows, kmax_s)
-        err = (vk - vp).abs()
-        ok = (err <= torch.maximum(1e-6 + 1e-5 * scale,
-                                   bf16_ulp(torch.maximum(vk.abs(), vp.abs()))))
-        same = float((sum_k == sum_p).float().mean())
-        # Zero-high lanes with a nonzero low half: float32 denormal bit
-        # patterns (all of the opacity pair (8|0) that carries a sum). Their
-        # low halves must survive: nonzero in the kernel's output wherever
-        # they are in the plain version's (their values are in `ok`).
-        low_p, low_k = sum_p & 0xFFFF, sum_k & 0xFFFF
-        zero_high = ((sum_p & -65536) == 0) & (low_p != 0)
-        n_zero_high = int(zero_high.sum())
-        low_kept = bool((low_k[zero_high] != 0).all())
-        low_same = float((low_k[zero_high] == low_p[zero_high]).float().mean())
-        log(f"[K5 {tag}] {xp.shape[1]} lanes x {xp.shape[0]} pairs, depth "
-            f"{segsum.doubling_depth(kmax_s)}: bit-identical lanes {same}, "
-            f"max abs err {float(err.max())}, within one bf16 ulp or 1e-6 + "
-            f"1e-5 span abs sum: {bool(ok.all())}; {n_zero_high} nonzero "
-            f"zero-high lanes, their low halves kept: {low_kept}, "
-            f"bit-identical: {low_same}; a second launch bit-identical: "
-            f"{relaunch}")
-        if not (bool(ok.all()) and low_kept and n_zero_high > 0 and relaunch):
-            raise SystemExit(f"K5 {tag}: kernel outside the stated tolerance "
-                             "of the plain version, or not deterministic")
-        ms_k = cuda_ms(lambda: segsum.segmented_suffix_sum_packed_cuda(
-            xp, rows, kmax_s), 20)
-        k5_bytes = (xp.numel() + rows.numel() + sum_k.numel()) * 4
-        k5_ops = xp.numel() * SEGSUM_PACKED_OPS_PER_LANE
-        bound_ms, bound_by = bound(k5_bytes, k5_ops)
-        log(f"[K5 {tag}] kernel {ms_k} ms, plain {ms_p} ms, bound {bound_ms} "
-            f"ms ({k5_bytes} B, {k5_ops} ops, {bound_by})")
-        return ms_k, ms_p, bound_ms, bound_by, float(err.max())
-
-    xp = bwd.pop("raster_bwd_packed").index_select(1, perm).contiguous()
-    ms_k, ms_p, bound_ms, bound_by, max_err = check_k5("kmax 64", xp, rows,
-                                                       kmax_s)
-    kernels["segsum_packed"].update(
-        max_abs_err=max_err, ms=ms_k, plain_ms=ms_p, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None,
-    )
-    del xp, rows, s_key, perm, key, features, slots, binned, proj, params
+    for name in ("raster_bwd", "raster_bwd_packed"):
+        x = bwd.pop(name).index_select(1, perm).contiguous()
+        seg = "segsum" if name == "raster_bwd" else "segsum_packed"
+        kernels[seg].update(check_segsum("kmax 64", x, rows, kmax_s),
+                            library_ms=None)
+        del x
+    check_segsum_layouts(dev)
+    del rows, s_key, perm, key, features, slots, binned, proj, params
     del g_col, g_tt
 
     # 7. The realistic scene with the jumbo tiers: K3 on the jumbo grid, and
-    # K5 at depth 2048 on K2's pairs of its packed4 stream.
+    # K5 and K4 at depth 2048 on K2's pairs of its packed4 stream.
     rcfg = RenderConfig(**dict(BENCH, **DEFAULT, **JUMBO))
     gen = torch.Generator(device=dev).manual_seed(0)
     rscene = realistic_scene(NUM_GAUSSIANS, sh_degree=3, generator=gen,
@@ -1209,12 +1315,14 @@ def run(dev) -> int:
     s_key, perm = torch.sort(key)
     rows = (s_key >> binning._kbits(kmax_j)).to(torch.int32)
     xp = d_k.index_select(1, perm).contiguous()
-    ms_k, ms_p, bound_ms, bound_by, max_err = check_k5("kmax 2048", xp, rows,
-                                                       kmax_j)
-    kernels["segsum_packed"].update(
-        kmax2048_ms=ms_k, kmax2048_plain_ms=ms_p, kmax2048_bound_ms=bound_ms,
-        kmax2048_max_abs_err=max_err)
-    del xp, rows, s_key, perm, key, d_k, g_col, g_tt, col_k, tr_k, rslots
+    # K4 on the same gradients unpacked to float32: the run layout of the
+    # exact step's realistic stream at depth 2048.
+    x = unpack_bf16_pairs(xp, binning.NUM_FEATURES).contiguous()
+    for seg, xin in (("segsum_packed", xp), ("segsum", x)):
+        r = check_segsum("kmax 2048", xin, rows, kmax_j)
+        kernels[seg].update({f"kmax2048_{k}": r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "max_abs_err")})
+    del x, xp, rows, s_key, perm, key, d_k, g_col, g_tt, col_k, tr_k, rslots
     del rbinned, rranges, proj, area, ids_r
 
     # 8. Golden: the JAX reference scene through K3 and K1; packed16 K1 and
@@ -1275,6 +1383,7 @@ def run(dev) -> int:
 
     # 9. Main paths.
     tcfg = RenderConfig(**BENCH, **EXACT)
+    rexact = RenderConfig(**dict(BENCH, **EXACT, **JUMBO))
     rserve = RenderConfig(**dict(BENCH, **DEFAULT, **JUMBO))
     by_path, times = {}, {}
     by_path["serve_f32"] = drive(
@@ -1283,8 +1392,11 @@ def run(dev) -> int:
                                              card)))
     by_path["train_exact"] = drive(
         "train exact", ("cull", "raster_fwd", "raster_bwd", "segsum"),
-        lambda: times.update(train_exact=train("train exact", scene, cams,
-                                               tcfg, dev, card)))
+        lambda: times.update(
+            train_exact_random=train("train exact random", scene, cams, tcfg,
+                                     dev, card),
+            train_exact_realistic=train("train exact realistic", rscene, cams,
+                                        rexact, dev, card)))
     by_path["serve_packed4"] = drive(
         "serve packed4", ("cull", "raster_fwd_packed"),
         lambda: times.update(

@@ -1,60 +1,69 @@
-// K4: segmented suffix sum over the gid-major gradient stream.
+// K4: segmented suffix sum over the gid-major float32 gradient stream.
 //
 // Replaces the TPU kernel gsplat_tpu/ops/pallas/segsum.py::_kernel. After
 // the gather backward sorts the per-slot gradients by gid << kbits | k, each
 // Gaussian's slots form one contiguous run; this kernel computes
-//   out[f, j] = sum_{k >= j, k < j + depth, rows[k] == rows[j]} x[f, k]
+//   out[f, j] = sum_{k >= j, rows[k] == rows[j]} x[f, k]
 // for the (F, M) float32 stream, so every run's total sits at its first
-// slot. depth is kmax rounded up to a power of two: the reach of the plain
-// version's doubling (ops/cuda/segsum.py), so the two agree even on a run
-// longer than kmax (the invalid-slot tail, whose values are zero). The
-// output is (F, M): the TPU kernel's padding of M to its block size has no
-// counterpart.
+// slot. It is the float32 instantiation of the reverse segmented scan in
+// segscan.cuh, which K5 (segsum_packed.cu) shares: E = F values per
+// position, loaded and stored as float. F is 1 to kMaxRows (the exact step
+// uses 9, binning.NUM_FEATURES); any other F returns cudaErrorInvalidValue.
+// The output is (F, M): the TPU kernel's padding of M to its block size has
+// no counterpart.
+//
+// Contract (ops/cuda/segsum.py): every run of at most depth slots (kmax
+// rounded up to a power of two, the reach of the plain version's doubling)
+// is summed whole, as the doubling sums it. The one longer run is the
+// pipeline's invalid-slot tail, whose values are zero: its sums are zero
+// however far they reach.
 //
 // What bounds it on an H100: bytes. It must read the stream (F M 4 bytes)
-// and the run ids (M 4 bytes) and write (F M 4 bytes), about 0.1 ms at the
-// bench shape; the adds are a few per element. Design: one thread per
-// position j, which walks right while the run id matches, at most depth
-// steps, and sums each of the F rows over that span. Neighbouring threads
-// read neighbouring addresses at every step, so the loads coalesce and the
-// re-reads of a run hit in cache. There is no carry between blocks: CUDA
-// blocks run in no order, and because runs are at most kmax long each output
-// depends only on data its own thread reads (the TPU kernel's right-to-left
-// carry has no counterpart). The cost is the sum over runs of L^2 / 2 reads;
-// the invalid tail is one long run, and every position in it walks the full
-// depth.
+// and the run ids (M 4 bytes) and write (F M 4 bytes): (2 F M + M) x 4 =
+// 311 MB, about 0.093 ms, at the bench shape (F = 9, M = 4.1M); the adds
+// are one per element. The design (segscan.cuh): 2048 positions per block,
+// walked from the right in rounds of 256 with a warp shuffle scan, the
+// warps' heads added in warp order from shared memory and a carry from
+// round to round, so the stream is read once, in linear time whatever the
+// run lengths (the walk it replaced, one thread per position re-summing its
+// run to the right, read L^2 / 2 values per run of L and walked the whole
+// depth at every position of the invalid tail). The one run that crosses
+// into the next chunk is summed from that chunk's head by the block itself,
+// so no block waits for another, there are no atomics, and a relaunch gives
+// the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segscan.cuh"
+
 namespace {
 
-__global__ void segsum_kernel(const float* __restrict__ x,
-                              const int32_t* __restrict__ rows, int64_t m,
-                              int f, int depth, float* __restrict__ out) {
-  const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m) return;
-  const int32_t row = rows[j];
-  const int64_t last = j + depth < m ? j + depth : m;
-  int64_t k_end = j + 1;
-  while (k_end < last && rows[k_end] == row) ++k_end;
-  for (int r = 0; r < f; ++r) {
-    const float* xr = x + r * m;
-    float acc = 0.f;
-    for (int64_t k = j; k < k_end; ++k) acc += xr[k];
-    out[r * m + j] = acc;
+constexpr int kMaxRows = 16;
+
+// F float32 rows, one value of each per position.
+template <int F>
+struct F32Rows {
+  using Word = float;
+  static constexpr int E = F;
+  static __device__ __forceinline__ void load(const float* __restrict__ x,
+                                              int64_t m, int64_t pos,
+                                              float* v) {
+#pragma unroll
+    for (int r = 0; r < F; ++r) v[r] = x[r * m + pos];
   }
-}
+  static __device__ __forceinline__ void store(float* __restrict__ out,
+                                               int64_t m, int64_t pos,
+                                               const float* v) {
+#pragma unroll
+    for (int r = 0; r < F; ++r) out[r * m + pos] = v[r];
+  }
+};
 
 }  // namespace
 
 extern "C" int gsplat_segsum(const float* x, const int32_t* rows, int64_t m,
                              int f, int depth, float* out, void* stream) {
-  const int threads = 256;
-  if (m > 0) {
-    const int64_t blocks = (m + threads - 1) / threads;
-    segsum_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        x, rows, m, f, depth, out);
-  }
-  return (int)cudaGetLastError();
+  return (int)gsplat::segscan::launch<F32Rows, kMaxRows>(
+      f, x, rows, m, depth, out, (cudaStream_t)stream);
 }

@@ -482,8 +482,10 @@ def gather_slots_bwd(dslot, gidk, offsets, counts, kmax: int,
       2. segmented suffix sum, so every run's total lands on its first
          slot: kernel K4 for a CUDA tensor, the plain doubling for a CPU
          one. The JAX package's segment_sum 'doubling' and 'pallas' sum
-         the same slots (K4 walks exactly the doubling's reach), so here
-         they are one path and `cfg.segment_sum` selects nothing;
+         the same slots (K4, like the doubling, sums every run of at most
+         the doubling's reach whole; the one longer run, the invalid tail,
+         is all zeros), so here they are one path and `cfg.segment_sum`
+         selects nothing;
       3. read the run starts at gauss_offsets, zero for Gaussians with no
          slot; with readout 'bf16' the totals read are rounded to bf16.
     strategy 'bf16' instead rounds the slot gradients to bf16 pairs first

@@ -8,18 +8,21 @@ with `packed=False`); its plain version is the doubling loop of
 replaces `segsum.py::_kernel_packed` (`packed=True`): the same sum over
 int32 lanes that each hold two bf16 values (`ops/bf16_pairs.py`), summed in
 float32 and rounded back to bf16 to nearest even; its plain version unpacks,
-runs the doubling and repacks.
+runs the doubling and repacks. Both kernels are one linear-time reverse
+segmented scan (`csrc/segscan.cuh`) over two lane codecs: F float32 rows
+(F at most 16) and P bf16 pairs (P at most 8); any other row count raises.
 
 Contract: x is (F, M) float32, or (P, M) int32 pairs, in gid-major run order
 and rows (M,) int32 run ids sorted ascending, each run at most kmax long;
 out[:, j] = sum over k >= j with rows[k] == rows[j] of x[:, k], of x's shape
 and type. It is the JAX `segmented_suffix_sum` cut to its first M lanes: the
 TPU kernel pads M to its block size, which the CUDA kernels have no use for.
-A run longer than kmax is summed only as deep as the doubling reaches (kmax
-rounded up to a power of two); the pipeline's one long run, the invalid-slot
-tail, carries zeros. K5, a linear-time scan, sums every run of at most that
-depth whole, as the doubling does; a longer run is the pipeline's all-zero
-invalid tail, whose sums are zero whatever the reach.
+Both kernels sum every run of at most `doubling_depth(kmax)` slots (kmax
+rounded up to a power of two, the doubling's reach) whole, as the doubling
+does. The one longer run is the pipeline's invalid-slot tail, whose values
+are zero: its sums are zero whatever the reach, though on a longer run of
+other values the doubling, which sums only that deep, and the scan would
+differ.
 """
 
 from __future__ import annotations

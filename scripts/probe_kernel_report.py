@@ -2,7 +2,8 @@
 """Registers, shared memory and SASS instruction counts of the port's CUDA
 kernels: the probes (`gsplat_tpu_torch/csrc/probe_*.cu`), the blend
 kernels K1 and K2 (`raster_fwd.cu`, `raster_bwd.cu`), the cull K3
-(`cull.cu`) and the packed suffix sum K5 (`segsum_packed.cu`).
+(`cull.cu`) and the suffix sums K4 and K5 (`segsum.cu`, `segsum_packed.cu`,
+one scan in `segscan.cuh`).
 
     python3 scripts/probe_kernel_report.py [SOURCE ...] [--csrc DIR ...]
         [--sass-out DIR]
@@ -19,10 +20,10 @@ the pair loop: the shortest backward branch whose body holds an exp
 (`MUFU.EX2`), with LDS, SHFL, FFMA/FMUL/FADD, MUFU and BAR in that body,
 total and per evaluated pair (over its EX2 count: one exp per pair a pixel
 evaluates; a static count, as if every branch in the body were taken).
-For K3 and K5 it counts their inner loop the same way: K3's chunk of 32
-lanes (the shortest loop holding an FMNMX, the lane test's minima) and
-K5's round of 256 positions (the shortest loop holding a SHFL, the warp
-scan), with every opcode of the body. Each --csrc DIR reports the same
+For K3, K4 and K5 it counts their inner loop the same way: K3's chunk of
+32 lanes (the shortest loop holding an FMNMX, the lane test's minima) and
+K4's and K5's round of 256 positions (the shortest loop holding a SHFL,
+the warp scan), with every opcode of the body. Each --csrc DIR reports the same
 sources from another checkout after the package's own (a parent's, to
 compare). With --sass-out, writes each library's full SASS there, and each
 inner loop's SASS beside it (<source>.<kernel index>.loop.sass, under a
@@ -53,7 +54,7 @@ BRANCH = re.compile(
     r"\bBRA(?:\.[A-Z0-9_]+)*\s+(?:!?U?P[T0-9]+,\s*)?(?:`\()?0x([0-9a-f]+)")
 LOOP_OPS = ("LDS", "SHFL", "FFMA", "FMUL", "FADD", "MUFU", "BAR")
 # The instruction that marks each source's inner loop.
-LOOP_MARK = {"raster": "MUFU.EX2", "cull": "FMNMX", "segsum_packed": "SHFL"}
+LOOP_MARK = {"raster": "MUFU.EX2", "cull": "FMNMX", "segsum": "SHFL"}
 
 
 def _tool(name: str) -> str:

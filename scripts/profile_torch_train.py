@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of one training step goes on a CUDA card (PyTorch port).
 
-    python3 scripts/profile_torch_train.py [--out F]
+    python3 scripts/profile_torch_train.py [--scene random|realistic]
+        [--out F]
 
 Runs the training main path of chip_smoke.py (the exact-gradient step, L1 +
 0.2 DSSIM and Adam, on the 1M-Gaussian SH-3 random scene at 1920x1080, the
 bench config with the f32 stream, one of the four views per step) through
-`make_train_step` itself, after one warm-up round of the views, and reports:
+`make_train_step` itself, after one warm-up round of the views. --scene
+realistic takes the 1M-Gaussian realistic scene with the jumbo ladder of
+bench.py:246-253 (chip_smoke.JUMBO) instead. It reports:
   - the step's time: device ms between CUDA events around the step, and
     host ms of a step that ends in `torch.cuda.synchronize()`, medians over
     REPS rounds of the views;
@@ -79,6 +82,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("random", "realistic"),
+                    default="random")
     ap.add_argument("--out", help="JSON file for the numbers")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -86,7 +91,7 @@ def main() -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from gsplat_tpu_torch import RenderConfig, random_scene
+    from gsplat_tpu_torch import RenderConfig, random_scene, realistic_scene
     from gsplat_tpu_torch.ops.cuda import _build
     from gsplat_tpu_torch.render.pipeline import STAGES
     from gsplat_tpu_torch.train.loop import TRAIN_SPANS
@@ -94,10 +99,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = chip_smoke.gpu_line()
     _build.build_all()
-    cfg = RenderConfig(**chip_smoke.BENCH, **chip_smoke.EXACT)
-    scene = random_scene(chip_smoke.NUM_GAUSSIANS, sh_degree=3,
-                         generator=torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
+    realistic = args.scene == "realistic"
+    cfg = RenderConfig(**dict(chip_smoke.BENCH, **chip_smoke.EXACT,
+                              **(chip_smoke.JUMBO if realistic else {})))
+    scene = (realistic_scene if realistic else random_scene)(
+        chip_smoke.NUM_GAUSSIANS, sh_degree=3,
+        generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    print(f"[config] the {args.scene} scene: {cfg}", flush=True)
     cams = chip_smoke.views(cfg.width, cfg.height, dev)
     train, targets, step = chip_smoke.make_trainer(scene, cams, cfg, dev)
 

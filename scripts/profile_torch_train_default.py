@@ -25,8 +25,6 @@ sys.path.insert(0, HERE)
 import chip_smoke  # noqa: E402
 import profile_torch_train  # noqa: E402
 
-import gsplat_tpu_torch  # noqa: E402
-
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -34,18 +32,12 @@ def main() -> int:
                     default="random")
     ap.add_argument("--out", help="JSON file for the numbers")
     args = ap.parse_args()
-    # profile_torch_train builds its config as RenderConfig(**BENCH,
-    # **EXACT) and its scene with gsplat_tpu_torch.random_scene: point them
-    # at the bench-default setting and the chosen scene.
-    chip_smoke.BENCH = {k: v for k, v in chip_smoke.BENCH.items()
-                        if k != "stream_format"}
+    # profile_torch_train builds its config from BENCH updated by EXACT:
+    # point it at the bench-default setting.
     chip_smoke.EXACT = dict(chip_smoke.DEFAULT)
-    if args.scene == "realistic":
-        chip_smoke.EXACT.update(chip_smoke.JUMBO)
-        gsplat_tpu_torch.random_scene = gsplat_tpu_torch.realistic_scene
-    sys.argv = [sys.argv[0]] + (["--out", args.out] if args.out else [])
-    print(f"[config] bench default on the {args.scene} scene: "
-          f"{chip_smoke.EXACT}", flush=True)
+    sys.argv = [sys.argv[0], "--scene", args.scene] + (
+        ["--out", args.out] if args.out else [])
+    print(f"[config] bench default: {chip_smoke.EXACT}", flush=True)
     return profile_torch_train.main()
 
 

@@ -1,7 +1,9 @@
 """The segmented suffix sums of the port (the plain doubling, the CPU side of
 kernel K4, and its bf16-pair twin, the CPU side of K5) against the JAX
 package's Pallas kernels in interpret mode and a numpy per-run reduction,
-on the data of tests/test_pallas.py:173-206."""
+on the data of tests/test_pallas.py:173-206, on runs of up to 2048 slots
+(kmax 2048, the exact step with the jumbo tiers) and on chip_smoke.py's
+hand-made run layouts, which the CUDA kernels meet on the card."""
 
 import numpy as np
 import pytest
@@ -60,9 +62,11 @@ def test_plain_segsum_matches_jax_kernel_and_naive(runs, block_size):
 @pytest.mark.parametrize("kmax, depth", [(1, 1), (2, 2), (3, 4), (16, 16),
                                          (64, 64)])
 def test_long_runs_are_summed_as_deep_as_the_doubling(kmax, depth):
-    """A run longer than kmax (out of contract unless it carries zeros) is
-    summed `doubling_depth(kmax)` slots deep; the kernel walks the same
-    depth, so the two versions agree even there."""
+    """The plain doubling sums a run longer than kmax (out of contract
+    unless it carries zeros) `doubling_depth(kmax)` slots deep. The kernels
+    sum every run of at most that depth whole, as the doubling does; on a
+    longer run they may reach further, which the pipeline's one such run,
+    the all-zero invalid tail, cannot show."""
     assert segsum.doubling_depth(kmax) == depth
     x = torch.arange(1.0, 101.0)[None, :]
     rows = torch.zeros(100, dtype=torch.int32)
@@ -167,3 +171,101 @@ def test_packed_segsum_wrapper_checks_its_inputs(runs):
     out = segsum.segmented_suffix_sum(xp, torch.from_numpy(rows), KMAX)
     assert (segsum.launches, segsum.packed_launches) == before
     assert out.dtype == torch.int32
+
+
+def _per_run(x, rows):
+    """Per-run reverse cumulative sums in float64, run by run: a NaN stays
+    in its run."""
+    x = np.asarray(x, np.float64)
+    out = np.zeros_like(x)
+    edges = np.flatnonzero(np.r_[True, rows[1:] != rows[:-1], True])
+    for a, b in zip(edges[:-1], edges[1:]):
+        out[:, a:b] = np.cumsum(x[:, a:b][:, ::-1], axis=1)[:, ::-1]
+    return out
+
+
+def _within_span(got, want, x, rows, ulp=False):
+    """|got - want| <= 1e-6 + 1e-5 times the summed span's absolute sum
+    (chip_smoke.py's tolerance for K4 and K5), or within one bf16 ulp of
+    the larger value with `ulp`; NaNs at the same places."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    scale = _per_run(np.abs(np.nan_to_num(x)), rows)
+    err = np.abs(np.nan_to_num(got) - np.nan_to_num(want))
+    tol = 1e-6 + 1e-5 * scale
+    if ulp:
+        big = np.maximum(np.abs(np.nan_to_num(got)), np.abs(np.nan_to_num(want)))
+        tol = np.maximum(tol, np.exp2(np.floor(np.log2(np.maximum(big, 1e-30)))
+                                      - 7))
+    assert (err <= tol).all(), float((err / tol).max())
+
+
+def test_plain_segsum_matches_jax_at_kmax_2048_across_blocks():
+    """The exact step with the jumbo tiers sums at kmax 2048: runs of up to
+    2048 slots that cross the TPU kernel's 2048-lane blocks, then a zero
+    tail longer than 2048 (the invalid slots), through the plain doubling
+    against the JAX kernel and a per-run numpy reduction."""
+    rng = np.random.default_rng(7)
+    lengths = rng.integers(1, 2049, size=24)
+    lengths[:3] = (2048, 2047, 2048)
+    ids = np.cumsum(rng.integers(1, 4, size=lengths.size))
+    rows = np.repeat(ids, lengths)
+    m = rows.size
+    rows = np.concatenate([rows, np.full(2500, 2**31 - 1)]).astype(np.int32)
+    x = rng.normal(size=(9, rows.size)).astype(np.float32)
+    x[:, m:] = 0.0
+    starts = np.flatnonzero(np.r_[True, rows[1:] != rows[:-1]])
+    ends = np.r_[starts[1:], rows.size]
+    assert ((starts // 2048) != ((ends - 1) // 2048)).sum() >= 10
+    got = segsum.segmented_suffix_sum(torch.from_numpy(x),
+                                      torch.from_numpy(rows), 2048).numpy()
+    want = np.asarray(jax_segsum(jnp.asarray(x), jnp.asarray(rows), kmax=2048,
+                                 block_size=2048, interpret=True))
+    assert not want[:, rows.size:].any()
+    _within_span(got, want[:, : rows.size], x, rows)
+    _within_span(got, _per_run(x, rows), x, rows)
+    assert not got[:, m:].any()
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["f32", "pairs"])
+@pytest.mark.parametrize("kmax", [2048, 64])
+def test_hand_made_layouts_match_jax_and_numpy(kmax, packed):
+    """chip_smoke.py's hand-made run layouts (the ones K4 and K5 meet on the
+    card: runs starting and ending on the scan's warp, round and chunk
+    edges, a run of kmax across a chunk edge, M not a multiple of 2048, a
+    zero tail longer than the depth, a NaN in one run) through the plain
+    versions: against the JAX kernel with the NaN set to 0, since JAX masks
+    by a product (a NaN would leak into the run to its left) and its bf16
+    rounding does not keep NaNs; and against a per-run numpy reduction with
+    the NaN, which must stay in its run. Pairs: within one bf16 ulp, as the
+    TPU kernel's carry adds in another order across its blocks."""
+    import chip_smoke
+
+    rows, x10, (first, stop) = chip_smoke.segsum_layout(kmax)
+    nan_col = first + (stop - first) // 2
+    assert np.isnan(x10[:9, nan_col]).all() and rows.size % 2048
+    clean = np.nan_to_num(x10)
+    if packed:
+        xp, xp_clean = (pack_bf16_pairs(torch.from_numpy(v)) for v in (x10, clean))
+        got = segsum.segmented_suffix_sum(xp, torch.from_numpy(rows), kmax)
+        got_clean = segsum.segmented_suffix_sum(xp_clean,
+                                                torch.from_numpy(rows), kmax)
+        jax_clean = torch.from_numpy(_jax_packed(xp_clean, rows, kmax, 2048))
+        vals = unpack_bf16_pairs(got, 10).numpy()
+        _within_span(unpack_bf16_pairs(got_clean, 10).numpy(),
+                     unpack_bf16_pairs(jax_clean, 10).numpy(),
+                     unpack_bf16_pairs(xp_clean, 10).numpy(), rows, ulp=True)
+        x_in = unpack_bf16_pairs(xp, 10).numpy()
+    else:
+        x_in = x10[:9]
+        got = segsum.segmented_suffix_sum(torch.from_numpy(x_in.copy()),
+                                          torch.from_numpy(rows), kmax)
+        got_clean = segsum.segmented_suffix_sum(
+            torch.from_numpy(clean[:9].copy()), torch.from_numpy(rows), kmax)
+        want = np.asarray(jax_segsum(jnp.asarray(clean[:9]), jnp.asarray(rows),
+                                     kmax=kmax, interpret=True))
+        _within_span(got_clean.numpy(), want[:, : rows.size], clean[:9], rows)
+        vals = got.numpy()
+    _within_span(vals, _per_run(x_in, rows), x_in, rows, ulp=packed)
+    nan_cols = np.flatnonzero(np.isnan(vals).any(0))
+    np.testing.assert_array_equal(nan_cols, np.arange(first, nan_col + 1))
