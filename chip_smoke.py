@@ -89,9 +89,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      P2 (4096 x 1024 rows of 128; first 16 and 37 rows) each precision
      within 1e-5 of the plain passes, and against the float32 cumsum of
      x[:4] `default` within 2^-8 of the running sum of |x|, `high` and
-     `highest` within 1e-5; P3 and P4 bit for bit. Kernel ms, bound, plain
-     ms and, for P2 highest (torch.matmul), P3 (take_along_dim) and P4
-     (advanced indexing), the library call's ms; P4 also after an L2 flush.
+     `highest` within 1e-5; P3 and P4 bit for bit on in-range indices
+     (`probe_inputs`). Kernel ms, bound, plain ms and, for P2 highest
+     (torch.matmul), P3 (take_along_dim) and P4 (advanced indexing), the
+     library call's ms; P3 beside the launch floor (torch.cuda._sleep(0)
+     back to back, `launch_floor_ms`), P4 also after an L2 flush. Then the
+     edge-index check: `probe_edge_indices` (every edge of P3's and P4's
+     index rules, in range and out of it) through both kernels at the
+     script's shapes and at shapes that take their scalar routes, equal to
+     the plain versions in raw bits (NaN at the same places; P4 none).
      Then the `probes` main path: `micro_kernel_costs.main(["all"])` with
      the counts at 0, which must launch all four;
  11. golden gradients: `render_loss_and_grad` of the golden scene on the
@@ -272,6 +278,26 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+def cold_ms(fn, dev, n: int = 10) -> list:
+    """Milliseconds of n calls of fn, each between CUDA events right after
+    a 512 MB write, which evicts the 50 MB L2 and holds the card while the
+    call's launch is queued."""
+    import torch
+
+    flush = torch.empty(128 << 20, dtype=torch.float32, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    out = []
+    for _ in range(n):
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize(dev)
+        out.append(start.elapsed_time(end))
+    return out
+
+
 def psnr(img, ref) -> float:
     mse = float(((img - ref) ** 2).mean())
     peak = max(float(ref.max()), 1.0)
@@ -397,6 +423,48 @@ def nan_same(a, b):
     na, nb = torch.isnan(a), torch.isnan(b)
     return (torch.equal(na, nb), torch.where(na, 0.0, a),
             torch.where(nb, 0.0, b))
+
+
+def probe_inputs(dev):
+    """Phase 10's in-range inputs of P3 and P4 at the TPU script's shapes:
+    tab (8, 512) and idx (8, 512) in [0, 512); table (8, 2^20) and cols
+    (2048, 128) in [0, 2^20). Seeded torch generators on `dev`."""
+    import torch
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    tab = torch.randn((8, 512), generator=gen(0), device=dev)
+    idx = torch.randint(0, 512, (8, 512), generator=gen(1), device=dev,
+                        dtype=torch.int32)
+    table = torch.randn((8, 1 << 20), generator=gen(0), device=dev)
+    cols = torch.randint(0, 1 << 20, (2048, 128), generator=gen(1),
+                         device=dev, dtype=torch.int32)
+    return tab, idx, table, cols
+
+
+def probe_edge_indices(seed: int, rows: int = 8, cols: int = 512,
+                       n: int = 1 << 20, blocks: int = 2048, g: int = 128):
+    """(P3's (rows, cols) and P4's (blocks, g) int32 index arrays), numpy,
+    holding every edge of the two index rules (ops/cuda/probes.py) in each
+    row and each block, at seeded places: for P3 -1, cols, -cols - 1, 10^6,
+    -cols, -2^31, 2^31 - 1, 0, cols - 1; for P4 -1, -2, n, n + 5, 10^6, -n,
+    -n - 1, -2^31, 2^31 - 1, 0, n - 1. The other entries are uniform in
+    [-2 cols, 2 cols) and [-2n, 2n): wrapped, in range and out of range."""
+    rng = np.random.default_rng(seed)
+    lo, hi = -2 ** 31, 2 ** 31 - 1
+
+    def fill(shape, width, edges):
+        out = rng.integers(-2 * width, 2 * width, size=shape)
+        edges = np.array(edges, dtype=np.int64)
+        for r in range(shape[0]):
+            out[r, rng.permutation(shape[1])[:edges.size]] = edges
+        return out.astype(np.int32)
+
+    return (fill((rows, cols), cols,
+                 (-1, cols, -cols - 1, 10 ** 6, -cols, lo, hi, 0, cols - 1)),
+            fill((blocks, g), n,
+                 (-1, -2, n, n + 5, 10 ** 6, -n, -n - 1, lo, hi, 0, n - 1)))
 
 
 def segsum_layout(kmax: int):
@@ -790,12 +858,7 @@ def check_probes(kernels: dict, dev) -> None:
         library_ms=lib_ms, headline="highest", by_precision=p2)
 
     # P3 at (8, 512) and P4 at (8, 2^20) x (2048, 128): bit for bit.
-    tab = torch.randn((8, 512), generator=gen(0), device=dev)
-    idx = torch.randint(0, 512, (8, 512), generator=gen(1), device=dev,
-                        dtype=torch.int32)
-    table = torch.randn((8, 1 << 20), generator=gen(0), device=dev)
-    cols = torch.randint(0, 1 << 20, (2048, mkc.G), generator=gen(1),
-                         device=dev, dtype=torch.int32)
+    tab, idx, table, cols = probe_inputs(dev)
     idx64 = idx.long()
     # P4's least traffic: one 32-byte sector (8 floats of a row) per row for
     # each distinct sector the columns touch.
@@ -828,24 +891,62 @@ def check_probes(kernels: dict, dev) -> None:
         kernels[name].update(max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
                              bound_ms=bound_ms, bound_by=bound_by,
                              library_ms=lib_ms)
-    # P4 with the table out of L2: each launch right after a 512 MB write,
-    # which also holds the card while the launch is queued.
-    flush = torch.empty(128 << 20, dtype=torch.float32, device=dev)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    cold = []
-    for _ in range(10):
-        flush.zero_()
-        start.record()
-        probes.column_copy_cuda(table, cols)
-        end.record()
-        torch.cuda.synchronize()
-        cold.append(start.elapsed_time(end))
-    del flush
+    # The launch floor: torch's spin kernel with zero cycles, back to back
+    # under the same timer, the least a launch of P3 can take.
+    floor_ms = mkc.timeit(dev, lambda: torch.cuda._sleep(0), 20)[0]
+    log(f"[P3] launch floor (torch.cuda._sleep(0) back to back) {floor_ms} "
+        f"ms; P3 {kernels['probe_gather']['ms']} ms")
+    kernels["probe_gather"].update(launch_floor_ms=floor_ms)
+    check_probe_edges(dev)
+    # P4 with the table out of L2.
+    cold = cold_ms(lambda: probes.column_copy_cuda(table, cols), dev)
     log(f"[P4] {sectors} distinct sectors per row; after an L2 flush "
         f"{statistics.median(cold)} ms (median of 10; min {min(cold)}, max "
         f"{max(cold)})")
     kernels["probe_coldma"].update(cold_ms=statistics.median(cold))
+
+
+def check_probe_edges(dev) -> None:
+    """P3 and P4 on probe_edge_indices (every edge of their index rules, in
+    range and out of it) against their plain versions, bit for bit with
+    NaN at the same places (raw bits compared): at the TPU script's shapes,
+    and at shapes that take each kernel's scalar route (C or G not a
+    multiple of 4), P3's widest row and a P4 table narrower than its
+    indices. Exits on a difference."""
+    import torch
+
+    from gsplat_tpu_torch.ops.cuda import probes
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    for seed, rows, width, n, blocks, g in ((0, 8, 512, 1 << 20, 2048, 128),
+                                            (1, 3, 509, 1000, 5, 127),
+                                            (2, 2, probes.GATHER_MAX_COLS,
+                                             4096, 3, 132)):
+        i3, i4 = probe_edge_indices(seed, rows, width, n, blocks, g)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        tab = torch.randn((rows, width), generator=gen, device=dev)
+        table = torch.randn((8, n), generator=gen, device=dev)
+        idx3 = torch.from_numpy(i3).to(dev)
+        idx4 = torch.from_numpy(i4).to(dev)
+        k3, p3 = probes.lane_gather_cuda(tab, idx3), probes.lane_gather_plain(
+            tab, idx3)
+        k4, p4 = probes.column_copy_cuda(table, idx4), \
+            probes.column_copy_plain(table, idx4)
+        same3, same4 = torch.equal(bits(k3), bits(p3)), torch.equal(
+            bits(k4), bits(p4))
+        j = idx4.long()
+        log(f"[P3/P4 edges] P3 {tuple(tab.shape)}: {int(torch.isnan(k3).sum())}"
+            f" NaN, {int(((idx3 < 0) & (idx3 >= -width)).sum())} wrapped; "
+            f"bit-identical to the plain version: {same3}. P4 (8, {n}) x "
+            f"{tuple(idx4.shape)}: {int(((j < 0) & (j >= -n)).sum())} wrapped,"
+            f" {int(((j >= n) | (j < -n)).sum())} clamped, "
+            f"{int(torch.isnan(k4).sum())} NaN; bit-identical to the plain "
+            f"version: {same4}")
+        if not (same3 and same4 and not bool(torch.isnan(k4).any())):
+            raise SystemExit("P3/P4 edge indices: kernel differs from the "
+                             "plain version")
 
 
 def check_nan_opacity(gscene, gcam, dev) -> None:

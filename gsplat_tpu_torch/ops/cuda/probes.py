@@ -14,6 +14,13 @@ with their plain PyTorch versions and launch counts:
 - P4 `csrc/probe_coldma.cu` replaces `percol_kernel_wrap` of `bench_dma`
   (`:213`): one copy per column, out[i, :, j] = table[:, idx[i, j]].
 
+P3 and P4 take any int32 index and give what the TPU kernels give for it
+(Pallas in interpret mode, `tests/test_torch_probes.py`), in both routes:
+- P3 (`jnp.take_along_axis`): an index j in [-C, 0) reads column j + C, one
+  in [0, C) column j, and any other gives NaN (the quiet NaN 0x7fc00000);
+- P4 (`pl.ds(idx, 1)`): a negative index wraps once, to idx + n (in 64
+  bits), and is then clamped into [0, n - 1]; no index gives NaN.
+
 Each dispatcher (`transc`, `tri_cumsum`, `lane_gather`, `column_copy`) runs
 the plain version for a CPU tensor and launches the kernel for a CUDA
 tensor; the `*_cuda` wrappers take CUDA tensors only.
@@ -51,9 +58,11 @@ PASSES = {
 }
 # The width of P2's last axis: the TPU script's G, one 128x128 tri.
 TRI_WIDTH = 128
-# P3 stages the whole table in shared memory, without the opt-in above
-# 48 KB; P4 stages one (F, G) block there.
-SMEM_BYTES = 48 * 1024
+# P3 stages one row of its table in shared memory, without the opt-in
+# above 48 KB: at most GATHER_MAX_COLS floats (csrc/probe_gather.cu).
+GATHER_MAX_COLS = 12 * 1024
+# The quiet NaN that P3 gives for an index outside [-C, C).
+QNAN_BITS = 0x7FC00000
 
 
 # ---------------------------------------------------------------- plain P1
@@ -143,13 +152,28 @@ def tricumsum_plain(x, tri, precision: str):
 # ------------------------------------------------------------- plain P3, P4
 
 def lane_gather_plain(tab, idx):
-    """P3's plain version: out[r, c] = tab[r, idx[r, c]]."""
-    return torch.take_along_dim(tab, idx.long(), dim=-1)
+    """P3's plain version: out[r, c] = tab[r, j] for j = idx[r, c], read at
+    j + C where j is in [-C, 0), and the quiet NaN where j is outside
+    [-C, C). take_along_dim only sees indices clamped into range: its own
+    out-of-range behaviour differs between the CPU and CUDA."""
+    cols = tab.shape[-1]
+    j = idx.long()
+    j = torch.where(j < 0, j + cols, j)
+    ok = (j >= 0) & (j < cols)
+    got = torch.take_along_dim(tab, j.clamp(0, cols - 1), dim=-1)
+    nan = torch.tensor(QNAN_BITS, dtype=torch.int32,
+                       device=tab.device).view(torch.float32)
+    return torch.where(ok, got, nan)
 
 
 def column_copy_plain(table, idx):
-    """P4's plain version: out[i, r, j] = table[r, idx[i, j]], (B, F, G)."""
-    return table[:, idx].permute(1, 0, 2)
+    """P4's plain version: out[i, r, j] = table[r, c], (B, F, G), where
+    c = idx[i, j] + n if that index is negative, then clamped into
+    [0, n - 1]."""
+    n = table.shape[1]
+    c = idx.long()
+    c = torch.where(c < 0, c + n, c).clamp(0, n - 1)
+    return table[:, c].permute(1, 0, 2)
 
 
 # ----------------------------------------------------------------- kernels
@@ -216,15 +240,15 @@ def tricumsum_cuda(x, precision: str):
 
 
 def lane_gather_cuda(tab, idx):
-    """Launch P3: tab (R, C) float32, idx (R, C) int32 with entries in
-    [0, C) -> tab[r, idx[r, c]] (NaN where an entry is out of range), from
-    one CTA that holds tab in shared memory."""
+    """Launch P3: tab (R, C) float32, idx (R, C) int32 -> tab[r, idx[r, c]]
+    with lane_gather_plain's index rule, from one CTA per row that holds its
+    row in shared memory (C <= GATHER_MAX_COLS)."""
     global gather_launches
     _check("lane_gather", tab, torch.float32, 2)
     _check("lane_gather", idx, torch.int32, 2, like=tab)
-    if idx.shape != tab.shape or tab.numel() * 4 > SMEM_BYTES:
+    if idx.shape != tab.shape or tab.shape[1] > GATHER_MAX_COLS:
         raise ValueError(f"lane_gather: tab and idx must be one (R, C) shape "
-                         f"of at most {SMEM_BYTES // 4} values, got "
+                         f"with C <= {GATHER_MAX_COLS}, got "
                          f"{tuple(tab.shape)} and {tuple(idx.shape)}")
     out = torch.empty_like(tab)
     _launch("probe_gather",
@@ -237,19 +261,17 @@ def lane_gather_cuda(tab, idx):
 
 
 def column_copy_cuda(table, idx):
-    """Launch P4: table (F, n) float32, idx (B, G) int32 with entries in
-    [0, n) -> (B, F, G) with out[i, :, j] = table[:, idx[i, j]] (NaN where
-    an entry is out of range): one CTA per block i, one 4-byte cp.async per
-    (row, column)."""
+    """Launch P4: table (F, n) float32, idx (B, G) int32 -> (B, F, G) with
+    out[i, :, j] = table[:, c] by column_copy_plain's index rule: a thread
+    owns 4 columns of a block (one where G % 4 != 0), loads every row of
+    them into registers and stores each row as one 16-byte store."""
     global coldma_launches
     _check("column_copy", table, torch.float32, 2)
     _check("column_copy", idx, torch.int32, 2, like=table)
     f, n = table.shape
     b, g = idx.shape
-    if g > 1024 or f * g * 4 > SMEM_BYTES:
-        raise ValueError(f"column_copy: a block of {f} rows x {g} columns "
-                         "must fit one CTA (G <= 1024, F G <= "
-                         f"{SMEM_BYTES // 4})")
+    if n == 0 and idx.numel():
+        raise ValueError("column_copy: the table has no column to copy")
     out = torch.empty((b, f, g), dtype=torch.float32, device=table.device)
     _launch("probe_coldma",
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Time builds of the blend kernels K1 and K2, or of the segmented suffix
-sums K4 and K5, from several source trees side by side on one CUDA card.
+"""Time builds of the blend kernels K1 and K2, of the segmented suffix
+sums K4 and K5, or of the probes P3 and P4, from several source trees side
+by side on one CUDA card.
 
-    python3 scripts/time_blend_builds.py [--kernels blend|segsum]
+    python3 scripts/time_blend_builds.py [--kernels blend|segsum|probes]
         [--csrc DIR ...] [--rounds N] [--out F]
 
 The first build is the package's own `gsplat_tpu_torch/csrc`; each --csrc
 DIR adds one, from a directory holding the same sources with the same C
 interface (a parent commit's `gsplat_tpu_torch/csrc`, unpacked with `git
 archive`): `raster_fwd.cu` and `raster_bwd.cu` with `--kernels blend` (the
-default), `segsum.cu` and `segsum_packed.cu` with `--kernels segsum`. Every
+default), `segsum.cu` and `segsum_packed.cu` with `--kernels segsum`,
+`probe_gather.cu` and `probe_coldma.cu` with `--kernels probes`. Every
 build is compiled with the package's nvcc flags, all at once, and launched
-through the package's wrappers (`ops/cuda/raster.py`, `ops/cuda/segsum.py`)
-with its libraries loaded in place of the package's.
+through the package's wrappers (`ops/cuda/raster.py`, `ops/cuda/segsum.py`,
+`ops/cuda/probes.py`) with its libraries loaded in place of the package's.
 
 Streams, on chip_smoke.py's bench config (1920x1080, tile 32, 1M Gaussians
 at SH 3, seed 0, the four views of `chip_smoke.views`). Blend: view 0 of the
@@ -28,10 +30,18 @@ phases 6 and 7): the random scene at depth 64 (K4 on K2's float32
 gradients, K5 on its packed4 bf16 pairs) and the realistic scene at depth
 2048 (K5 on K2's pairs, K4 on them unpacked to float32). For each build it
 prints K4's and K5's largest difference from the first build and whether
-their output is bit-identical to it. Then, for every stream and build,
-CUDA-event means over 20 launches in every round, the builds in alternating
-order from round to round; the card's name and power limit, and one JSON
-line of the times. Needs a CUDA card; imports nothing of JAX.
+their output is bit-identical to it. Probes: chip_smoke.py's in-range
+inputs of phase 10 (`chip_smoke.probe_inputs`: P3 at (8, 512), P4 on an
+(8, 2^20) table at (2048, 128)); for each build it prints whether P3's and
+P4's outputs are bit-identical to the first build's (in-range indices only:
+builds before the index rules of `ops/cuda/probes.py` gave NaN outside
+[0, C) and [0, n)). Then, for every stream and build, CUDA-event means over
+20 launches in every round (the probes queued behind a spin kernel with
+`micro_kernel_costs.timeit`, beside the launch floor, torch.cuda._sleep(0)
+timed the same way, and P4 also as the median of 10 launches each after a
+512 MB write that flushes the L2), the builds in alternating order from
+round to round; the card's name and power limit, and one JSON line of the
+times. Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -51,7 +61,8 @@ sys.path.insert(0, HERE)
 import chip_smoke  # noqa: E402  (the bench config, views and timer)
 
 SOURCES = {"blend": ("raster_fwd", "raster_bwd"),
-           "segsum": ("segsum", "segsum_packed")}
+           "segsum": ("segsum", "segsum_packed"),
+           "probes": ("probe_gather", "probe_coldma")}
 
 
 def build(dirs, sources) -> list[dict]:
@@ -134,8 +145,13 @@ def upstream(cfg, gen):
                         device=dev))
 
 
+def events(fn):
+    """A timer of fn: its CUDA-event mean over 20 launches, in ms."""
+    return lambda: chip_smoke.cuda_ms(fn, 20)
+
+
 def blend_calls(dev, libs, dirs, gen) -> dict:
-    """{stream tag: [{"k1": launch, "k2": launch} per build]}, after printing
+    """{stream tag: [{"k1": timer, "k2": timer} per build]}, after printing
     each build's difference from the first."""
     from gsplat_tpu_torch.ops.bf16_pairs import unpack_bf16_pairs
     from gsplat_tpu_torch.ops.cuda import _build, raster
@@ -170,14 +186,14 @@ def blend_calls(dev, libs, dirs, gen) -> dict:
                   f"from build 0 {diff1}; K2 max abs difference "
                   f"{float((d - d0).abs().max())}, relative L2 {rel2}",
                   flush=True)
-            calls.append({"k1": k1, "k2": k2})
+            calls.append({"k1": events(k1), "k2": events(k2)})
         out[tag] = calls
     _build._libs.update(libs[0])
     return out
 
 
 def segsum_calls(dev, libs, dirs, gen) -> dict:
-    """{stream tag: [{"segsum": launch, "segsum_packed": launch} per
+    """{stream tag: [{"segsum": timer, "segsum_packed": timer} per
     build]} on K2's gradients of random view 0 (depth 64) and realistic view
     0 (depth 2048), after printing each build's difference from the first."""
     import torch
@@ -229,13 +245,53 @@ def segsum_calls(dev, libs, dirs, gen) -> dict:
                 same = torch.equal(got.view(torch.int32), ref.view(torch.int32))
                 what.append(f"{name} max abs difference from build 0 {diff}, "
                             f"bit-identical {same}")
-                fns[name] = call
+                fns[name] = events(call)
             print(f"[{tag}] build {i} ({dirs[i]}): {'; '.join(what)}",
                   flush=True)
             calls.append(fns)
         out[tag] = calls
     _build._libs.update(libs[0])
     return out
+
+
+def probes_calls(dev, libs, dirs, gen) -> dict:
+    """{tag: [{name: timer} per build]} of P3 (with the launch floor beside
+    it) and P4 (warm and after a flush) on chip_smoke.probe_inputs, after
+    printing whether each build's outputs are bit-identical to the
+    first's."""
+    import torch
+
+    from gsplat_tpu_torch import micro_kernel_costs as mkc
+    from gsplat_tpu_torch.ops.cuda import _build, probes
+
+    tab, idx, table, cols = chip_smoke.probe_inputs(dev)
+    p3, p4 = [], []
+    first = []
+    for i, lib in enumerate(libs):
+
+        def gather(lib=lib):
+            _build._libs.update(lib)
+            return probes.lane_gather_cuda(tab, idx)
+
+        def copy(lib=lib):
+            _build._libs.update(lib)
+            return probes.column_copy_cuda(table, cols)
+
+        got = (gather(), copy())
+        first = first or got
+        same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
+                for a, b in zip(got, first)]
+        print(f"[probes] build {i} ({dirs[i]}): P3 {tuple(got[0].shape)} "
+              f"bit-identical to build 0 {same[0]}; P4 {tuple(got[1].shape)} "
+              f"bit-identical to build 0 {same[1]}", flush=True)
+        p3.append({"probe_gather": lambda f=gather: mkc.timeit(dev, f, 20)[0],
+                   "launch_floor": lambda: mkc.timeit(
+                       dev, lambda: torch.cuda._sleep(0), 20)[0]})
+        p4.append({"probe_coldma": lambda f=copy: mkc.timeit(dev, f, 20)[0],
+                   "probe_coldma_cold": lambda f=copy: statistics.median(
+                       chip_smoke.cold_ms(f, dev))})
+    _build._libs.update(libs[0])
+    return {"P3 (8, 512)": p3, "P4 (2048, 128) of (8, 2^20)": p4}
 
 
 def main() -> int:
@@ -259,15 +315,16 @@ def main() -> int:
     dirs = [str(_build.CSRC), *args.csrc]
     libs = build(dirs, SOURCES[args.kernels])
     gen = torch.Generator(device=dev).manual_seed(1)
-    make_calls = blend_calls if args.kernels == "blend" else segsum_calls
+    make_calls = {"blend": blend_calls, "segsum": segsum_calls,
+                  "probes": probes_calls}[args.kernels]
     times = {}
     for tag, calls in make_calls(dev, libs, dirs, gen).items():
         for r in range(args.rounds):
             order = range(len(libs)) if r % 2 == 0 else reversed(range(len(libs)))
             for i in order:
                 t = times.setdefault(tag, {}).setdefault(i, {})
-                for name, fn in calls[i].items():
-                    t.setdefault(name, []).append(chip_smoke.cuda_ms(fn, 20))
+                for name, timer in calls[i].items():
+                    t.setdefault(name, []).append(timer())
         _build._libs.update(libs[0])
     for tag, by_build in times.items():
         for i, t in by_build.items():

@@ -194,6 +194,42 @@ def test_lane_gather_matches_tpu_kernel_bit_for_bit():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _edge_indices(seed, **shape):
+    """chip_smoke.probe_edge_indices, the edge indices the card's check
+    feeds P3 and P4, so that those inputs are held to JAX here."""
+    import chip_smoke
+
+    return chip_smoke.probe_edge_indices(seed, **shape)
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, dtype=np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("seed, rows, cols", [(0, 8, 512), (1, 3, 37)])
+def test_lane_gather_edge_indices_match_tpu_kernel(seed, rows, cols):
+    """P3's plain route on every edge of its index rule (-1, C, -C - 1,
+    10^6, -C, -2^31, 2^31 - 1, 0, C - 1 in each row, the rest in [-2C, 2C))
+    against the TPU kernel in interpret mode: the same bits, NaN only where
+    JAX has NaN (an index outside [-C, C))."""
+    idx, _ = _edge_indices(seed, rows=rows, cols=cols, n=4096, blocks=1)
+    tab = np.random.default_rng(seed).standard_normal(
+        (rows, cols)).astype(np.float32)
+    want = np.asarray(pl.pallas_call(
+        _gather_kernel,
+        out_shape=jax.ShapeDtypeStruct((rows, cols), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True,
+    )(jnp.asarray(tab), jnp.asarray(idx)))
+    got = probes.lane_gather(torch.from_numpy(tab),
+                             torch.from_numpy(idx)).numpy()
+    outside = (idx < -cols) | (idx >= cols)
+    assert outside.any() and ((idx < 0) & ~outside).any()
+    np.testing.assert_array_equal(np.isnan(want), outside)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
 # ---------------------------------------------------------------------- P4
 
 def _column_copy_tpu(idx, table):
@@ -249,6 +285,42 @@ def test_column_copy_matches_tpu_kernel_bit_for_bit():
     got = probes.column_copy(torch.from_numpy(table), torch.from_numpy(idx))
     assert tuple(got.shape) == (4, 8, G)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed, n, blocks", [(0, 4096, 4), (1, 1000, 3)])
+def test_column_copy_edge_indices_match_tpu_kernel(seed, n, blocks):
+    """P4's plain route on every edge of its index rule (-1, -2, n, n + 5,
+    10^6, -n, -n - 1, -2^31, 2^31 - 1, 0, n - 1 in each block, the rest in
+    [-2n, 2n)) against the TPU kernel in interpret mode: the same bits (a
+    negative index wraps once, then clamps into [0, n - 1]) and no NaN."""
+    _, idx = _edge_indices(seed, n=n, blocks=blocks, g=G)
+    table = np.random.default_rng(seed).standard_normal(
+        (8, n)).astype(np.float32)
+    want = _column_copy_tpu(idx, table)
+    got = probes.column_copy(torch.from_numpy(table),
+                             torch.from_numpy(idx)).numpy()
+    assert ((idx >= n) | (idx < -n)).any() and ((idx < 0) & (idx >= -n)).any()
+    assert not np.isnan(want).any()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+def test_probe_edge_indices_hold_every_edge_in_each_row():
+    """The seeded edge indices: int32, the stated shapes, every edge value
+    in each P3 row and each P4 block, and the same arrays for one seed."""
+    rows, cols, n, blocks, g = 3, 40, 1000, 5, 16
+    i3, i4 = _edge_indices(7, rows=rows, cols=cols, n=n, blocks=blocks, g=g)
+    assert i3.dtype == i4.dtype == np.int32
+    assert i3.shape == (rows, cols) and i4.shape == (blocks, g)
+    lo, hi = -2 ** 31, 2 ** 31 - 1
+    for row in i3:
+        assert {-1, cols, -cols - 1, 10 ** 6, -cols, lo, hi, 0,
+                cols - 1} <= set(row.tolist())
+    for block in i4:
+        assert {-1, -2, n, n + 5, 10 ** 6, -n, -n - 1, lo, hi, 0,
+                n - 1} <= set(block.tolist())
+    j3, j4 = _edge_indices(7, rows=rows, cols=cols, n=n, blocks=blocks, g=g)
+    np.testing.assert_array_equal(i3, j3)
+    np.testing.assert_array_equal(i4, j4)
 
 
 # ------------------------------------------------------ wrappers, entry point
