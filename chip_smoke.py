@@ -52,7 +52,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      of bench.py:246-253: K3's rank stage on the (14,848, 2048) jumbo grid
      against its plain version (mask, rank and counts, 0 differing entries
      each), timed beside the route it replaced (the mask stage, cumsum,
-     sum); K1 and K2 (packed4, bf16 pairs out)
+     sum), and on the same rows bounded at K 1024 (the viewer preset's
+     K_jumbo; lanes kept, 0 differing entries); K1 and K2 (packed4, bf16
+     pairs out)
      on its view-0 stream, whose jumbo splats make the longest segments,
      against their plain versions with the tolerances of 4 and 5; and K5
      and K4 at depth 2048 on K2's pairs of that stream (K4 on the pairs
@@ -83,7 +85,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
      every step no overflow, finite gradients and a finite loss, and the
      last round's mean loss below the first's; each path launched each of
      its kernels;
- 10. the cost probes of scripts/micro_kernel_costs.py (P1-P4) at its
+ 10. the user surface, three more main paths:
+     - cli_train: `cli train` at the bench-default config (K_max 128) on a
+       1M random target, a fresh 1M init padded to 1.25M, 8 training and 2
+       held-out orbit views, 180 steps with densification every 20 from 20
+       to 80, one opacity reset (at 90), the staged capacity at 1.3x,
+       evals every 40, checkpoints every 60, --overflow-policy raise; then a
+       resume from the step-60 checkpoint. The last log row's loss below the
+       first's, the last held-out PSNR above the first (step 40's), a round
+       that split or cloned, the capacity tightened, the PLY equal to the
+       last checkpoint's scene within rtol 1e-6. The first training step's
+       own inputs to K3's compact stage (K 128) and to K5 (depth 128) then
+       go through the kernels and their plain versions again: K3 0
+       differing entries, K5 the tolerances of 6 and a relaunch
+       bit-identical;
+     - bench: `run_bench` of {fwd, fwd_bwd} x {random, realistic} x
+       {default, --exact-grads} (`gsplat_tpu_torch.bench.preset`, iters
+       10), each free of overflow with view 0's intersections of the
+       matching serve path, and the synchronising calls per iteration of
+       the call its window timed (`torch.cuda.set_sync_debug_mode`, a
+       reading);
+     - cli_render: `cli render` of the trained PLY with --viewer-preset
+       --pad-bucket --orbit 4; orbit view 0's own inputs to K3's compact
+       stage (K 32) and rank stage (the jumbo grid, K 1024, which holds no
+       lanes at 800x800: 7 checks K 1024 with lanes) through the kernels
+       and their plain versions, 0 differing entries; each PNG read
+       back equal to `to_uint8` of the image rendered again (the PNG
+       round trip: K1 at this tile size and stream format is held to its
+       plain version in 4 and 7);
+ 11. the cost probes of scripts/micro_kernel_costs.py (P1-P4) at its
      shapes, each kernel against its plain version on the card: P1 (2^29
      elements) mults and fast3 bit for bit, exact and exact3 within 2 ulp;
      P2 (4096 x 1024 rows of 128; first 16 and 37 rows) each precision
@@ -100,23 +130,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the plain versions in raw bits (NaN at the same places; P4 none).
      Then the `probes` main path: `micro_kernel_costs.main(["all"])` with
      the counts at 0, which must launch all four;
- 11. golden gradients: `render_loss_and_grad` of the golden scene on the
+ 12. golden gradients: `render_loss_and_grad` of the golden scene on the
      card against the port's plain path on the CPU, which the CPU tests hold
      to JAX: exact f32 (K2, K4) every field within rtol 5e-3 / atol 1e-5;
      bench default (packed K1 and K2, K5) every field within 1e-5 + 1e-2 of
      its largest value and >= 99% of entries within 1e-5 + 8e-3 of their
      own (one or two bf16 ulps: tests/test_torch_packed_train.py).
 Then one JSON line of kernel numbers, each kernel with its launches on each
-main path (`launches_by_path`, and their sum as `launches`), and as the last
+main path (`launches_by_path`, and their sum as `launches`; K3's rank stage
+on the jumbo grid also alone, `rank_launches_by_path`), and as the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero
 without.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -166,26 +199,24 @@ TRANSC_OPS_PER_ELEMENT = {"mults": 7.4, "exact": 44.7, "exact3": 55.9,
 # x - hi - mid), by precision.
 SPLIT_OPS_PER_ELEMENT = {"default": 0, "high": 1, "highest": 2}
 
-BENCH = dict(
-    width=1920, height=1080, tile_size=32, max_intersections=4_100_000,
-    block_size=32, max_per_tile=8192, binning="tiered",
-    tier_spec=((4, 0), (8, 2), (16, 6), (32, 25), (64, 50)),
-    pallas_block_size=128, stream_format="f32",
-)
+# The bench's configuration, from the package's bench module (the root
+# bench.py:85-120 and 246-253): BENCH its render fields with the float32
+# stream; DEFAULT its default setting (the packed4 stream, bf16-pair slot
+# gradients summed by K5) and EXACT its --exact-grads one (float32 end to
+# end, K4), each with the bench's segment sum; JUMBO the realistic scene's
+# jumbo ladder.
+sys.path.insert(0, HERE)
+from gsplat_tpu_torch import bench as _bench  # noqa: E402
+
+NUM_GAUSSIANS = _bench.CARD["num_gaussians"]
+BENCH = dict({k: v for k, v in _bench.CARD.items()
+              if k not in ("num_gaussians", "impl", "mode", "iters",
+                           "segment_sum")}, stream_format="f32")
+DEFAULT = dict(_bench.DEFAULT, segment_sum=_bench.CARD["segment_sum"])
+EXACT = dict(_bench.EXACT, segment_sum=_bench.CARD["segment_sum"])
+JUMBO = _bench.JUMBO
 GOLDEN = dict(width=64, height=64, tile_size=8, max_intersections=1 << 14,
               max_tiles_per_gaussian=64, block_size=8, max_per_tile=512)
-NUM_GAUSSIANS = 1_000_000
-# The training step's exact-f32 setting (bench.py --exact-grads).
-EXACT = dict(gather_backward="variadic", grad_readout="f32",
-             segment_sum="pallas", matmul_precision="highest")
-# bench.py's default setting (no flags): the packed4 stream, bf16-pair slot
-# gradients summed by K5.
-DEFAULT = dict(stream_format="packed4", gather_backward="bf16",
-               grad_readout="bf16", segment_sum="pallas",
-               matmul_precision="high")
-# The jumbo ladder of bench.py's realistic-scene headline (bench.py:246-253).
-JUMBO = dict(max_tiles_jumbo=2048, jumbo_tier_spec=(
-    (128, 14848), (256, 7168), (512, 3072), (1024, 1024), (2048, 384)))
 TRAIN_LR = 1e-2
 SSIM_WEIGHT = 0.2
 DC_NOISE = 0.2       # std of the seeded noise on the trained scene's SH DC
@@ -196,6 +227,20 @@ SERVE_REPS = 4       # repetitions of the four views: one warm-up, three timed
 # start and end on.
 SEGSUM_LENGTHS = (1, 31, 32, 33, 255, 256, 257, 2047, 2048)
 SEGSUM_EDGES = (32, 256, 2048)
+# The `cli_train` path: the fit's static capacity (the 1M init padded by a
+# quarter); its stream capacity, 1.3x the peak demand of its training views,
+# 5,614,342 intersections (the fit's own reading of int_max up to step 80,
+# from a run of this path at 7,288,832 on an NVIDIA H100 80GB HBM3,
+# 700.00 W), rounded up to a multiple of 2048 as the staged capacity
+# rounds; K_max 128 (bench.py --kmax 128): the fit grows splats, and at 64
+# some rects passed K_max between steps 160 and 180 (an overflow under
+# 'raise'); its steps, and one opacity reset, at step 90, so that the
+# held-out PSNR has 90 steps to recover past its first eval (at step 40).
+CLI_CAPACITY = 1_250_000
+CLI_MAX_INTERSECTIONS = 7_299_072
+CLI_KMAX = 128
+CLI_STEPS = 180
+CLI_RESET_EVERY = 90
 
 # The kernels, in the order of the JSON line: name -> (module attribute of
 # its launch count, source, the TPU kernel it replaces).
@@ -628,6 +673,8 @@ def check_segsum_layouts(dev) -> None:
 
 
 def launch_counts() -> dict:
+    """Each kernel's launch count, and K3's rank stage (the jumbo grid)
+    alone as "cull_rank"."""
     from gsplat_tpu_torch.ops.cuda import cull, probes, raster, segsum
 
     mods = {"cull": cull, "raster": raster, "segsum": segsum, "probes": probes}
@@ -635,13 +682,15 @@ def launch_counts() -> dict:
     for name, (attr, _, _) in KERNELS.items():
         mod, var = attr.split(".")
         out[name] = getattr(mods[mod], var)
+    out["cull_rank"] = cull.rank_launches
     return out
 
 
 def reset_launch_counts() -> None:
     from gsplat_tpu_torch.ops.cuda import cull, probes, raster, segsum
 
-    cull.launches = raster.launches = raster.packed_launches = 0
+    cull.launches = cull.rank_launches = 0
+    raster.launches = raster.packed_launches = 0
     raster.bwd_launches = raster.bwd_packed_launches = 0
     segsum.launches = segsum.packed_launches = 0
     probes.transc_launches = probes.tricumsum_launches = 0
@@ -668,9 +717,10 @@ def make_trainer(scene, cams, cfg, dev):
     return train, targets, make_train_step(cfg, opt, ssim_weight=SSIM_WEIGHT)
 
 
-def serve(tag, scene, cams, cfg, card):
+def serve(tag, scene, cams, cfg, card, view0=None):
     """`render` of every view SERVE_REPS times (the first repetition a
-    warm-up), each frame checked; returns the median ms per timed frame."""
+    warm-up), each frame checked; returns the median ms per timed frame.
+    Records view 0's intersections in view0[tag] when view0 is given."""
     import torch
 
     from gsplat_tpu_torch import render
@@ -688,6 +738,8 @@ def serve(tag, scene, cams, cfg, card):
                   and tuple(img.shape) == (cfg.height, cfg.width, 3)
                   and bool(torch.isfinite(img).all())
                   and float(img.max()) > 0.01)
+            if rep == 0 and i == 0 and view0 is not None:
+                view0[tag] = int(out.num_intersections)
             if rep == 0:
                 log(f"[{tag}] view {i}: {int(out.num_intersections)} "
                     f"intersections, overflow {bool(out.overflow)}, image "
@@ -1018,6 +1070,330 @@ def check_nan_opacity(gscene, gcam, dev) -> None:
                              "plain version")
 
 
+class _Tee:
+    """A text stream writing to several: `cli.main`'s output is shown and
+    kept for the checks."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
+def cli_run(argv) -> str:
+    """`gsplat_tpu_torch.cli.main(argv)` in this process; its standard
+    output, also shown. Fails unless it returns 0; an exception (an
+    overflow under --overflow-policy raise) propagates."""
+    import io
+
+    from gsplat_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise SystemExit(f"cli {argv[0]}: exit code {rc}")
+    return buf.getvalue()
+
+
+def cli_cfg_flags(cfg: dict) -> list:
+    """The `cli` flags (`_common_flags`) that give the render configuration
+    `cfg`, which holds a value for each of them. (The command has no flag
+    for pallas_block_size or matmul_precision, which select nothing in the
+    port.)"""
+    flags = []
+    for key in ("width", "height", "tile_size", "max_intersections",
+                "max_tiles_per_gaussian", "block_size", "max_per_tile",
+                "binning", "tier_spec", "gather_backward", "grad_readout",
+                "segment_sum", "stream_format"):
+        value = cfg[key]
+        if key == "tier_spec":
+            value = ",".join(f"{k}:{rows}" for k, rows in value)
+        flags += ["--" + key.replace("_", "-"), str(value)]
+    return flags
+
+
+def cli_train_argv(out_dir: str) -> list:
+    """`cli train` at the bench-default config (BENCH with DEFAULT: 1920x1080,
+    tile 32, the tiered ladder, packed4, bf16-pair gradients) with K_max
+    CLI_KMAX, on a 1M synthetic target, with a fresh 1M init padded to
+    CLI_CAPACITY: 8 training and 2 held-out orbit views, CLI_STEPS steps,
+    densification every 20 steps from 20 to 80, an opacity reset every
+    CLI_RESET_EVERY steps, a checkpoint every 60, an eval every 40, the
+    staged capacity at 1.3x."""
+    return [
+        "train", "--synthetic-n", str(NUM_GAUSSIANS), "--sh-degree", "3",
+        "--seed", "0", "--steps", str(CLI_STEPS), "--views", "8",
+        "--holdout-views", "2", "--eval-every", "40",
+        "--densify-every", "20", "--densify-from", "20",
+        "--densify-until", "80", "--capacity", str(CLI_CAPACITY),
+        "--opacity-reset-every", str(CLI_RESET_EVERY),
+        "--retighten-capacity", "1.3",
+        "--overflow-policy", "raise", "--checkpoint-every", "60",
+        "--checkpoint-dir", os.path.join(out_dir, "ckpt"),
+        "--metrics-csv", os.path.join(out_dir, "metrics.csv"),
+        "--out", os.path.join(out_dir, "trained.ply"),
+        "--device", "cuda",
+    ] + cli_cfg_flags(dict(BENCH, **DEFAULT,
+                           max_intersections=CLI_MAX_INTERSECTIONS,
+                           max_tiles_per_gaussian=CLI_KMAX))
+
+
+def check_cli_train(out_dir: str, card: str, inputs: dict) -> dict:
+    """The `cli_train` path: `cli train` (cli_train_argv), then a resume
+    from its step-60 checkpoint to the end. Fails unless the last log row's
+    loss is below the first's, the last held-out PSNR above the first, a
+    densify round split or cloned, the staged capacity tightened, no
+    overflow was raised, the saved PLY reloads equal to the trained scene
+    (the last step's checkpoint) within rtol 1e-6, and the resume reached
+    the last step. Keeps in `inputs` what the first training step gave K3
+    and K5 (`first_inputs`). Returns what PERF.md reports."""
+    import ast
+    import csv
+
+    from gsplat_tpu_torch.io.ply import load_ply
+    from gsplat_tpu_torch.ops.cuda import cull, segsum
+
+    os.makedirs(out_dir, exist_ok=True)
+    argv = cli_train_argv(out_dir)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.ExitStack() as stack:
+            # The first training step's cull: the init's CLI_CAPACITY rows
+            # (the target's renders before it have NUM_GAUSSIANS).
+            stack.enter_context(first_inputs(
+                inputs, cull, "cull_compact_cuda",
+                lambda params, *_: params.shape[1] == CLI_CAPACITY))
+            stack.enter_context(first_inputs(
+                inputs, segsum, "segmented_suffix_sum_packed_cuda"))
+            text = cli_run(argv)
+    except RuntimeError as e:
+        raise SystemExit(f"cli_train: the fit raised: {e}")
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows]
+    psnrs = [float(r["holdout_psnr"]) for r in rows if r.get("holdout_psnr")]
+    densify = [ast.literal_eval(line) for line in text.splitlines()
+               if line.startswith("{'num_alive'")]
+    tighten = [line for line in text.splitlines()
+               if line.startswith("staged capacity: tightening")]
+    ckpt = os.path.join(out_dir, "ckpt", f"ckpt_{CLI_STEPS:06d}.npz")
+    ply = load_ply(os.path.join(out_dir, "trained.ply"), device="cpu")
+    with np.load(ckpt) as d:
+        ply_err = max(
+            float(np.max(np.abs(getattr(ply, f).numpy() - d[f"scene.{f}"])
+                         / np.maximum(np.abs(d[f"scene.{f}"]), 1e-30)))
+            for f in ("means", "log_scales", "quats", "opacity_logits", "sh"))
+    ply_ok = ply_err <= 1e-6
+    log(f"[cli_train] {wall:.1f} s; log rows {rows}")
+    log(f"[cli_train] densify rounds {densify}; {tighten}; PLY against the "
+        f"step-{CLI_STEPS} checkpoint: largest relative difference {ply_err}")
+
+    resume_dir = os.path.join(out_dir, "resume")
+    rargv = argv + ["--resume", os.path.join(out_dir, "ckpt",
+                                             "ckpt_000060.npz"),
+                    "--checkpoint-dir", os.path.join(resume_dir, "ckpt"),
+                    "--metrics-csv", os.path.join(resume_dir, "metrics.csv"),
+                    "--out", os.path.join(resume_dir, "trained.ply")]
+    os.makedirs(resume_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    try:
+        cli_run(rargv)
+    except RuntimeError as e:
+        raise SystemExit(f"cli_train: the resumed fit raised: {e}")
+    rwall = time.perf_counter() - t0
+    with open(os.path.join(resume_dir, "metrics.csv")) as f:
+        rrows = list(csv.DictReader(f))
+    log(f"[cli_train] resume from step 60: {rwall:.1f} s; log rows {rrows}")
+    checks = {
+        "loss falls": losses[-1] < losses[0],
+        "held-out PSNR rises": len(psnrs) > 1 and psnrs[-1] > psnrs[0],
+        "a round split or cloned": any(
+            d["num_split"] + d["num_clone"] > 0 for d in densify),
+        "capacity tightened": bool(tighten),
+        "PLY equals the trained scene": ply_ok,
+        "resume reached the last step": bool(rrows)
+        and int(rrows[-1]["step"]) == CLI_STEPS,
+    }
+    log(f"[cli_train] checks {checks} on {card}")
+    if not all(checks.values()):
+        raise SystemExit(f"cli_train: checks failed: {checks}")
+    return {"rows": rows, "densify": densify,
+            "tighten": tighten,
+            "wall_s": wall, "resume_rows": rrows, "resume_wall_s": rwall}
+
+
+@contextlib.contextmanager
+def first_inputs(store: dict, module, name: str, want=None):
+    """Within the block, `module.name` (a kernel wrapper) keeps in
+    store[name] a copy of the arguments of its first call that `want`
+    accepts (any, without it), and passes every call on: the inputs that a
+    main path gave a kernel, to hold against the plain version after the
+    path ran. The copies launch nothing."""
+    import torch
+
+    wrapper = getattr(module, name)
+
+    def keep(*args):
+        if name not in store and (want is None or want(*args)):
+            store[name] = tuple(a.clone() if isinstance(a, torch.Tensor)
+                                else a for a in args)
+        return wrapper(*args)
+
+    setattr(module, name, keep)
+    try:
+        yield
+    finally:
+        setattr(module, name, wrapper)
+
+
+def check_path_inputs(path: str, inputs: dict, expect: tuple) -> None:
+    """The inputs that `path` gave the wrappers named in `expect` (K3's
+    compact and rank stages, K5; kept by `first_inputs`) through the kernels
+    again and through the plain versions: K3 0 differing entries in every
+    output; K5 `check_segsum`'s tolerances and a relaunch bit-identical.
+    Exits on a failure, or where the path never called one of them."""
+    from gsplat_tpu_torch.ops.cuda import cull
+
+    missing = [name for name in expect if name not in inputs]
+    if missing:
+        raise SystemExit(f"{path}: no inputs kept for {missing}")
+    for name in expect:
+        args = inputs.pop(name)
+        if name == "segmented_suffix_sum_packed_cuda":
+            x, rows, kmax = args
+            check_segsum(f"{path} kmax {kmax}", x, rows, kmax, time_it=False)
+            continue
+        stage = name[len("cull_"):-len("_cuda")]
+        params, kmax, ts = args
+        got = getattr(cull, name)(params, kmax, ts)
+        want = getattr(cull, f"cull_{stage}_plain")(params, kmax, ts)
+        differ = [int((g != w).sum()) for g, w in zip(got, want)]
+        log(f"[{path} K3 {stage}] {params.shape[1]} rows x K {kmax}: "
+            f"{int(got[-1].sum())} lanes kept; {differ} entries differ from "
+            "the plain version")
+        if any(differ):
+            raise SystemExit(f"{path}: K3's {stage} stage differs from the "
+                             "plain version on the path's own inputs")
+
+
+def count_syncs(fn, iters: int):
+    """(synchronising CUDA calls per call of fn, {the innermost frame of the
+    port's code or the caller's where each happened: count}) over `iters`
+    calls, as `torch.cuda.set_sync_debug_mode("warn")` reports them."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if "gsplat_tpu_torch" in f.filename
+                  or f.filename.endswith("chip_smoke.py")]
+        f = frames[-1] if frames else traceback.extract_stack()[-2]
+        sites[f"{os.path.relpath(f.filename, HERE)}:{f.lineno} {f.name}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(iters):
+                fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum(sites.values()) / iters, dict(sites)
+
+
+def check_bench(view0: dict, card: str) -> list:
+    """The `bench` path: `run_bench` of the 8 runs {fwd, fwd_bwd} x
+    {random, realistic} x {default, --exact-grads} of
+    `gsplat_tpu_torch.bench.preset`, iters 10, with the count of
+    synchronising calls per iteration of the call its window timed, after
+    the window (`after_window`). Fails unless every run is free of
+    overflow and its num_intersections equals view 0's of the matching
+    serve path (`view0`; the stream format does not change the
+    binning)."""
+    import torch
+
+    from gsplat_tpu_torch.bench import preset
+    from gsplat_tpu_torch.utils import bench
+
+    results = []
+    for mode in ("fwd", "fwd_bwd"):
+        for kind in ("random", "realistic"):
+            for exact in (False, True):
+                kw = dict(preset(kind, exact, mode, "cuda"), iters=10)
+                syncs = []
+                r = bench.run_bench(
+                    **kw, after_window=lambda fn: syncs.append(
+                        count_syncs(fn, kw["iters"])))
+                torch.cuda.empty_cache()
+                (per_iter, sites), = syncs
+                want = view0["serve packed4 realistic" if kind == "realistic"
+                             else "serve f32"]
+                d = r["details"]
+                line = dict(mode=mode, scene=kind, exact_grads=exact,
+                            value=r["value"], ms_per_iter=d["ms_per_iter"],
+                            num_intersections=d["num_intersections"],
+                            serve_view0=want, overflow=d["overflow"],
+                            compile_s=d["compile_s"],
+                            syncs_per_iter=per_iter, sync_sites=sites,
+                            device=d["device"])
+                log(f"[bench] {json.dumps(line)}")
+                results.append(line)
+                if d["overflow"] or d["num_intersections"] != want:
+                    raise SystemExit(f"bench {mode} {kind} exact={exact}: "
+                                     "overflow, or intersections differ from "
+                                     "the serve path's view 0")
+    return results
+
+
+def cli_render_argv(ply: str, out_dir: str) -> list:
+    """The `cli_render` path: `cli render` of `ply` with --viewer-preset
+    --pad-bucket --orbit 4, writing PNGs into out_dir."""
+    return ["render", ply, "--viewer-preset", "--pad-bucket", "--orbit", "4",
+            "--output", os.path.join(out_dir, "{}.png"),
+            "--device", "cuda"]
+
+
+def check_cli_render_pngs(argv) -> None:
+    """Each PNG `cli render` wrote must read back equal to `to_uint8` of the
+    image rendered again with the same scene, config and camera: the PNG
+    round trip, not the kernel (K1 renders both)."""
+    import torch
+
+    from gsplat_tpu_torch import cli, render
+    from gsplat_tpu_torch.utils.image import read_png, to_uint8
+
+    args = cli.build_parser().parse_args(argv)
+    scene, cfg, cams = cli._prepare_render(args)
+    for name, cam in cams:
+        with torch.no_grad():
+            img = render(scene, cam, cfg).image.cpu().numpy()
+        png = read_png(args.output.replace("{}", name))
+        differ = int((to_uint8(png) != to_uint8(img)).sum())
+        log(f"[cli_render] {name}: {differ} PNG values differ from the "
+            "rendered image")
+        if differ:
+            raise SystemExit(f"cli_render: {name}'s PNG differs")
+
+
 def drive(path, needs, fn):
     """Run one main path with the launch counts set to 0 just before and
     read just after; fail unless each kernel in `needs` was launched."""
@@ -1049,7 +1425,6 @@ def run(dev) -> int:
     """Every phase on `dev`, the card."""
     import torch
 
-    sys.path.insert(0, HERE)
     from gsplat_tpu_torch import (
         Camera,
         RenderConfig,
@@ -1375,6 +1750,21 @@ def run(dev) -> int:
                            jumbo_bound_ms=jbound_ms,
                            jumbo_bound_by=jbound_by,
                            jumbo_route_ms=jroute_ms)
+    # The rank stage at the viewer preset's K_jumbo, 1024 (two rows to a
+    # warp in csrc/cull.cu), on the same rows with each walk bounded at
+    # 1024: `cli_render`'s own jumbo grid holds no lanes at its 800x800.
+    with torch.no_grad():
+        jparams = cull.cull_params(proj, rcfg, counts=torch.clamp_max(
+            jbound, 1024))[:, ids_r].contiguous()
+    got = cull.cull_rank_cuda(jparams, 1024, rcfg.tile_size)
+    want = cull.cull_rank_plain(jparams, 1024, rcfg.tile_size)
+    differ = [int((g != w).sum()) for g, w in zip(got, want)]
+    log(f"[K3 jumbo K 1024] rank stage on {jparams.shape[1]} rows x K 1024: "
+        f"{int(got[2].sum())} lanes kept; mask, rank, counts: {differ} "
+        "entries differ from the plain version")
+    if any(differ) or not int(got[2].sum()):
+        raise SystemExit("K3 jumbo K 1024: kernel differs from the plain "
+                         "version, or no lane was kept")
     del got, want, jparams, jbound
 
     with torch.no_grad():
@@ -1483,14 +1873,14 @@ def run(dev) -> int:
     log(f"[phases 1-8] {time.perf_counter() - t_start:.1f} s")
 
     # 9. Main paths.
-    tcfg = RenderConfig(**BENCH, **EXACT)
+    tcfg = RenderConfig(**dict(BENCH, **EXACT))
     rexact = RenderConfig(**dict(BENCH, **EXACT, **JUMBO))
     rserve = RenderConfig(**dict(BENCH, **DEFAULT, **JUMBO))
-    by_path, times = {}, {}
+    by_path, times, view0 = {}, {}, {}
     by_path["serve_f32"] = drive(
         "serve f32", ("cull", "raster_fwd"),
         lambda: times.update(serve_f32=serve("serve f32", scene, cams, cfg,
-                                             card)))
+                                             card, view0)))
     by_path["train_exact"] = drive(
         "train exact", ("cull", "raster_fwd", "raster_bwd", "segsum"),
         lambda: times.update(
@@ -1502,9 +1892,9 @@ def run(dev) -> int:
         "serve packed4", ("cull", "raster_fwd_packed"),
         lambda: times.update(
             serve_packed4_random=serve("serve packed4 random", scene, cams,
-                                       cfg4, card),
+                                       cfg4, card, view0),
             serve_packed4_realistic=serve("serve packed4 realistic", rscene,
-                                          cams, rserve, card)))
+                                          cams, rserve, card, view0)))
     by_path["train_default"] = drive(
         "train default", ("cull", "raster_fwd_packed", "raster_bwd_packed",
                           "segsum_packed"),
@@ -1514,10 +1904,52 @@ def run(dev) -> int:
             train_default_realistic=train("train default realistic", rscene,
                                           cams, rserve, dev, card)))
     log(f"[main] ms per frame / step {times}")
-    del rscene
+    del rscene, scene
     torch.cuda.empty_cache()
 
-    # 10. The cost probes: each kernel against its plain version at the TPU
+    # 10. The user surface: `cli train` with densification, checkpoints and
+    # a resume; the bench's 8 runs; `cli render` of the trained PLY.
+    t0 = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    fit_report, inputs = {}, {}
+    by_path["cli_train"] = drive(
+        "cli_train", ("cull", "raster_fwd_packed", "raster_bwd_packed",
+                      "segsum_packed"),
+        lambda: fit_report.update(check_cli_train(
+            os.path.join(out_dir, "train"), card, inputs)))
+    check_path_inputs("cli_train", inputs, (
+        "cull_compact_cuda", "segmented_suffix_sum_packed_cuda"))
+    torch.cuda.empty_cache()
+    bench_runs = []
+    by_path["bench"] = drive(
+        "bench", ("cull", "cull_rank", "raster_fwd", "raster_fwd_packed",
+                  "raster_bwd", "raster_bwd_packed", "segsum",
+                  "segsum_packed"),
+        lambda: bench_runs.extend(check_bench(view0, card)))
+    torch.cuda.empty_cache()
+    rargv = cli_render_argv(os.path.join(out_dir, "train", "trained.ply"),
+                            os.path.join(out_dir, "render"))
+    os.makedirs(os.path.join(out_dir, "render"), exist_ok=True)
+
+    def cli_render_path():
+        # Orbit view 0's cull: the compact stage at the viewer preset's
+        # K_max and the rank stage on its jumbo grid.
+        with first_inputs(inputs, cull, "cull_compact_cuda"), \
+                first_inputs(inputs, cull, "cull_rank_cuda"):
+            cli_run(rargv)
+
+    by_path["cli_render"] = drive(
+        "cli_render", ("cull", "cull_rank", "raster_fwd_packed"),
+        cli_render_path)
+    check_path_inputs("cli_render", inputs,
+                      ("cull_compact_cuda", "cull_rank_cuda"))
+    check_cli_render_pngs(rargv)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[user surface] {time.perf_counter() - t0:.1f} s")
+
+    # 11. The cost probes: each kernel against its plain version at the TPU
     # script's shapes, then their entry point as a main path.
     t0 = time.perf_counter()
     check_probes(kernels, dev)
@@ -1528,7 +1960,7 @@ def run(dev) -> int:
     torch.cuda.empty_cache()
     log(f"[probes] {time.perf_counter() - t0:.1f} s")
 
-    # 11. Golden gradients: the card's kernels against the CPU plain path
+    # 12. Golden gradients: the card's kernels against the CPU plain path
     # (last, so that its CPU threads do not share the host with the main
     # paths' timing).
     target = np.random.default_rng(0).uniform(size=(64, 64, 3)).astype(np.float32)
@@ -1569,6 +2001,8 @@ def run(dev) -> int:
                              "stated tolerance of the CPU path, or not "
                              f"through {needs}")
 
+    kernels["cull"]["rank_launches_by_path"] = {
+        p: c["cull_rank"] for p, c in by_path.items()}
     for name in kernels:
         kernels[name]["launches_by_path"] = {p: c[name]
                                              for p, c in by_path.items()}

@@ -11,8 +11,12 @@ K1 on the float32 or the packed16/packed4 stream) and the single-device
 training step (`train.loop.make_train_step`: the blend backward K2, the
 gather's sort-based backward with the segmented-suffix-sum kernels K4 and,
 over bf16 pairs, K5, L1 + DSSIM, Adam), with `random_scene` and the
-heavy-tailed `realistic_scene`. Densification, I/O and multi-GPU come in
-later slices.
+heavy-tailed `realistic_scene`; and the single-device user surface on top:
+`train.loop.fit` with densification (`train/densify.py`) and checkpoints
+(`utils/checkpoint.py`), PLY, cameras.json and PNG I/O (`io/`,
+`utils/image.py`), `utils.bench.run_bench`, and the command line
+(`python -m gsplat_tpu_torch.cli`, `python -m gsplat_tpu_torch.bench`).
+The multi-device modes come in a later slice.
 """
 
 from gsplat_tpu_torch.config import RenderConfig

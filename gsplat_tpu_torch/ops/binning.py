@@ -4,7 +4,9 @@ gather's scatter-free backward.
 
 Port of `gsplat_tpu.ops.binning` for `binning='tiered'` (the production
 mode, with the jumbo tiers of `max_tiles_jumbo`), with `'packed'` and
-`'sort'` as oracles. The exact ellipse-tile cull runs through kernel K3
+`'sort'` as oracles, the single-device `'scatter'` mode, and the
+host-side capacity reports `tier_occupancy` and `diagnose_overflow`. The
+exact ellipse-tile cull runs through kernel K3
 (`ops/cuda/cull.py`), which also compacts each row of the tiers' walk, the
 backward's segmented suffix sum through kernel K4 (`ops/cuda/segsum.py`),
 or K5 over bf16 pairs on the `gather_backward='bf16'` path. Differences
@@ -20,14 +22,19 @@ from the JAX package:
     'doubling' and 'pallas' (see `gather_slots_bwd`).
   - `grad_readout='bf16'` rounds the run totals it reads out to bf16, the
     bits of the JAX package's pack, take and unpack, without the pack.
-  - Not yet ported: `'scatter'` binning, `_align_stream` and shard-local
-    tile ranges (the sharded paths), `tier_occupancy` and
-    `diagnose_overflow`.
+  - `'scatter'` writes each valid candidate into its slot of a buffer with
+    one extra trash row (the JAX `.at[slot].set(..., mode="drop")` into
+    max_I + 1 rows), then orders the buffer by two stable sorts; its gather
+    is a plain differentiable `index_select`, whose backward is a
+    scatter-add (`gather_features`).
+  - Not yet ported: `_align_stream`, `quant_ranges` and shard-local tile
+    ranges (the sharded paths).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -78,11 +85,15 @@ class BinnedGaussians:
     #                           #   [ranges[t], ranges[t+1])
     num_intersections: torch.Tensor  # () int32 true total (may exceed capacity)
     overflow: torch.Tensor      # () bool: capacity, K_max or a pool exceeded
-    sorted_gidk: torch.Tensor   # (max_I,) int32 gid << kbits | k (-1 = padding)
-    gauss_counts: torch.Tensor  # (N,) int32 surviving candidates per Gaussian
-    gauss_offsets: torch.Tensor  # (N,) int32 exclusive cumsum of gauss_counts:
-    #                            #   where each Gaussian's run starts in the
-    #                            #   gid-major order of the gather backward
+    # The gather backward's inputs; None with 'scatter' binning.
+    sorted_gidk: torch.Tensor | None   # (max_I,) int32 gid << kbits | k
+    #                                  #   (-1 = padding)
+    gauss_counts: torch.Tensor | None  # (N,) int32 surviving candidates per
+    #                                  #   Gaussian
+    gauss_offsets: torch.Tensor | None  # (N,) int32 exclusive cumsum of
+    #                                   #   gauss_counts: where each
+    #                                   #   Gaussian's run starts in the
+    #                                   #   gid-major order of the backward
 
 
 def _rect_divmod(k: torch.Tensor, w: torch.Tensor):
@@ -356,10 +367,7 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussian
     kb = _kbits(kmax_eff(cfg))
     n_tiles = cfg.num_tiles
     if cfg.binning == "scatter":
-        raise NotImplementedError(
-            "binning='scatter' comes in a later slice of the port (with the "
-            "sharded paths); use 'tiered', 'packed' or 'sort'"
-        )
+        return _bin_scatter(proj, cfg)
     n_cap = min((1 << 24) - 1, 1 << (31 - kb))
     if kmax > (1 << kb) or n >= n_cap:
         raise ValueError(
@@ -424,6 +432,154 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussian
     )
 
 
+def _bin_scatter(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussians:
+    """binning='scatter': each valid candidate goes to the slot offsets[g] +
+    its rank among g's valid candidates; slots past max_I and invalid lanes
+    go to the trash row max_I, which is sliced off. The buffer is then
+    ordered by (tile, depth), depth first, both sorts stable. No gidk
+    stream: the gather backward is a scatter-add."""
+    max_i = cfg.max_intersections
+    n = proj.mask.shape[0]
+    dev = proj.mask.device
+    n_tiles = cfg.num_tiles
+    tile, _, valid = _candidate_tiles(proj, cfg)
+    counts = valid.sum(dim=1, dtype=torch.int32)
+    total = counts.sum(dtype=torch.int32)
+    overflow = proj.overflow | (total > max_i)
+
+    offsets = torch.cumsum(counts, 0) - counts
+    local_rank = torch.cumsum(valid, dim=1) - 1
+    slot = offsets[:, None] + local_rank
+    slot = torch.where(valid & (slot < max_i), slot, max_i).reshape(-1)
+    tile_f = torch.where(valid, tile, n_tiles).reshape(-1)
+    depth_f = torch.where(valid, proj.depth[:, None], math.inf).reshape(-1)
+    gid_f = torch.arange(n, dtype=torch.int32, device=dev)[:, None].expand(
+        tile.shape).reshape(-1)
+
+    def scatter(fill, vals):
+        buf = torch.full((max_i + 1,), fill, dtype=vals.dtype, device=dev)
+        buf[slot] = vals
+        return buf[:max_i]
+
+    tile_buf = scatter(n_tiles, tile_f.to(torch.int32))
+    depth_buf = scatter(math.inf, depth_f.to(torch.float32))
+    gid_buf = scatter(0, gid_f)
+    order = torch.sort(depth_buf, stable=True).indices
+    order = order[torch.sort(tile_buf[order], stable=True).indices]
+    s_tile = tile_buf[order]
+    ranges = torch.searchsorted(
+        s_tile, torch.arange(n_tiles + 1, dtype=torch.int32, device=dev),
+        side="left",
+    ).to(torch.int32)
+    return BinnedGaussians(
+        sorted_tile=s_tile,
+        sorted_gid=gid_buf[order],
+        ranges=ranges,
+        num_intersections=total,
+        overflow=overflow,
+        sorted_gidk=None,
+        gauss_counts=None,
+        gauss_offsets=None,
+    )
+
+
+def tier_occupancy(proj: ProjectedGaussians, cfg: RenderConfig) -> dict:
+    """Capacity report of tiered binning for one scene and camera: per-tier
+    membership against budget, the post-cull intersection total, and K_max
+    pressure. A host-side diagnostic (it reads the device), not part of the
+    render path.
+
+    Returns {"tiers": [{k_lo, k_hi, budget, members, occupancy}...],
+             "num_intersections", "suggested_max_intersections",
+             "rect_overflow" (some rect exceeded K_max, or K_jumbo with the
+             jumbo tiers), "count_quantiles" (post-cull tiles per Gaussian),
+             and with the jumbo tiers "jumbo" (their budgets, by raw rect
+             area: an upper bound on the culled counts)}."""
+    import numpy as np
+
+    n = proj.mask.shape[0]
+    kmax = cfg.max_tiles_per_gaussian
+    with torch.no_grad():
+        counts = _rect_cull_mask(proj, cfg).sum(dim=1, dtype=torch.int32)
+    counts = counts.cpu().numpy()
+    jumbo_report = None
+    if cfg.max_tiles_jumbo and cfg.binning == "tiered":
+        rect = proj.rect.cpu().numpy()
+        area = np.maximum(rect[:, 2] - rect[:, 0], 0) * np.maximum(
+            rect[:, 3] - rect[:, 1], 0
+        )
+        area = np.where(proj.mask.cpu().numpy(), area, 0)
+        isj = area > kmax
+        counts = np.where(isj, 0, counts)
+        jrows = []
+        k_lo = 0
+        for k_hi, budget in cfg.jumbo_tier_spec:
+            members = int((isj & (np.minimum(area, cfg.max_tiles_jumbo)
+                                  > k_lo)).sum())
+            jrows.append(dict(k_lo=k_lo, k_hi=k_hi, budget=budget,
+                              members_upper=members,
+                              occupancy_upper=round(members / budget, 4)))
+            k_lo = k_hi
+        jumbo_report = {
+            "rows_budget": cfg.jumbo_tier_spec[0][1],
+            "jumbo_splats": int(isj.sum()),
+            "max_raw_rect": int(area.max()),
+            "over_k_jumbo": int((area > cfg.max_tiles_jumbo).sum()),
+            "tiers": jrows,
+        }
+    rows = []
+    for k_lo, k_hi, budget in _normalize_tier_plan(cfg.tier_spec, kmax, n):
+        members = int((counts > k_lo).sum()) if budget is not None else n
+        rows.append(dict(
+            k_lo=k_lo,
+            k_hi=k_hi,
+            budget=budget if budget is not None else n,
+            members=members,
+            occupancy=round(members / (budget if budget is not None else n),
+                            4),
+        ))
+    total = int(counts.sum())
+    out = {
+        "tiers": rows,
+        "num_intersections": total,
+        "suggested_max_intersections": int(total * 1.15),
+        "rect_overflow": bool(proj.overflow) if jumbo_report is None
+        else jumbo_report["over_k_jumbo"] > 0,
+        "count_quantiles": {
+            str(q): int(np.quantile(counts, q))
+            for q in (0.5, 0.9, 0.99, 0.999, 1.0)
+        },
+    }
+    if jumbo_report is not None:
+        out["jumbo"] = jumbo_report
+    return out
+
+
+def diagnose_overflow(proj: ProjectedGaussians, cfg: RenderConfig) -> dict:
+    """Why a frame's overflow flag is set (host-side; wraps tier_occupancy).
+    Returns {"causes": [...], "occupancy": tier_occupancy dict}; causes are
+    'rect>K_max' ('rect>K_jumbo' with the jumbo tiers), 'pool' (a tier
+    budget saturated), 'jumbo-budget(upper-bound)' and 'stream' (live
+    intersections past max_intersections)."""
+    occ = tier_occupancy(proj, cfg)
+    causes = []
+    if occ["rect_overflow"]:
+        causes.append(
+            "rect>K_jumbo" if cfg.max_tiles_jumbo else "rect>K_max"
+        )
+    if any(t["occupancy"] > 1.0 for t in occ["tiers"]):
+        causes.append("pool")
+    j = occ.get("jumbo")
+    if j and (
+        j["jumbo_splats"] > j["rows_budget"]
+        or any(t["occupancy_upper"] > 1.0 for t in j["tiers"])
+    ):
+        causes.append("jumbo-budget(upper-bound)")
+    if occ["num_intersections"] > cfg.max_intersections:
+        causes.append("stream")
+    return {"causes": causes, "occupancy": occ}
+
+
 def features_f32(proj: ProjectedGaussians, cfg: RenderConfig) -> torch.Tensor:
     """The (NUM_FEATURES, N) float32 per-Gaussian feature table, FEAT_* rows."""
     return torch.stack(
@@ -447,9 +603,16 @@ def gather_features(proj: ProjectedGaussians, binned: BinnedGaussians,
     """(NUM_FEATURES, max_intersections) float32 features in sorted-stream
     order. Slots with gid -1 read an appended zero column. Differentiable:
     the backward is `_GatherSlots`'s sort and segmented suffix sum, not a
-    scatter-add."""
+    scatter-add; with 'scatter' binning (no gidk stream) it is the plain
+    gather, whose backward is a scatter-add."""
+    feats = features_f32(proj, cfg)
+    if binned.sorted_gidk is None:
+        n = feats.shape[1]
+        feats_pad = torch.cat([feats, feats.new_zeros((feats.shape[0], 1))], 1)
+        gid = torch.where(binned.sorted_gid < 0, n, binned.sorted_gid)
+        return feats_pad.index_select(1, gid.to(torch.int64))
     return _GatherSlots.apply(
-        features_f32(proj, cfg), binned.sorted_gid, binned.sorted_gidk,
+        feats, binned.sorted_gid, binned.sorted_gidk,
         binned.gauss_offsets, binned.gauss_counts, kmax_eff(cfg),
         cfg.gather_backward, cfg.grad_readout,
     )

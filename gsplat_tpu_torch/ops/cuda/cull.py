@@ -37,8 +37,10 @@ NUM_ROWS = 10
 # The kernel's `stage` argument (csrc/cull.cu, Stage).
 STAGES = {"mask": 0, "compact": 1, "rank": 2}
 
-# Kernel launches, every stage: `_launch` adds one per launch, nowhere else.
+# Kernel launches, every stage: `_launch` adds one per launch, nowhere else;
+# `rank_launches` the same for the rank stage alone (the jumbo grid).
 launches = 0
+rank_launches = 0
 
 
 def cull_params(proj, cfg: RenderConfig, counts=None) -> torch.Tensor:
@@ -141,7 +143,7 @@ def cull_rank_plain(params: torch.Tensor, kmax: int, tile_size: int):
 def _launch(params: torch.Tensor, kmax: int, tile_size: int, stage: str):
     """Launch the kernel's `stage` on (10, R) rows: its outputs as the
     plain version of that stage returns them."""
-    global launches
+    global launches, rank_launches
     if params.device.type != "cuda":
         raise ValueError(f"cull: the kernel needs a CUDA device, got "
                          f"{params.device}")
@@ -171,6 +173,7 @@ def _launch(params: torch.Tensor, kmax: int, tile_size: int, stage: str):
                    for t in (mask, idx, counts)), stream)
     _build.check(err, "gsplat_cull")
     launches += 1
+    rank_launches += stage == "rank"
     return {"mask": mask, "compact": (idx, counts),
             "rank": (mask, idx, counts)}[stage]
 

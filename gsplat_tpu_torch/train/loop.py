@@ -1,7 +1,9 @@
-"""The single-device training step: forward, L1 + DSSIM loss, backward
-through kernels K2 and K4, and an Adam update (port of
-`gsplat_tpu.train.loop.make_train_step` and `sh_band_mask`, and of
-`gsplat_tpu.parallel.train_step.make_optimizer`).
+"""Training on one device: the train step (forward, L1 + DSSIM loss,
+backward through kernels K2 and K4 or K5, and an Adam update) and `fit`,
+the training loop with densification, opacity reset, SH warm-up,
+position-lr decay, the staged-capacity schedule, evals, metrics CSV and
+checkpoints (port of `gsplat_tpu.train.loop` without its multi-device
+path, and of `gsplat_tpu.parallel.train_step.make_optimizer`).
 
 Where the JAX step is a pure function of a train state, the port's step
 updates the scene's tensors in place: they are the optimizer's parameters
@@ -14,7 +16,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import time
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -130,6 +135,7 @@ def make_train_step(cfg: RenderConfig, optimizer: SceneAdam,
         if budget is not None
     ) if cfg.binning == "tiered" else ()
     params = [group["params"][0] for group in optimizer.param_groups]
+    band_masks = {}
 
     def step(scene: GaussianScene, cameras, targets, active_sh_degree=None):
         if any(getattr(scene, f) is not p for f, p in zip(SCENE_FIELDS, params)):
@@ -140,8 +146,12 @@ def make_train_step(cfg: RenderConfig, optimizer: SceneAdam,
         tap = torch.zeros((scene.num_gaussians, 2), device=dev,
                           requires_grad=True)
         if active_sh_degree is not None:
-            scene = dataclasses.replace(scene, sh=scene.sh * sh_band_mask(
-                scene.sh.shape[1], active_sh_degree, dev))
+            # One mask per degree, kept on the device: building it copies
+            # from the host, which would wait for the card every step.
+            key = (scene.sh.shape[1], int(active_sh_degree), dev)
+            if key not in band_masks:
+                band_masks[key] = sh_band_mask(*key)
+            scene = dataclasses.replace(scene, sh=scene.sh * band_masks[key])
         losses, overflow, n_int, visible, members = [], [], [], [], []
         for camera, target in zip(cameras, targets):
             with record_function("train.forward"):
@@ -181,3 +191,579 @@ def make_train_step(cfg: RenderConfig, optimizer: SceneAdam,
                 (tap.grad, torch.stack(visible).any(0)))
 
     return step
+
+
+def _append_csv_row(path: str, row: dict):
+    """Append a metrics row; if the row brings columns the existing header
+    lacks (e.g. the first eval row's PSNR columns), rewrite the file with
+    the extended header, padding the earlier rows."""
+    import csv
+
+    header = list(row.keys())
+    rows = []
+    if os.path.exists(path):
+        with open(path) as f:
+            reader = csv.DictReader(f)
+            old_header = reader.fieldnames or []
+            if set(header) <= set(old_header):
+                with open(path, "a") as fa:
+                    fa.write(
+                        ",".join(str(row.get(k, "")) for k in old_header)
+                        + "\n"
+                    )
+                return
+            rows = list(reader)
+            header = old_header + [k for k in header if k not in old_header]
+    with open(path, "w") as f:
+        f.write(",".join(header) + "\n")
+        for r in rows + [row]:
+            f.write(",".join(str(r.get(k, "")) for k in header) + "\n")
+
+
+@torch.no_grad()
+def _zero_opacity_moments(optimizer: SceneAdam) -> None:
+    """Zero the Adam moments of the opacity group, in place (the CUDA
+    original resets the opacity optimizer state with the opacity reset).
+    Its step count is left alone, as optax's count is."""
+    for group in optimizer.param_groups:
+        if group["name"] != "opacity_logits":
+            continue
+        st = optimizer.state.get(group["params"][0])
+        if st:
+            st["exp_avg"].zero_()
+            st["exp_avg_sq"].zero_()
+
+
+@torch.no_grad()
+def _assign(params, scene: GaussianScene) -> None:
+    """Write scene's values into the optimizer's parameters, in place: the
+    train step refuses a scene whose tensors are not its parameters."""
+    for p, f in zip(params, SCENE_FIELDS):
+        new = getattr(scene, f)
+        if new.data_ptr() != p.data_ptr():
+            p.copy_(new)
+
+
+def fit(
+    scene: GaussianScene,
+    cameras,           # a sequence of V Cameras
+    targets,           # (V, H, W, 3) tensor on the scene's device
+    cfg: RenderConfig,
+    steps: int = 200,
+    lr: float = 1e-2,
+    batch: int = 1,
+    ssim_weight: float = 0.2,
+    seed: int = 0,
+    log_every: int = 20,
+    checkpoint_every: int = 0,
+    checkpoint_dir: str = "checkpoints",
+    resume: str | None = None,
+    on_metrics=None,
+    densify_every: int = 0,
+    densify_grad_threshold: float = 2e-4,
+    densify_from: int = 0,
+    densify_until: int | None = None,
+    densify_max_scale: float | None = None,
+    metrics_csv: str | None = None,
+    overflow_policy: str = "raise",
+    opacity_reset_every: int = 0,
+    sh_warmup_every: int = 0,
+    position_lr_final_ratio: float | None = None,
+    lr_max_steps: int | None = None,
+    eval_every: int = 0,
+    eval_fn=None,
+    trace_dir: str | None = None,
+    trace_steps: tuple[int, int] | None = None,
+    mesh=None,
+    retighten_capacity: float = 0.0,
+):
+    """Fit `scene` to `targets` seen from `cameras` (port of
+    `gsplat_tpu.train.loop.fit`, single device). Returns (trained scene,
+    metrics list). The caller's scene is not modified: the fit trains a
+    copy, and returns its tensors detached.
+
+    mesh: the JAX fit's multi-device path; not yet ported (ROADMAP queue 1
+    item 4), so anything but None raises.
+
+    sh_warmup_every > 0 activates the SH bands progressively: active degree
+    = min(sh_degree, step // sh_warmup_every) (graphdeco's oneupSHdegree).
+
+    position_lr_final_ratio enables the exponential position-lr decay over
+    lr_max_steps (default: `steps`), see make_optimizer.
+
+    eval_every > 0 calls eval_fn(scene, step) at the log rows whose step is
+    a multiple of it (and at the last step); its dict is merged into the
+    row. The scene it gets is detached from autograd.
+
+    densify_every > 0 enables adaptive density control (train/densify.py)
+    every that many steps from densify_from to densify_until (default
+    steps // 2); the scene must carry free capacity (GaussianScene.pad_to).
+    Adam moments survive for untouched slots and are zeroed for killed and
+    new ones.
+
+    opacity_reset_every > 0 clamps opacities below 0.01 every that many
+    steps and zeroes the opacity group's Adam moments.
+
+    retighten_capacity > 0 enables the staged-capacity schedule: once
+    densification ends, the train step is rebuilt with max_intersections
+    tightened to retighten_capacity x the peak stream demand measured so
+    far (and, with tiered binning, the pool budgets re-sized from the
+    measured peak tier membership). An overflow under the tightened config
+    rebuilds the step at the original sizing (one warning, no abort).
+
+    overflow_policy, checked at the log rows: 'raise' aborts with the
+    measured demand, 'warn' prints and goes on, 'ignore' does neither (and
+    skips the scene-health guard). The flags accumulate on the device
+    between log rows: no step waits for the card.
+
+    trace_dir with trace_steps=(start, stop) records a `torch.profiler`
+    trace of the steps [start, stop) (densify rounds, evals and host work
+    included) and writes it to trace_dir/trace.json (Chrome trace format).
+    """
+    if overflow_policy not in ("raise", "warn", "ignore"):
+        raise ValueError(f"unknown overflow_policy {overflow_policy!r}")
+    if mesh is not None:
+        raise NotImplementedError(
+            "fit(mesh=...): the multi-device fit is not yet ported "
+            "(ROADMAP.md queue 1 item 4)"
+        )
+    from gsplat_tpu_torch.train.densify import (
+        accumulate_grads,
+        densify_and_prune,
+        init_densify_state,
+        mask_opt_moments,
+        reset_opacity,
+    )
+    from gsplat_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    dev = scene.means.device
+    scene = GaussianScene(**{f: getattr(scene, f).detach().clone()
+                             for f in SCENE_FIELDS})
+    optimizer = make_optimizer(
+        scene, lr,
+        position_lr_final_ratio=position_lr_final_ratio,
+        lr_max_steps=(lr_max_steps or steps)
+        if position_lr_final_ratio is not None else None,
+    )
+    params = [getattr(scene, f) for f in SCENE_FIELDS]
+    n_cap = scene.num_gaussians
+    dstate = init_densify_state(n_cap, dev)
+    start_step = 0
+    if resume:
+        start_step = load_checkpoint(resume, scene, optimizer)
+        print(f"resumed from {resume} at step {start_step}")
+
+    def detached():
+        return GaussianScene(*(p.detach() for p in params))
+
+    def build_step(c: RenderConfig):
+        """The train step under config c: rebuilt by the staged-capacity
+        schedule with a different max_intersections and tier_spec."""
+        return make_train_step(c, optimizer, ssim_weight)
+
+    step_fn = build_step(cfg)
+    # Staged capacity: 'full' -> (tighten at densify_until) -> 'tight' ->
+    # (regrow on overflow) -> 'regrown' (terminal).
+    capacity_stage = "full"
+    tight_cfg: RenderConfig | None = None
+
+    num_views = targets.shape[0]
+    rng = np.random.default_rng(seed)
+    metrics = []
+    t_last = time.time()
+    # Device-side accumulators, read only at log rows and at the tighten.
+    ovf_any = torch.zeros((), dtype=torch.bool, device=dev)
+    int_max = torch.zeros((), dtype=torch.int32, device=dev)
+    grads_ok = torch.ones((), dtype=torch.bool, device=dev)
+    grads_leaf_ok = None  # (L,) accumulated per-field finite flags
+    tier_max = None       # (T,) peak pool-tier membership (worst view)
+
+    def check_overflow(at_step):
+        nonlocal ovf_any, int_max, capacity_stage, step_fn
+        if overflow_policy == "ignore" or not bool(ovf_any):
+            return
+        demand = int(int_max)
+        if capacity_stage == "tight" and tight_cfg is not None:
+            # Any overflow under the tightened config (stream demand or a
+            # tightened pool) regrows instead of aborting. Gradients of at
+            # most log_every steps were truncated.
+            print(
+                f"WARNING: staged capacity overflowed at step <= {at_step} "
+                f"(stream demand {demand} vs tightened "
+                f"{tight_cfg.max_intersections}; or a tightened pool); "
+                f"rebuilding the step at the original sizing"
+            )
+            step_fn = build_step(cfg)
+            capacity_stage = "regrown"
+            ovf_any = torch.zeros_like(ovf_any)
+            int_max = torch.zeros_like(int_max)
+            return
+        if demand > cfg.max_intersections:
+            cause = (
+                f"measured demand {demand} > capacity "
+                f"{cfg.max_intersections}; re-run with max_intersections "
+                f">= {int(demand * 1.15)}"
+            )
+        else:
+            cause = (
+                f"stream demand {demand} fits capacity "
+                f"{cfg.max_intersections}, so a tier pool saturated or a "
+                f"splat's tile rect exceeded max_tiles_per_gaussian="
+                f"{cfg.max_tiles_per_gaussian}; raise the tier budgets / "
+                f"K_max, or prune big splats (fit(densify_max_scale=...), "
+                f"the 3DGS 5.2 rule)"
+            )
+        msg = (
+            f"capacity overflow during step <= {at_step}: {cause}. "
+            f"Gradients were truncated."
+        )
+        if overflow_policy == "raise":
+            raise RuntimeError(msg)
+        print(f"WARNING: {msg}")
+        ovf_any = torch.zeros_like(ovf_any)
+        int_max = torch.zeros_like(int_max)
+
+    # Scene-health guard: liveness checks on the eval rows turn a dead or
+    # NaN scene that would otherwise train silently to the end into an
+    # early diagnosis.
+    eval_hist: list[dict] = []
+    alive_first: int | None = None
+
+    def check_scene_health(row, at_step):
+        nonlocal alive_first
+        if overflow_policy == "ignore":
+            return
+        problems = []
+        alive = row.get("alive")
+        if alive is not None:
+            if alive_first is None:
+                alive_first = max(int(alive), 1)
+            elif int(alive) < max(64, alive_first // 100):
+                problems.append(
+                    f"alive-Gaussian count collapsed to {alive} "
+                    f"(first eval: {alive_first})"
+                )
+        eval_hist.append(row)
+        metric = next(
+            (k for k in ("holdout_psnr", "train_psnr") if k in row), None
+        )
+        if metric is not None and len(eval_hist) >= 3:
+            vals = [r.get(metric) for r in eval_hist[-3:]]
+            if (
+                all(v is not None for v in vals)
+                and max(vals) - min(vals) < 1e-3
+                and vals[-1] < 15.0
+            ):
+                problems.append(
+                    f"{metric} frozen at {vals[-1]} dB for 3 consecutive "
+                    "evals (the rendered image is not changing; a dead/NaN "
+                    "scene otherwise trains silently to the end)"
+                )
+        if problems:
+            msg = (
+                f"scene-health collapse detected at step {at_step}: "
+                + "; ".join(problems)
+            )
+            if overflow_policy == "raise":
+                raise RuntimeError(msg)
+            print(f"WARNING: {msg}")
+
+    # Epoch-shuffled view sampling: a reshuffled stack of the views each
+    # epoch (uniform draws with replacement can starve views).
+    view_queue: list[int] = []
+
+    def next_views(k: int):
+        nonlocal view_queue
+        out = []
+        while len(out) < k:
+            if not view_queue:
+                view_queue = [int(v) for v in rng.permutation(num_views)]
+            out.append(view_queue.pop())
+        return out
+
+    # Resume fast-forward: replay the draws of steps [0, start_step), so a
+    # resumed run samples the same views as an uninterrupted one. The
+    # densification accumulator is not checkpointed: the first window after
+    # a resume averages over fewer steps.
+    for _ in range(start_step):
+        next_views(batch)
+
+    prof = None
+    for it in range(start_step, steps):
+        if trace_dir and trace_steps and it == trace_steps[0]:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+                torch.cuda.synchronize(dev)
+            prof = profile(activities=acts)
+            prof.__enter__()
+        if prof is not None and it == trace_steps[1]:
+            prof.__exit__(None, None, None)
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+            prof = None
+            print(f"trace written to {trace_dir}")
+        sel = next_views(batch)
+        cams_b = [cameras[i] for i in sel]
+        targets_b = torch.stack([targets[i] for i in sel])
+        active_sh = (
+            min(scene.sh_degree, it // sh_warmup_every)
+            if sh_warmup_every else None
+        )
+        loss, aux, (screen_grads, visible) = step_fn(
+            scene, cams_b, targets_b, active_sh
+        )
+        ovf_any = ovf_any | aux["overflow"]
+        tm = aux["tier_members"]
+        if tm.shape[0]:
+            tier_max = tm if tier_max is None else torch.maximum(tier_max, tm)
+        grads_ok = grads_ok & aux["grads_finite"]
+        grads_leaf_ok = (
+            aux["grads_finite_leaves"] if grads_leaf_ok is None
+            else grads_leaf_ok & aux["grads_finite_leaves"]
+        )
+        int_max = torch.maximum(int_max, aux["num_intersections"])
+        until = densify_until if densify_until is not None else steps // 2
+        if densify_every:
+            dstate = accumulate_grads(dstate, screen_grads, visible)
+            if (
+                (it + 1) % densify_every == 0
+                and densify_from <= it + 1 <= until
+            ):
+                new_scene, dstate, changed, dstats = densify_and_prune(
+                    scene, dstate, grad_threshold=densify_grad_threshold,
+                    max_world_scale=densify_max_scale,
+                )
+                _assign(params, new_scene)
+                # Moments survive for untouched slots; killed and new slots
+                # start cold.
+                mask_opt_moments(optimizer, changed)
+                print({k: int(v) if k != "saturated" else bool(v)
+                       for k, v in dstats.items()} | {"densify_at": it + 1})
+        if (
+            retighten_capacity
+            and capacity_stage == "full"
+            and it + 1 >= until
+            # Peak demand is a max over the sampled views: wait one epoch
+            # past the segment start, so that every view contributed.
+            and it + 1 >= start_step + -(-num_views // batch)
+        ):
+            # Densification is over, the stream stops growing: rebuild at
+            # retighten_capacity x the measured peak demand (rounded up to
+            # a multiple of 2048).
+            demand_now = int(int_max)
+            new_max = int(demand_now * retighten_capacity)
+            new_max += (-new_max) % 2048
+            new_spec = None
+            peak = (None if tier_max is None
+                    else [int(x) for x in tier_max.tolist()])
+            if peak is not None and cfg.binning == "tiered":
+                plan = _normalize_tier_plan(
+                    cfg.tier_spec, cfg.max_tiles_per_gaussian, n_cap
+                )
+                spec, mi = [], 0
+                for k_lo, k_hi, budget in plan:
+                    if budget is None:
+                        spec.append((k_hi, 0))
+                        continue
+                    rows = int(peak[mi] * retighten_capacity) + 256
+                    mi += 1
+                    spec.append((k_hi, max(1, n_cap // rows)))
+                new_spec = tuple(spec)
+            if 0 < new_max < cfg.max_intersections or (
+                new_spec is not None and new_spec != tuple(cfg.tier_spec)
+            ):
+                tight_cfg = dataclasses.replace(
+                    cfg,
+                    max_intersections=min(
+                        new_max or cfg.max_intersections,
+                        cfg.max_intersections,
+                    ),
+                    **({"tier_spec": new_spec}
+                       if new_spec is not None else {}),
+                )
+                print(
+                    f"staged capacity: tightening max_intersections "
+                    f"{cfg.max_intersections} -> "
+                    f"{tight_cfg.max_intersections} and tier_spec "
+                    f"{cfg.tier_spec} -> {tight_cfg.tier_spec} at step "
+                    f"{it + 1} ({retighten_capacity}x peak demand "
+                    f"{demand_now}, peak members {peak}; the step is "
+                    "rebuilt)"
+                )
+                step_fn = build_step(tight_cfg)
+                capacity_stage = "tight"
+            else:
+                capacity_stage = "regrown"  # nothing to gain; don't retry
+        if opacity_reset_every and (it + 1) % opacity_reset_every == 0 \
+                and it + 1 < steps:
+            _assign(params, reset_opacity(detached()))
+            _zero_opacity_moments(optimizer)
+        if (it + 1) % log_every == 0 or it + 1 == steps:
+            check_overflow(it + 1)
+            if not bool(grads_ok):
+                bad = [
+                    name for name, ok in zip(SCENE_FIELDS,
+                                             grads_leaf_ok.tolist())
+                    if not ok
+                ] if grads_leaf_ok is not None else []
+                msg = (
+                    f"non-finite gradients during step <= {it + 1} in "
+                    f"{bad or 'unknown leaves'}: a "
+                    "NaN/inf parameter cascades through the whole scene "
+                    "within a few steps (the fit is unrecoverable). "
+                    "Typical causes: degenerate quats/scales, a custom "
+                    "loss without stabilizers."
+                )
+                if overflow_policy == "raise":
+                    raise FloatingPointError(msg)
+                print(f"WARNING: {msg}")
+                grads_ok = torch.ones_like(grads_ok)
+                grads_leaf_ok = None
+            loss = float(loss)
+            dt = time.time() - t_last
+            t_last = time.time()
+            its = log_every / dt if it + 1 != start_step + 1 else 1.0 / dt
+            row = {"step": it + 1, "loss": round(loss, 6),
+                   "it_per_s": round(its, 3)}
+            if eval_every and eval_fn is not None and (
+                (it + 1) % eval_every == 0 or it + 1 == steps
+            ):
+                row.update(eval_fn(detached(), it + 1) or {})
+                check_scene_health(row, it + 1)
+                t_last = time.time()  # eval time is not billed to it/s
+            metrics.append(row)
+            print(row if on_metrics is None else on_metrics(row))
+            if metrics_csv:
+                _append_csv_row(metrics_csv, row)
+        if checkpoint_every and (it + 1) % checkpoint_every == 0:
+            path = os.path.join(checkpoint_dir, f"ckpt_{it + 1:06d}.npz")
+            save_checkpoint(path, scene, optimizer, it + 1)
+            print(f"checkpoint -> {path}")
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        print(f"trace written to {trace_dir}")
+    return detached(), metrics
+
+
+def place_init(means: torch.Tensor, center, radius: float) -> torch.Tensor:
+    """`train_from_cli`'s start near the target's spatial distribution: the
+    init cloud `means` centred on the target's centre and scaled so that
+    its 90th-percentile radius is radius / 2.5, the target's own.
+
+    The JAX command computes means * radius / 2.5 + center, the same map
+    for a cloud centred on the origin with a 90th-percentile radius of 1.
+    random_scene's cloud lies in front of the origin (z in [2, 6]), so that
+    map moves its centre 1.6 radius along z (4 radius / 2.5), across the
+    orbit, and scales its spread by its own 90th-percentile radius: at
+    1920x1080 some orbit views start inside it, with rects past K_max (an
+    overflow under 'raise' at the first step). This map keeps the intent
+    for any cloud."""
+    spread = means - means.mean(0)
+    p90 = float(torch.quantile(torch.linalg.vector_norm(
+        spread, dim=-1).cpu(), 0.9))
+    return spread * (radius / 2.5 / p90) + torch.as_tensor(
+        center, dtype=torch.float32, device=means.device)
+
+
+def train_from_cli(args) -> int:
+    """Backs the `train` subcommand of `gsplat_tpu_torch.cli`: fit a fresh
+    random scene to orbit renders of a target scene (a synthetic one, or a
+    PLY). The scenes are drawn from torch generators seeded args.seed and
+    args.seed + 1, so they differ from the JAX command's."""
+    from gsplat_tpu_torch.cli import _build_cfg, _load_scene
+    from gsplat_tpu_torch.io.ply import save_ply
+    from gsplat_tpu_torch.models.gaussians import random_scene
+    from gsplat_tpu_torch.ops.camera import orbit_cameras
+    from gsplat_tpu_torch.render.pipeline import render
+    from gsplat_tpu_torch.train.losses import psnr as psnr_fn
+
+    dev = torch.device(args.device)
+    cfg = _build_cfg(args, args.width, args.height)
+    target_scene = _load_scene(args)
+
+    means = target_scene.means.cpu().numpy()
+    center = means.mean(0)
+    radius = float(
+        np.percentile(np.linalg.norm(means - center, axis=-1), 90) * 2.5
+    )
+    holdout = getattr(args, "holdout_views", 0)
+    total_views = args.views + holdout
+    all_cams = orbit_cameras(
+        center, radius, total_views, cfg.width, cfg.height,
+        fx=float(cfg.width), fy=float(cfg.height), device=dev,
+    )
+    print(f"rendering {total_views} target views "
+          f"({args.views} train + {holdout} held-out)...")
+    with torch.no_grad():
+        all_targets = torch.stack([render(target_scene, c, cfg).image
+                                   for c in all_cams])
+    # Interleave the held-out views so they sample the whole orbit, like
+    # taking every Nth image of a capture (the graphdeco -eval convention).
+    idx = np.arange(total_views)
+    hold_idx = idx[:: total_views // holdout][:holdout] if holdout else idx[:0]
+    train_idx = np.setdiff1d(idx, hold_idx)
+    cams = [all_cams[i] for i in train_idx]
+    targets = all_targets[torch.as_tensor(train_idx, device=dev)]
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    init = random_scene(target_scene.num_gaussians,
+                        sh_degree=target_scene.sh_degree, generator=gen,
+                        device=dev)
+    init.means = place_init(init.means, center, radius)
+    if args.densify_every:
+        capacity = args.capacity or 2 * init.num_gaussians
+        init = init.pad_to(capacity)
+
+    eval_fn = None
+    if holdout:
+        def eval_fn(scene_now, step):
+            with torch.no_grad():
+                vals = [float(psnr_fn(render(scene_now, all_cams[i], cfg).image,
+                                      all_targets[i]))
+                        for i in hold_idx]
+                tr = float(psnr_fn(render(scene_now, cams[0], cfg).image,
+                                   targets[0]))
+            return {
+                "holdout_psnr": round(float(np.mean(vals)), 3),
+                "train_psnr": round(tr, 3),
+            }
+
+    trained, metrics = fit(
+        init, cams, targets, cfg,
+        steps=args.steps, lr=args.lr, seed=args.seed,
+        batch=args.batch,
+        ssim_weight=args.ssim_weight,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_dir=args.checkpoint_dir,
+        resume=args.resume,
+        densify_every=args.densify_every,
+        densify_grad_threshold=args.densify_grad_threshold,
+        densify_from=getattr(args, "densify_from", 0),
+        densify_until=args.densify_until,
+        densify_max_scale=args.densify_max_scale,
+        opacity_reset_every=args.opacity_reset_every,
+        overflow_policy=args.overflow_policy,
+        sh_warmup_every=args.sh_warmup_every,
+        position_lr_final_ratio=args.position_lr_final_ratio,
+        metrics_csv=args.metrics_csv,
+        eval_every=args.eval_every,
+        eval_fn=eval_fn,
+        retighten_capacity=args.retighten_capacity,
+    )
+    with torch.no_grad():
+        final_psnr = float(
+            psnr_fn(render(trained, cams[0], cfg).image, targets[0]))
+    print(f"final view-0 PSNR: {final_psnr:.2f} dB")
+    if eval_fn is not None:
+        print(f"final held-out metrics: {eval_fn(trained, args.steps)}")
+    save_ply(trained, args.out)
+    print(f"saved {args.out}")
+    return 0

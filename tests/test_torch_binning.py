@@ -313,6 +313,20 @@ def test_rect_divmod_is_integer_division_exhaustively():
 
 
 def test_scatter_binning_is_a_later_slice():
-    proj, cfg, _, _ = both(dict(BASE, binning="tiered"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tbin.bin_gaussians(proj, dataclasses.replace(cfg, binning="scatter"))
+    """binning='scatter', which came in a later slice (one device): the
+    same stream as JAX's scatter binning on the same projection, with and
+    without a stream too small for it."""
+    for max_i in (BASE["max_intersections"], 64):
+        kw = dict(BASE, binning="scatter", max_intersections=max_i)
+        proj, cfg, jproj, jcfg = both(kw)
+        with torch.no_grad():
+            b = tbin.bin_gaussians(proj, cfg)
+        jb = jbin.bin_gaussians(jproj, jcfg)
+        n = min(int(jb.num_intersections), max_i)
+        assert int(b.num_intersections) == int(jb.num_intersections) > 0
+        assert bool(b.overflow) == bool(jb.overflow) == (max_i == 64)
+        np.testing.assert_array_equal(b.ranges.numpy(), np.asarray(jb.ranges))
+        np.testing.assert_array_equal(b.sorted_tile.numpy(),
+                                      np.asarray(jb.sorted_tile))
+        np.testing.assert_array_equal(b.sorted_gid.numpy()[:n],
+                                      np.asarray(jb.sorted_gid)[:n])
