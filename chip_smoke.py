@@ -136,6 +136,59 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bench default (packed K1 and K2, K5) every field within 1e-5 + 1e-2 of
      its largest value and >= 99% of entries within 1e-5 + 8e-3 of their
      own (one or two bf16 ulps: tests/test_torch_packed_train.py).
+ 13-17. the multi-device paths (`check_multi_device`), each a main path
+     whose launches are counted in its ranks, reset before it and read
+     after, and summed over the ranks. D ranks share cuda:0, spawned by
+     `parallel.multihost.launch` (rendezvous on a free TCP port, joined
+     with a limit: one failed rank fails the phase) over gloo, which stages
+     every collective through host memory; the bench config with the 1M
+     random scene (seed 0) at 1920x1080, tile 32 (tiles_y 34, so D = 2
+     divides it). The per-shard capacity is measured first
+     (`shard_capacity`: 1.15x the largest band's demand over the four
+     views; the bench's 4.1M // 2 overflows the top band of view 0):
+     13. tile_sharded (tiles 2): `render_tile_sharded`, float32 and
+         packed4, four views; the gathered image and T against the
+         single-device render within rtol 1e-4 / atol 1e-5 (1e-6) on every
+         pixel (`tests/test_sharding.py:51-55`; bit-identical: the band's
+         keys pack the global depth bits and sort stably); each rank's
+         own K3 compact inputs against the plain version, 0 differing
+         entries; rank 1's K1 at tile_offset 1020 on its own stream of
+         each format against the plain walk, the tolerances of 4. Then
+         tile_sharded_fit: `fit(mesh=...)` of a noisy-DC copy padded to
+         1.25M, 60 steps, one densify round (30), a checkpoint by rank 0
+         (50) and a resume from it; the last log row's loss below the
+         first, the resume's rows equal to the run's, only rank 0 logs,
+         the two ranks' scenes bit-identical;
+     14. tile_sharded_train (data 2 x tiles 2, four ranks): the bench
+         default (packed4, bf16 pairs, K5) 20 steps, then --exact-grads
+         (K4) 6 steps, two views a step; the first step's loss within
+         rel 1e-5 of `make_train_step` on the same two views and >= 99.9%
+         of each field's gradients within rtol 5e-3 / atol 5e-5 (bf16) or
+         2e-3 / 2e-6 (f32); the loss falling; the scene bit-identical on
+         all four ranks; rank 3's K2 at tile_offset 1020 on its own inputs
+         against the plain re-walk, the tolerances of 5;
+     15. gaussian_sharded (gauss 2): the config-5 settings (tiered,
+         packed16 wire, fragment_format 'bf16', DEFAULT's gradients), the
+         scene padded to 1.25M; `fragment_occupancy` first, whose
+         suggestion (the largest segment of the views, 1.15x) is the
+         path's per-dest capacity; the render of the four views, one train
+         step, `fit_gaussian_sharded` 40 steps with one densify round and a
+         per-shard checkpoint at 40, reloaded bit for bit; the renders
+         against the single-device packed16 render (>= 97% of pixels
+         within rtol 1e-3 / atol 1e-4, PSNR >= 60 dB: tied depths,
+         GAUSS_RENDER_WITHIN), the step's shard-local gradients against
+         the single-device step's rows (>= 99.9% within 5e-3 / 5e-5),
+         `visible` equal; the fragment exchange's bytes per step printed;
+     16. sharded_bench: `torchrun --standalone --nproc-per-node 2 -m
+         gsplat_tpu_torch.cli bench --sharded-tiles 2 --device cuda:0
+         --dist-backend gloo` at the bench config and the measured
+         capacity, and `-m gsplat_tpu_torch.bench --gaussian-sharded 2`
+         the same way: each prints its JSON line once (rank 0), without
+         overflow (their launches happen in torchrun's processes and are
+         not counted);
+     17. nccl_world1: one rank on NCCL, a tile-sharded frame (tiles 1) and
+         a Gaussian-sharded train step (gauss 1), both bit-identical to the
+         single-device port.
 Then one JSON line of kernel numbers, each kernel with its launches on each
 main path (`launches_by_path`, and their sum as `launches`; K3's rank stage
 on the jumbo grid also alone, `rank_launches_by_path`), and as the last
@@ -397,6 +450,130 @@ def bound(n_bytes: float, n_ops: float,
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_k1(tag, stream, ranges, c, tile_offset=0):
+    """K1 on `stream` (tiles from tile_offset on) against the plain tiled
+    walk (of the unpacked stream): (kernel colour, T, plain colour, T,
+    per-pixel walk, max abs error, plain ms); exits outside the stated
+    tolerance: PSNR >= 60 dB and >= 99.99% of pixels within 1e-4 on image
+    and transmittance."""
+    from gsplat_tpu_torch.ops import stream16
+    from gsplat_tpu_torch.ops.cuda import raster
+    from gsplat_tpu_torch.ops.raster_torch import (
+        _raster_tiles,
+        _tiles_to_image,
+        _tiles_to_scalar_image,
+    )
+
+    col_k, tr_k = raster.raster_tiles_cuda(stream, ranges, c, tile_offset)
+    plain_in = stream if c.stream_format == "f32" else \
+        stream16.unpack_block(stream, c)
+    (col_p, tr_p, walk), ms_p = timed_once(
+        lambda: _raster_tiles(plain_in, ranges, tile_offset, c))
+    img_k, img_p = _tiles_to_image(col_k, c), _tiles_to_image(col_p, c)
+    t_k, t_p = _tiles_to_scalar_image(tr_k, c), _tiles_to_scalar_image(tr_p, c)
+    err_img = (img_k - img_p).abs()
+    err_t = (t_k - t_p).abs()
+    p_db = psnr(img_k, img_p)
+    within_img = float((err_img.amax(-1) <= 1e-4).float().mean())
+    within_t = float((err_t <= 1e-4).float().mean())
+    log(f"[K1 {tag}] tile_offset {tile_offset}: {int(ranges[-1])} "
+        f"intersections, {int(walk.sum())} pixel-Gaussian pairs walked; PSNR "
+        f"{p_db} dB, max abs err image {float(err_img.max())} trans "
+        f"{float(err_t.max())}, within 1e-4: image {within_img} trans "
+        f"{within_t}")
+    if not (p_db >= 60.0 and within_img >= 0.9999 and within_t >= 0.9999):
+        raise SystemExit(f"K1 {tag}: kernel outside the stated "
+                         "tolerance of the plain version")
+    err = max(float(err_img.max()), float(err_t.max()))
+    return col_k, tr_k, col_p, tr_p, walk, err, ms_p
+
+
+def compare_k2(tag, d_k, d_p, applied, total, same, pack):
+    """K2's slot gradients d_k against the plain re-walk's d_p (float32, or
+    bf16 pairs with pack): each feature row within 1e-3 relative L2 and >=
+    99.9% of the walked slots within rtol 2e-3 / atol 2e-4 (plus one bf16
+    ulp for pairs), the slots past the stream exactly 0, and `same` (a
+    second launch bit-identical). Returns the max abs error; exits
+    outside."""
+    from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs
+
+    if pack:
+        d_p = pack_bf16_pairs(d_p)
+        walked_k = unpack_bf16_pairs(d_k[:, :total], 9)
+        walked_p = unpack_bf16_pairs(d_p[:, :total], 9)
+        err = (walked_k - walked_p).abs()
+        within, ulp_share = pair_shares(walked_k, walked_p)
+        what = (f"rtol 2e-3 / atol 2e-4 + one bf16 ulp (one bf16 ulp "
+                f"alone: {ulp_share})")
+    else:
+        walked_k, walked_p = d_k[:, :total], d_p[:, :total]
+        err = (walked_k - walked_p).abs()
+        within = float((err <= 2e-4 + 2e-3 * walked_p.abs()).float().mean())
+        what = "rtol 2e-3 / atol 2e-4"
+    rel = ((walked_k - walked_p).norm(dim=1)
+           / walked_p.norm(dim=1).clamp_min(1e-30)).tolist()
+    tail_zero = bool((d_k[:, total:] == 0).all())
+    log(f"[K2 {tag}] {int(applied)} pixel-Gaussian pairs applied; "
+        f"relative L2 error per feature row {rel}, within {what}: "
+        f"{within}, max abs err {float(err.max())}, slots past the "
+        f"stream exactly 0: {tail_zero}; a second launch bit-identical: "
+        f"{same}")
+    if not (max(rel) <= 1e-3 and within >= 0.999 and tail_zero and same):
+        raise SystemExit(f"K2 {tag}: kernel outside the stated tolerance "
+                         "of the plain version, or not deterministic")
+    return float(err.max())
+
+
+def check_k2(tag, stream, ranges, c, fwd_out, g_col, g_tt, pack,
+             tile_offset=0):
+    """K2 on `stream` (fed K1's outputs) against the plain re-walk (fed
+    the plain forward's), then a second launch that must give the same
+    bits: (kernel output, pairs applied, max abs error, plain ms); exits
+    outside `compare_k2`'s tolerance."""
+    import torch
+
+    from gsplat_tpu_torch.ops import stream16
+    from gsplat_tpu_torch.ops.cuda import raster
+    from gsplat_tpu_torch.ops.raster_torch import _raster_tiles_bwd_walk
+
+    col_k, tr_k, col_p, tr_p = fwd_out
+    b_k = ((g_col * col_k).sum(1) + g_tt * tr_k).contiguous()
+    b_p = (g_col * col_p).sum(1) + g_tt * tr_p
+    d_k = raster.raster_bwd_cuda(stream, ranges, g_col, b_k, c, tile_offset,
+                                 pack_out=pack)
+    same = torch.equal(d_k, raster.raster_bwd_cuda(
+        stream, ranges, g_col, b_k, c, tile_offset, pack_out=pack))
+    plain_in = stream if c.stream_format == "f32" else \
+        stream16.unpack_block(stream, c)
+    (d_p, applied), ms_p = timed_once(
+        lambda: _raster_tiles_bwd_walk(plain_in, ranges, tile_offset, g_col,
+                                       b_p[..., None], c))
+    err = compare_k2(tag, d_k, d_p, applied, int(ranges[-1]), same, pack)
+    return d_k, int(applied), err, ms_p
+
+
+def check_k2_inputs(tag, args) -> float:
+    """K2 on the arguments a main path gave `raster_bwd_cuda` (kept by
+    `first_inputs`) against the plain re-walk on the same upstream
+    gradients, with `compare_k2`'s tolerances and a relaunch. Returns the
+    max abs error."""
+    import torch
+
+    from gsplat_tpu_torch.ops import stream16
+    from gsplat_tpu_torch.ops.cuda import raster
+    from gsplat_tpu_torch.ops.raster_torch import _raster_tiles_bwd_walk
+
+    stream, ranges, g_col, b_total, c, tile_offset, pack = args
+    d_k = raster.raster_bwd_cuda(*args)
+    same = torch.equal(d_k, raster.raster_bwd_cuda(*args))
+    plain_in = stream if c.stream_format == "f32" else \
+        stream16.unpack_block(stream, c)
+    d_p, applied = _raster_tiles_bwd_walk(plain_in, ranges, tile_offset,
+                                          g_col, b_total[..., None], c)
+    return compare_k2(f"{tag} tile_offset {tile_offset}", d_k, d_p, applied,
+                      int(ranges[-1]), same, pack)
 
 
 def warp_skip_counts(feats, ranges, walk, cfg, rows) -> dict:
@@ -703,16 +880,12 @@ def make_trainer(scene, cams, cfg, dev):
     step. Returns (trained scene, targets (V, H, W, 3), step)."""
     import torch
 
-    from gsplat_tpu_torch import GaussianScene, render
+    from gsplat_tpu_torch import render
     from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
 
     with torch.no_grad():
         targets = torch.stack([render(scene, cam, cfg).image for cam in cams])
-    train = GaussianScene(**{f.name: getattr(scene, f.name).detach().clone()
-                             for f in dataclasses.fields(scene)})
-    gen = torch.Generator(device=dev).manual_seed(2)
-    train.sh[:, 0, :] += DC_NOISE * torch.randn(
-        train.sh[:, 0, :].shape, generator=gen, device=dev)
+    train = noisy_copy(scene, dev)
     opt = make_optimizer(train, TRAIN_LR)
     return train, targets, make_train_step(cfg, opt, ssim_weight=SSIM_WEIGHT)
 
@@ -1257,9 +1430,10 @@ def first_inputs(store: dict, module, name: str, want=None):
 
 def check_path_inputs(path: str, inputs: dict, expect: tuple) -> None:
     """The inputs that `path` gave the wrappers named in `expect` (K3's
-    compact and rank stages, K5; kept by `first_inputs`) through the kernels
-    again and through the plain versions: K3 0 differing entries in every
-    output; K5 `check_segsum`'s tolerances and a relaunch bit-identical.
+    compact and rank stages, K4, K5; kept by `first_inputs`) through the
+    kernels again and through the plain versions: K3 0 differing entries in
+    every output; K4 and K5 `check_segsum`'s tolerances and a relaunch
+    bit-identical.
     Exits on a failure, or where the path never called one of them."""
     from gsplat_tpu_torch.ops.cuda import cull
 
@@ -1268,7 +1442,7 @@ def check_path_inputs(path: str, inputs: dict, expect: tuple) -> None:
         raise SystemExit(f"{path}: no inputs kept for {missing}")
     for name in expect:
         args = inputs.pop(name)
-        if name == "segmented_suffix_sum_packed_cuda":
+        if name.startswith("segmented_suffix_sum"):
             x, rows, kmax = args
             check_segsum(f"{path} kmax {kmax}", x, rows, kmax, time_it=False)
             continue
@@ -1394,6 +1568,951 @@ def check_cli_render_pngs(argv) -> None:
             raise SystemExit(f"cli_render: {name}'s PNG differs")
 
 
+# ---- the multi-device paths (phases 13-17) ----------------------------------
+# D ranks share cuda:0 over gloo (NCCL refuses two ranks on one GPU), each a
+# spawned process (`multihost.launch`); nccl_world1 runs NCCL at world size
+# 1. Their times are those of D ranks time-sharing one card, with gloo
+# staging every collective through host memory: times of the path, not
+# scaling figures.
+
+# The per-shard stream capacity of the tile-sharded paths is measured
+# (`shard_capacity`): the root bench's max(4.1M // D, 4096)
+# (bench.py:205-207), 2,050,000 at D = 2, overflows the top band of view 0,
+# whose intersections do not split evenly between the bands.
+# The Gaussian-sharded path's scene capacity: the 1M scene padded by a
+# quarter, so that densification has free slots on each shard.
+GAUSS_CAPACITY = 1_250_000
+# Steps of the tile-sharded train path (bench default, then --exact-grads),
+# of its fit (with the resume from FIT_CKPT_EVERY), and of the
+# Gaussian-sharded fit.
+SHARDED_STEPS = {"default": 20, "exact": 6}
+FIT_STEPS, FIT_CKPT_EVERY, FIT_DENSIFY_AT = 60, 50, 30
+GAUSS_FIT_STEPS, GAUSS_DENSIFY_AT = 40, 10
+# The Gaussian-sharded path against the single-device one at 1M Gaussians:
+# the share of pixels within rtol 1e-3 / atol 1e-4 and of gradient entries
+# within rtol 5e-3 / atol 5e-5 (tests/test_gaussian_sharded.py's
+# tolerances, which the CPU tests meet on every entry), and the gradients'
+# relative L2 error. At 1M Gaussians many fragments of a tile tie in the 21
+# depth bits of the 2040-tile grid's key (`tied_pairs`); the merge orders
+# tied fragments source by source, the single-device sort by candidate
+# position, so the pixels where two tied splats overlap differ (on an H100
+# 80GB HBM3 at 700 W: 80-86% of pixels bit-identical, 98.4-98.9% within,
+# PSNR 63-69 dB; gradients 99.9992-1.0 within, relative L2 0.06-0.11). The
+# tie-order witness (`tie_witness`) runs the same path on a scene whose
+# depth keys are all distinct and holds it to the tolerances on every
+# entry; at one shard the two orders are one, and nccl_world1 is
+# bit-identical.
+GAUSS_RENDER_WITHIN = 0.97
+GAUSS_GRAD_WITHIN = 0.99999
+GAUSS_GRAD_REL_L2 = 0.15
+# The witness scene's size: every float32 depth key level of 21 bits in
+# [2, 6), one Gaussian each; and its capacity: every witness Gaussian is in
+# view (a median of 12 tiles), and the tiers' budgets are shares of the
+# capacity, so each shard's rows are padded to half of 131,072. Its log
+# scales are random_scene's range moved down by 0.5, so that no Gaussian at
+# depth 2 spans more than max_tiles_per_gaussian tiles.
+TIE_WITNESS_N = 12_288
+TIE_WITNESS_CAPACITY = 131_072
+TIE_WITNESS_LOG_SCALES = (-5.0, -3.0)
+# The seconds a launch of ranks, or a torchrun of the bench, may take.
+LAUNCH_TIMEOUT_S = 420
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(fn, nprocs: int, *args, backend: str = "gloo") -> list:
+    """fn(rank, *args) on `nprocs` spawned ranks sharing cuda:0, rendezvous
+    on a free TCP port; every rank's result, or exit on any failure."""
+    from gsplat_tpu_torch.parallel import multihost
+
+    out = os.path.join(HERE, "build", "chip_smoke", "ranks", fn.__name__)
+    t0 = time.perf_counter()
+    try:
+        res = multihost.launch(
+            fn, nprocs, args, backend=backend, out_dir=out,
+            init_method=f"tcp://localhost:{free_port()}", device="cuda:0",
+            timeout_s=LAUNCH_TIMEOUT_S)
+    except RuntimeError as e:
+        raise SystemExit(f"{fn.__name__}: {e}")
+    log(f"[{fn.__name__}] {nprocs} ranks on cuda:0 over {backend}: "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    return res
+
+
+def shard_capacity(dev, d: int = 2) -> int:
+    """The per-shard capacity of the tile-sharded paths: 1.15x the largest
+    band's demand over the four views at D bands (the bench's
+    suggested_max_intersections rule), rounded up to a multiple of 2048."""
+    import torch
+
+    from gsplat_tpu_torch import RenderConfig
+    from gsplat_tpu_torch.ops.binning import bin_gaussians
+    from gsplat_tpu_torch.ops.projection import project_gaussians
+    from gsplat_tpu_torch.parallel.sharding import local_tile_cfg
+
+    cfg = RenderConfig(**BENCH)
+    tiles = local_tile_cfg(cfg, d).num_tiles
+    scene = bench_scene(dev)
+    demand = []
+    with torch.no_grad():
+        for cam in views(cfg.width, cfg.height, dev):
+            proj = project_gaussians(scene, cam, cfg)
+            demand.append([int(bin_gaussians(
+                proj, cfg, tile_start=k * tiles,
+                num_local_tiles=tiles).num_intersections) for k in range(d)])
+    cap = int(max(max(v) for v in demand) * 1.15)
+    cap += (-cap) % 2048
+    log(f"[shard capacity] intersections per view and band at {d} bands: "
+        f"{demand}; per-shard capacity {cap} (the bench's rule gives "
+        f"{max(_bench.CARD['max_intersections'] // d, 1 << 12)})")
+    return cap
+
+
+def rank_setup():
+    """A rank's start: full float32 in the plain versions, the card."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def bench_scene(dev):
+    """The bench's 1M-Gaussian SH-3 random scene, seeded 0."""
+    import torch
+
+    from gsplat_tpu_torch import random_scene
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return random_scene(NUM_GAUSSIANS, sh_degree=3, generator=gen, device=dev)
+
+
+def noisy_copy(scene, dev):
+    """The trained scene of `make_trainer`: a copy whose SH DC carries
+    seeded noise."""
+    import torch
+
+    from gsplat_tpu_torch import GaussianScene
+
+    train = GaussianScene(**{f.name: getattr(scene, f.name).detach().clone()
+                             for f in dataclasses.fields(scene)})
+    gen = torch.Generator(device=dev).manual_seed(2)
+    train.sh[:, 0, :] += DC_NOISE * torch.randn(
+        train.sh[:, 0, :].shape, generator=gen, device=dev)
+    return train
+
+
+def digest(scene) -> str:
+    """sha256 of every field's bytes: equal digests, bit-identical scenes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f in dataclasses.fields(scene):
+        h.update(getattr(scene, f.name).detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def close_share(got, want, rtol: float, atol: float) -> dict:
+    """The share of entries of got within atol + rtol |want|, the largest
+    |got - want| / (atol + rtol |want|), the max abs difference, the
+    relative L2 error, and the share exactly equal."""
+    err = (got - want).abs()
+    tol = atol + rtol * want.abs()
+    return {"within": float((err <= tol).float().mean()),
+            "worst": float((err / tol).max()),
+            "max_abs": float(err.max()),
+            "rel_l2": float((got - want).norm()
+                            / want.norm().clamp_min(1e-30)),
+            "equal": float((got == want).float().mean())}
+
+
+def tied_pairs(scene, cam, cfg) -> int:
+    """The single-device stream's adjacent fragments of one tile whose
+    (tile, depth) keys tie: the pairs whose order a stable sort takes from
+    the candidate order."""
+    import torch
+
+    from gsplat_tpu_torch.ops.binning import bin_gaussians, pack_tile_depth_key
+    from gsplat_tpu_torch.ops.projection import project_gaussians
+
+    with torch.no_grad():
+        proj = project_gaussians(scene, cam, cfg)
+        b = bin_gaussians(proj, cfg)
+    m = int(b.ranges[-1])
+    gid = b.sorted_gid[:m]
+    keep = gid >= 0
+    key = pack_tile_depth_key(b.sorted_tile[:m][keep],
+                              proj.depth[gid[keep].long()], cfg.num_tiles)
+    return int((key[1:] == key[:-1]).sum())
+
+
+def tie_witness_scene(cam, cfg, dev, shards: int):
+    """TIE_WITNESS_N random Gaussians (seeded 3) moved along `cam`'s view
+    axis so that their depths take every depth key level in [2, 6) once, at
+    the middle of the level: no two fragments of a tile tie. Padded to
+    TIE_WITNESS_CAPACITY with each of `shards` row blocks holding an equal
+    share of them at its head."""
+    import torch
+
+    from gsplat_tpu_torch import GaussianScene, random_scene
+    from gsplat_tpu_torch.ops.binning import depth_bits_for
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    scene = random_scene(TIE_WITNESS_N, sh_degree=3, generator=gen, device=dev,
+                         scale_range=TIE_WITNESS_LOG_SCALES)
+    shift = 31 - depth_bits_for(cfg.num_tiles)
+    level = torch.randperm(TIE_WITNESS_N, generator=gen, device=dev)
+    bits = (np.float32(2.0).view(np.int32) + (level << shift)
+            + (1 << (shift - 1)))
+    z = bits.to(torch.int32).view(torch.float32).double()
+    # random_scene's camera-space placement at the new depth, into the world
+    # through the inverse of cam's view matrix (not a rotation: the default
+    # pose's rows are not unit vectors), in float64 so that the
+    # projection's depth stays well inside its level.
+    p_cam = torch.stack([scene.means[:, 0].double() / scene.means[:, 2] * z,
+                         scene.means[:, 1].double() / scene.means[:, 2] * z,
+                         z, torch.ones_like(z)], dim=-1)
+    means = p_cam @ torch.linalg.inv(cam.view.double()).T
+    scene = dataclasses.replace(scene, means=means[:, :3].float())
+    n = TIE_WITNESS_N // shards
+    parts = [GaussianScene(**{
+        f.name: getattr(scene, f.name)[k * n:(k + 1) * n]
+        for f in dataclasses.fields(scene)}).pad_to(
+            TIE_WITNESS_CAPACITY // shards) for k in range(shards)]
+    return GaussianScene(**{
+        f.name: torch.cat([getattr(p, f.name) for p in parts])
+        for f in dataclasses.fields(scene)})
+
+
+def sum_counts(results, key: str) -> dict:
+    """Launch counts of one path summed over the ranks."""
+    total = {}
+    for r in results:
+        for k, v in r[key].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def check_counts(path: str, counts: dict, needs) -> dict:
+    log(f"[{path}] launches over the ranks {counts}")
+    missing = [k for k in needs if counts[k] == 0]
+    if missing:
+        raise SystemExit(f"{path}: kernels of the path never launched: "
+                         f"{missing}")
+    return counts
+
+
+def rank_tile_sharded(rank: int, cap: int) -> dict:
+    """Phase 13 on one of 2 ranks (tiles 2): the `tile_sharded` path, serving
+    the bench config (f32 and packed4, four views, SERVE_REPS repetitions,
+    the first a warm-up) through `render_tile_sharded` at the per-shard
+    capacity `cap` (`shard_capacity`); then the `tile_sharded_fit` path: `fit(mesh=...)`
+    of a noisy-DC copy of the scene padded to GAUSS_CAPACITY, FIT_STEPS
+    steps with one densification round and a checkpoint from the primary
+    rank, and a resume from it. Checks after the paths: this rank's K3
+    compact inputs against the plain version; rank 1's K1 at its tile
+    offset against the plain walk, each format; rank 0's gathered images
+    against the single-device render."""
+    import contextlib as ctx
+    import io
+
+    import torch
+
+    from gsplat_tpu_torch import RenderConfig, render
+    from gsplat_tpu_torch.ops.cuda import cull, raster
+    from gsplat_tpu_torch.parallel.sharding import (
+        local_tile_cfg,
+        make_mesh,
+        render_tile_sharded,
+    )
+    from gsplat_tpu_torch.train.loop import fit
+
+    dev = rank_setup()
+    mesh = make_mesh({"tiles": 2}, dev)
+    scene = bench_scene(dev)
+    cfgs = {"f32": RenderConfig(**dict(BENCH, max_intersections=cap)),
+            "packed4": RenderConfig(**dict(BENCH, **DEFAULT,
+                                           max_intersections=cap))}
+    cams = views(cfgs["f32"].width, cfgs["f32"].height, dev)
+    offset = rank * local_tile_cfg(cfgs["f32"], 2).num_tiles
+    out = {"rank": rank, "tile_offset": offset, "ms": {}}
+    inputs, k1_inputs, frames = {}, {}, {}
+    reset_launch_counts()
+    with first_inputs(inputs, cull, "cull_compact_cuda"):
+        for fmt, cfg in cfgs.items():
+            k1_inputs[fmt] = {}
+            ms = []
+            with first_inputs(k1_inputs[fmt], raster, "raster_tiles_cuda",
+                              want=lambda *a: a[3] == offset):
+                for rep in range(SERVE_REPS):
+                    for i, cam in enumerate(cams):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        img, trans, ovf = render_tile_sharded(scene, cam, cfg,
+                                                              mesh)
+                        torch.cuda.synchronize()
+                        dt = (time.perf_counter() - t0) * 1e3
+                        if bool(ovf) or not bool(torch.isfinite(img).all()):
+                            raise SystemExit(f"tile_sharded {fmt} view {i}: "
+                                             "overflow or non-finite")
+                        if rep == 0 and rank == 0:
+                            frames[fmt, i] = (img, trans)
+                        elif rep:
+                            ms.append(dt)
+            out["ms"][fmt] = statistics.median(ms)
+    out["serve"] = launch_counts()
+    check_path_inputs(f"tile_sharded rank {rank}", inputs,
+                      ("cull_compact_cuda",))
+    if rank == 1:
+        for fmt in cfgs:
+            s, r, c, off = k1_inputs[fmt]["raster_tiles_cuda"]
+            out[f"k1_{fmt}_err"] = check_k1(f"tile_sharded {fmt} rank 1", s,
+                                            r, c, off)[5]
+    if rank == 0:
+        out["vs_single"] = {}
+        for (fmt, i), (img, trans) in frames.items():
+            single = dataclasses.replace(
+                cfgs[fmt], max_intersections=_bench.CARD["max_intersections"])
+            with torch.no_grad():
+                ref = render(scene, cams[i], single)
+            c_img = close_share(img, ref.image, 1e-4, 1e-5)
+            c_t = close_share(trans, ref.transmittance, 1e-4, 1e-6)
+            db = psnr(img, ref.image)
+            out["vs_single"][f"{fmt} view {i}"] = dict(
+                image=c_img, trans=c_t, psnr=db)
+            log(f"[tile_sharded] {fmt} view {i} against the single-device "
+                f"render: image {c_img}, T {c_t}, PSNR {db} dB")
+        del frames
+        bad = [k for k, v in out["vs_single"].items()
+               if not (v["image"]["within"] == 1.0
+                       and v["trans"]["within"] == 1.0)]
+        if bad:
+            raise SystemExit(f"tile_sharded {bad}: outside the stated "
+                             "tolerance of the single-device render")
+
+    # The tile_sharded_fit path.
+    cfg = cfgs["packed4"]
+    with torch.no_grad():
+        targets = torch.stack([
+            render(scene, cam, dataclasses.replace(
+                cfg, max_intersections=_bench.CARD["max_intersections"])).image
+            for cam in cams])
+    init = noisy_copy(scene, dev).pad_to(GAUSS_CAPACITY)
+    del scene
+    ckpt = os.path.join(HERE, "build", "chip_smoke", "fit_ckpt")
+    printed = io.StringIO()
+    kw = dict(steps=FIT_STEPS, lr=TRAIN_LR, ssim_weight=SSIM_WEIGHT,
+              log_every=5, densify_every=FIT_DENSIFY_AT,
+              densify_from=FIT_DENSIFY_AT, densify_until=FIT_DENSIFY_AT,
+              checkpoint_every=FIT_CKPT_EVERY, checkpoint_dir=ckpt,
+              overflow_policy="raise", mesh=mesh)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with ctx.redirect_stdout(printed):
+        trained, metrics = fit(init, cams, targets, cfg, **kw)
+        resumed, metrics2 = fit(init, cams, targets, cfg, resume=os.path.join(
+            ckpt, f"ckpt_{FIT_CKPT_EVERY:06d}.npz"), **kw)
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    out["fit"] = launch_counts()
+    out["fit_metrics"], out["resume_metrics"] = metrics, metrics2
+    out["printed"] = printed.getvalue()
+    out["digests"] = [digest(trained), digest(resumed)]
+    out["ckpts"] = sorted(os.listdir(ckpt))
+    return out
+
+
+def rank_tile_sharded_train(rank: int, cap: int) -> dict:
+    """Phase 14 on one of 4 ranks (data 2 x tiles 2): the
+    `tile_sharded_train` path, the sharded step at the bench default
+    (packed4, bf16 pairs, K5) for SHARDED_STEPS steps, then --exact-grads
+    (float32, K4), two views a step (one per data shard), L1 + 0.2 DSSIM
+    from a noisy-DC copy. Rank 0 holds the first step's loss and gradients
+    against `make_train_step` on the same two views, every entry within
+    the stated tolerance; rank 3 keeps the inputs of its first step's K3
+    compact stage, K2 (at its tile offset) and K5 (default) or K4 (exact)
+    in each run, and holds them against the plain versions after the
+    path."""
+    import torch
+
+    from gsplat_tpu_torch import RenderConfig, render
+    from gsplat_tpu_torch.ops.cuda import cull, raster, segsum
+    from gsplat_tpu_torch.parallel.sharding import local_tile_cfg, make_mesh
+    from gsplat_tpu_torch.parallel.train_step import (
+        make_sharded_train_step,
+        shard_batch,
+    )
+    from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
+    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+
+    dev = rank_setup()
+    mesh = make_mesh({"data": 2, "tiles": 2}, dev)
+    scene = bench_scene(dev)
+    out = {"rank": rank, "losses": {}, "ms": {}, "first": {}, "digests": {}}
+    kept = {}
+    segsums = {"default": "segmented_suffix_sum_packed_cuda",
+               "exact": "segmented_suffix_sum_cuda"}
+    # Targets and rank 0's single-device first steps, before the path.
+    setups = {}
+    for name, extra, rtol, atol in (("default", DEFAULT, 5e-3, 5e-5),
+                                    ("exact", EXACT, 2e-3, 2e-6)):
+        full = RenderConfig(**dict(BENCH, **extra))
+        cfg = dataclasses.replace(full, max_intersections=cap)
+        cams = views(cfg.width, cfg.height, dev)
+        with torch.no_grad():
+            targets = torch.stack([render(scene, c, full).image for c in cams])
+        padded = torch.nn.functional.pad(
+            targets, (0, 0, 0, cfg.padded_width - cfg.width, 0,
+                      cfg.padded_height - cfg.height))
+        ref = None
+        if rank == 0:
+            single = noisy_copy(scene, dev)
+            step_r = make_train_step(full, make_optimizer(single, TRAIN_LR),
+                                     ssim_weight=SSIM_WEIGHT)
+            loss_r, _, _ = step_r(single, cams[:2], targets[:2])
+            ref = (float(loss_r), {f: getattr(single, f).grad.clone()
+                                   for f in SCENE_FIELDS})
+            del single, step_r
+        setups[name] = (cfg, cams, padded, ref, rtol, atol)
+        del targets
+    reset_launch_counts()
+    for name, (cfg, cams, padded, ref, rtol, atol) in setups.items():
+        offset = mesh.index("tiles") * local_tile_cfg(cfg, 2).num_tiles
+        trained = noisy_copy(scene, dev)
+        opt = make_optimizer(trained, TRAIN_LR)
+        step = make_sharded_train_step(cfg, mesh, opt, ssim_weight=SSIM_WEIGHT)
+        kept[name] = {}
+        losses, ms = [], []
+        for i in range(SHARDED_STEPS[name]):
+            a = 2 * i % len(cams)
+            cams_l, bands = shard_batch([cams[a], cams[a + 1]],
+                                        padded[a:a + 2], mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.ExitStack() as keep:
+                if rank == 3 and i == 0:
+                    keep.enter_context(first_inputs(
+                        kept[name], raster, "raster_bwd_cuda",
+                        want=lambda *x: x[5] == offset))
+                    keep.enter_context(first_inputs(
+                        kept[name], cull, "cull_compact_cuda"))
+                    keep.enter_context(first_inputs(
+                        kept[name], segsum, segsums[name]))
+                loss, aux, _ = step(trained, cams_l, bands)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            if bool(aux["overflow"]) or not bool(aux["grads_finite"]) or \
+                    not np.isfinite(losses[-1]):
+                raise SystemExit(f"tile_sharded_train {name}: step {i} "
+                                 "overflowed or went non-finite")
+            if i == 0 and ref is not None:
+                out["first"][name] = dict(
+                    loss=losses[0], single_loss=ref[0],
+                    rel=abs(losses[0] - ref[0]) / abs(ref[0]),
+                    grads={f: close_share(getattr(trained, f).grad, g,
+                                          rtol, atol)
+                           for f, g in ref[1].items()},
+                    rtol=rtol, atol=atol)
+        out["losses"][name], out["ms"][name] = losses, ms[1:]
+        out["digests"][name] = digest(trained)
+        del trained, opt, step
+    out["train"] = launch_counts()
+    for name, first in out["first"].items():
+        log(f"[tile_sharded_train {name}] first step loss {first['loss']} "
+            f"single-device {first['single_loss']} (rel {first['rel']}); "
+            f"gradients against the single-device step, rtol "
+            f"{first['rtol']} / atol {first['atol']}: {first['grads']}")
+        if first["rel"] > 1e-5 or any(g["within"] < 1.0
+                                      for g in first["grads"].values()):
+            raise SystemExit(f"tile_sharded_train {name}: the first step "
+                             "differs from the single-device step")
+    if rank == 3:
+        for name, inputs in kept.items():
+            tag = f"tile_sharded_train {name} rank 3"
+            if "raster_bwd_cuda" not in inputs:
+                raise SystemExit(f"{tag}: K2 never ran at the tile offset")
+            out[f"k2_{name}_err"] = check_k2_inputs(
+                tag, inputs.pop("raster_bwd_cuda"))
+            check_path_inputs(tag, inputs, ("cull_compact_cuda",
+                                            segsums[name]))
+    return out
+
+
+def rank_gaussian_sharded(rank: int) -> dict:
+    """Phase 15 on one of 2 ranks (gauss 2): the `gaussian_sharded` path at
+    the bench's config-5 settings (tiered, packed16 wire, fragment_format
+    'bf16') with the 1M scene padded to GAUSS_CAPACITY: the render of the
+    four views, one train step, then `fit_gaussian_sharded` for
+    GAUSS_FIT_STEPS steps with one densification round and per-shard
+    checkpoints. fragment_occupancy comes first; after the path, the
+    checkpoint reloaded bit for bit, the kernels on the path's own inputs
+    (every rank's first K3 compact stage; rank 1's first K1 and K2 at its
+    tile offset, on the merged packed16 stream, and its step's K5 on the
+    received blocks) against the plain versions, the step's gradients
+    against the matching rows of the single-device step, the render
+    against the single-device packed16 render (rank 0), and the tie-order
+    witness (`gaussian_tie_witness`)."""
+    import torch
+
+    from gsplat_tpu_torch import RenderConfig, render
+    from gsplat_tpu_torch.ops.cuda import cull, raster, segsum
+    from gsplat_tpu_torch.parallel.gaussian_sharded import (
+        exchange_bytes,
+        fragment_occupancy,
+        render_gaussian_sharded,
+        shard_scene,
+    )
+    from gsplat_tpu_torch.parallel.gaussian_train import (
+        fit_gaussian_sharded,
+        load_sharded_checkpoint,
+        make_gaussian_sharded_train_step,
+        shard_train_state,
+    )
+    from gsplat_tpu_torch.parallel.sharding import local_tile_cfg, make_mesh
+    from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
+    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+    from gsplat_tpu_torch.utils.checkpoint import checkpoint_arrays
+
+    dev = rank_setup()
+    d = 2
+    mesh = make_mesh({"gauss": d}, dev)
+    cfg = RenderConfig(**dict(BENCH, **dict(DEFAULT, stream_format="packed16",
+                                            fragment_format="bf16")))
+    scene = bench_scene(dev).pad_to(GAUSS_CAPACITY)
+    cams = views(cfg.width, cfg.height, dev)
+    # The capacity report first, at the bench's per-dest capacity
+    # (max_intersections // D); the path runs at its suggestion, the
+    # largest (source, destination) segment of the views with 15% room.
+    occ = [fragment_occupancy(scene, c, cfg, d) for c in cams]
+    cap = max(o["suggested_per_dest_capacity"] for o in occ)
+    out = {"rank": rank, "wire": exchange_bytes(cfg, d, cap),
+           "per_dest_capacity": cap, "occupancy": occ[0],
+           "tile_offset": rank * local_tile_cfg(cfg, d).num_tiles}
+    log(f"[gaussian_sharded rank {rank}] fragment occupancy at the bench's "
+        f"per-dest capacity {occ[0]['per_dest_capacity']}: max segment per "
+        f"view {[o['max_segment'] for o in occ]}, view 0 {occ[0]}; the path "
+        f"runs at {cap}")
+    if any(o["suggested_per_dest_capacity"] < o["max_segment"] or
+           o["max_segment"] > cap for o in occ):
+        raise SystemExit(f"gaussian_sharded: occupancy {occ}")
+    with torch.no_grad():
+        targets = torch.stack([render(scene, c, cfg).image for c in cams])
+    lcfg = local_tile_cfg(cfg, d)
+    band = torch.nn.functional.pad(
+        targets, (0, 0, 0, cfg.padded_width - cfg.width, 0,
+                  cfg.padded_height - cfg.height))[
+        :, rank * lcfg.height:(rank + 1) * lcfg.height]
+    local = shard_scene(scene, mesh)
+    trained = noisy_copy(scene, dev)
+    train_l, opt = shard_train_state(trained, mesh, lr=TRAIN_LR)
+    step = make_gaussian_sharded_train_step(cfg, mesh, opt, GAUSS_CAPACITY,
+                                            ssim_weight=SSIM_WEIGHT,
+                                            per_dest_capacity=cap)
+    ckpt = os.path.join(HERE, "build", "chip_smoke", "gauss_ckpt")
+    offset = rank * lcfg.num_tiles
+    frames, ms, inputs = [], [], {}
+    reset_launch_counts()
+    with contextlib.ExitStack() as keep:
+        keep.enter_context(first_inputs(inputs, cull, "cull_compact_cuda"))
+        if rank == 1:
+            keep.enter_context(first_inputs(
+                inputs, raster, "raster_tiles_cuda",
+                want=lambda *a: a[3] == offset))
+            keep.enter_context(first_inputs(
+                inputs, raster, "raster_bwd_cuda",
+                want=lambda *a: a[5] == offset))
+            keep.enter_context(first_inputs(
+                inputs, segsum, "segmented_suffix_sum_packed_cuda"))
+        for rep in range(2):
+            for i, cam in enumerate(cams):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    img, trans, ovf = render_gaussian_sharded(
+                        local, cam, cfg, mesh, per_dest_capacity=cap)
+                torch.cuda.synchronize()
+                if rep:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                if bool(ovf) or not bool(torch.isfinite(img).all()):
+                    raise SystemExit(f"gaussian_sharded view {i}: overflow "
+                                     "or non-finite")
+                if rep == 0 and rank == 0:
+                    frames.append((img, trans))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, (_, visible) = step(train_l, cams[:1], band[:1])
+        torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    grads = {f: getattr(train_l, f).grad.clone() for f in SCENE_FIELDS}
+    t0 = time.perf_counter()
+    fitted, metrics = fit_gaussian_sharded(
+        noisy_copy(scene, dev), cams, targets, cfg, mesh,
+        steps=GAUSS_FIT_STEPS, lr=TRAIN_LR, ssim_weight=SSIM_WEIGHT,
+        log_every=1, densify_every=GAUSS_DENSIFY_AT,
+        densify_until=GAUSS_DENSIFY_AT, per_dest_capacity=cap,
+        checkpoint_path=ckpt,
+        checkpoint_every=GAUSS_FIT_STEPS)
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - t0
+    out["gauss"] = launch_counts()
+    out["frame_ms"], out["metrics"] = ms, metrics
+    out["step_loss"] = float(m["loss"])
+    losses = [row["loss"] for row in metrics]
+    if bool(m["overflow"]) or not (statistics.mean(losses[-4:])
+                                   < statistics.mean(losses[:4])):
+        raise SystemExit(f"gaussian_sharded: step overflow {m['overflow']} or "
+                         f"the fit's loss did not fall: {metrics}")
+
+    # The checkpoint, reloaded into a fresh shard: the fit's scene bit for
+    # bit, and every array of this rank's file.
+    fresh, fresh_opt = shard_train_state(scene, mesh, lr=TRAIN_LR)
+    step_at = load_sharded_checkpoint(ckpt, fresh, fresh_opt, mesh)
+    with np.load(os.path.join(ckpt, f"shard_{rank:05d}.npz")) as z:
+        saved = {n: z[n] for n in z.files}
+    got = checkpoint_arrays(fresh, fresh_opt, step_at)
+    out["ckpt_ok"] = bool(
+        step_at == GAUSS_FIT_STEPS and digest(fresh) == digest(fitted)
+        and all(np.array_equal(got[n], a) for n, a in saved.items()))
+    log(f"[gaussian_sharded rank {rank}] per-shard checkpoint at step "
+        f"{step_at} reloaded bit for bit: {out['ckpt_ok']}")
+    failed = [] if out["ckpt_ok"] else ["the per-shard checkpoint"]
+
+    # The kernels on the path's own inputs.
+    tag = f"gaussian_sharded rank {rank}"
+    if rank == 1:
+        if not {"raster_tiles_cuda", "raster_bwd_cuda"} <= inputs.keys():
+            raise SystemExit(f"{tag}: K1 or K2 never ran at the tile offset")
+        s16, r16, c16, off = inputs.pop("raster_tiles_cuda")
+        out["k1_err"] = check_k1(f"{tag} merged packed16", s16, r16, c16,
+                                 off)[5]
+        del s16, r16
+        out["k2_err"] = check_k2_inputs(f"{tag} merged packed16",
+                                        inputs.pop("raster_bwd_cuda"))
+    check_path_inputs(tag, inputs, ("cull_compact_cuda",) + (
+        ("segmented_suffix_sum_packed_cuda",) if rank == 1 else ()))
+
+    # The step's shard-local gradients against the single-device step.
+    ref = noisy_copy(scene, dev)
+    step_r = make_train_step(cfg, make_optimizer(ref, TRAIN_LR),
+                             ssim_weight=SSIM_WEIGHT)
+    loss_r, _, (_, vis_r) = step_r(ref, cams[:1], targets[:1])
+    n = GAUSS_CAPACITY // d
+    rows = slice(rank * n, (rank + 1) * n)
+    out["step_vs_single"] = {f: close_share(grads[f], getattr(ref, f).grad[rows],
+                                            5e-3, 5e-5) for f in SCENE_FIELDS}
+    out["visible_equal"] = bool(torch.equal(visible, vis_r[rows]))
+    out["single_loss"] = float(loss_r)
+    log(f"[gaussian_sharded rank {rank}] step loss {out['step_loss']} "
+        f"single-device {float(loss_r)}; gradients against the single-device "
+        f"rows, rtol 5e-3 / atol 5e-5: {out['step_vs_single']}; visible "
+        f"equal {out['visible_equal']}")
+    if not out["visible_equal"] or any(
+            g["within"] < GAUSS_GRAD_WITHIN or g["rel_l2"] > GAUSS_GRAD_REL_L2
+            for g in out["step_vs_single"].values()):
+        failed.append("the step's gradients or visibility")
+    del ref, step_r
+    if rank == 0:
+        out["tied_pairs"] = tied_pairs(scene, cams[0], cfg)
+        log(f"[gaussian_sharded] view 0's single-device stream: "
+            f"{out['tied_pairs']} adjacent fragment pairs of one tile with "
+            "tied keys")
+        out["vs_single"] = []
+        for i, (img, trans) in enumerate(frames):
+            with torch.no_grad():
+                want = render(scene, cams[i], cfg)
+            c_img = close_share(img, want.image, 1e-3, 1e-4)
+            db = psnr(img, want.image)
+            out["vs_single"].append(dict(image=c_img, psnr=db))
+            log(f"[gaussian_sharded] view {i} against the single-device "
+                f"packed16 render: {c_img}, PSNR {db} dB")
+            if not (c_img["within"] >= GAUSS_RENDER_WITHIN and db >= 60.0):
+                failed.append(f"view {i}'s render")
+    del frames, scene, local, train_l, opt, step, fitted, fresh, fresh_opt
+    out["witness"] = gaussian_tie_witness(rank, mesh, cams[0], cfg, dev)
+    if not out["witness"]["ok"]:
+        failed.append("the tie-order witness")
+    if failed:
+        raise SystemExit(f"gaussian_sharded rank {rank}: {failed} outside "
+                         "the stated tolerance")
+    return out
+
+
+def gaussian_tie_witness(rank: int, mesh, cam, cfg, dev) -> dict:
+    """The tie-order witness of the gaussian_sharded path, on every rank:
+    `tie_witness_scene` (no tied keys in the single-device stream, checked)
+    rendered through `render_gaussian_sharded` and one sharded train step
+    from its noisy-DC copy, against the single-device packed16 render (rank
+    0) and step (each rank its rows): every pixel within rtol 1e-3 / atol
+    1e-4 and every gradient entry within rtol 5e-3 / atol 5e-5
+    (tests/test_gaussian_sharded.py's tolerances), visible equal."""
+    import torch
+
+    from gsplat_tpu_torch import render
+    from gsplat_tpu_torch.parallel.gaussian_sharded import (
+        render_gaussian_sharded,
+        shard_scene,
+    )
+    from gsplat_tpu_torch.parallel.gaussian_train import (
+        make_gaussian_sharded_train_step,
+        shard_train_state,
+    )
+    from gsplat_tpu_torch.parallel.sharding import local_tile_cfg
+    from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
+    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+
+    d = mesh.size_of("gauss")
+    scene = tie_witness_scene(cam, cfg, dev, d)
+    ties = tied_pairs(scene, cam, cfg)
+    with torch.no_grad():
+        want = render(scene, cam, cfg)
+        img, trans, ovf = render_gaussian_sharded(shard_scene(scene, mesh),
+                                                  cam, cfg, mesh)
+    lcfg = local_tile_cfg(cfg, d)
+    band = torch.nn.functional.pad(
+        want.image, (0, 0, 0, cfg.padded_width - cfg.width, 0,
+                     cfg.padded_height - cfg.height))[
+        rank * lcfg.height:(rank + 1) * lcfg.height][None]
+    local, opt = shard_train_state(noisy_copy(scene, dev), mesh, lr=TRAIN_LR)
+    step = make_gaussian_sharded_train_step(cfg, mesh, opt,
+                                            TIE_WITNESS_CAPACITY,
+                                            ssim_weight=SSIM_WEIGHT)
+    m, (_, visible) = step(local, [cam], band)
+    ref = noisy_copy(scene, dev)
+    step_r = make_train_step(cfg, make_optimizer(ref, TRAIN_LR),
+                             ssim_weight=SSIM_WEIGHT)
+    loss_r, _, (_, vis_r) = step_r(ref, [cam], want.image[None])
+    n = TIE_WITNESS_CAPACITY // d
+    rows = slice(rank * n, (rank + 1) * n)
+    grads = {f: close_share(getattr(local, f).grad, getattr(ref, f).grad[rows],
+                            5e-3, 5e-5) for f in SCENE_FIELDS}
+    out = dict(tied_pairs=ties, overflow=bool(ovf) or bool(m["overflow"])
+               or bool(want.overflow),
+               loss=float(m["loss"]), single_loss=float(loss_r), grads=grads,
+               visible_equal=bool(torch.equal(visible, vis_r[rows])),
+               intersections=int(want.num_intersections))
+    if rank == 0:
+        out["image"] = close_share(img, want.image, 1e-3, 1e-4)
+        out["trans"] = close_share(trans, want.transmittance, 1e-3, 1e-4)
+    out["ok"] = bool(
+        ties == 0 and not out["overflow"] and out["visible_equal"]
+        and all(g["within"] == 1.0 for g in grads.values())
+        and all(out[k]["within"] == 1.0 for k in ("image", "trans")
+                if k in out))
+    log(f"[gaussian_sharded tie witness rank {rank}] {TIE_WITNESS_N} "
+        f"Gaussians, {out['intersections']} intersections, {ties} tied "
+        f"pairs; {json.dumps({k: v for k, v in out.items() if k != 'ok'})}"
+        f"; every entry within the stated tolerance: {out['ok']}")
+    return out
+
+
+def rank_nccl_world1(rank: int) -> dict:
+    """Phase 17, one rank on NCCL: one tile-sharded frame (tiles 1) and one
+    Gaussian-sharded train step (gauss 1) at the bench settings, against
+    the single-device port: the frame, the step's loss, gradients and
+    visibility bit for bit."""
+    import torch
+
+    from gsplat_tpu_torch import RenderConfig, render
+    from gsplat_tpu_torch.parallel.gaussian_train import (
+        make_gaussian_sharded_train_step,
+        shard_train_state,
+    )
+    from gsplat_tpu_torch.parallel.sharding import make_mesh, render_tile_sharded
+    from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
+    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+
+    dev = rank_setup()
+    backend = torch.distributed.get_backend()
+    tiles, gauss = make_mesh({"tiles": 1}, dev), make_mesh({"gauss": 1}, dev)
+    scene = bench_scene(dev)
+    cfg = RenderConfig(**dict(BENCH, **DEFAULT))
+    cam = views(cfg.width, cfg.height, dev)[0]
+    g16 = dataclasses.replace(cfg, stream_format="packed16",
+                              fragment_format="bf16")
+    with torch.no_grad():
+        target = render(scene, cam, g16).image
+    reset_launch_counts()
+    with torch.no_grad():
+        img, trans, ovf = render_tile_sharded(scene, cam, cfg, tiles)
+    local, opt = shard_train_state(noisy_copy(scene, dev), gauss, lr=TRAIN_LR)
+    step = make_gaussian_sharded_train_step(g16, gauss, opt,
+                                            local.num_gaussians,
+                                            ssim_weight=SSIM_WEIGHT)
+    m, (tap, visible) = step(local, [cam], torch.nn.functional.pad(
+        target, (0, 0, 0, 0, 0, g16.padded_height - g16.height))[None])
+    counts = launch_counts()
+    with torch.no_grad():
+        ref = render(scene, cam, cfg)
+    frame_equal = bool(torch.equal(img, ref.image)
+                       and torch.equal(trans, ref.transmittance))
+    single = noisy_copy(scene, dev)
+    step_r = make_train_step(g16, make_optimizer(single, TRAIN_LR),
+                             ssim_weight=SSIM_WEIGHT)
+    loss_r, _, (_, vis_r) = step_r(single, [cam], target[None])
+    grads = {f: close_share(getattr(local, f).grad, getattr(single, f).grad,
+                            5e-3, 5e-5) for f in SCENE_FIELDS}
+    grads_equal = all(g["equal"] == 1.0 for g in grads.values())
+    out = dict(backend=backend, frame_equal=frame_equal,
+               overflow=bool(ovf) or bool(m["overflow"]),
+               loss=float(m["loss"]), single_loss=float(loss_r),
+               grads=grads, grads_equal=grads_equal,
+               visible_equal=bool(torch.equal(visible, vis_r)), nccl=counts)
+    log(f"[nccl_world1] backend {backend}: frame bit-identical to the "
+        f"single-device render {frame_equal}; Gaussian-sharded step loss "
+        f"{out['loss']} single-device {out['single_loss']}, gradients "
+        f"bit-identical {grads_equal}, against the single-device step "
+        f"{grads}; visible equal {out['visible_equal']}")
+    if not (backend == "nccl" and frame_equal and grads_equal
+            and out["loss"] == out["single_loss"] and out["visible_equal"]
+            and not out["overflow"]):
+        raise SystemExit("nccl_world1: differs from the single-device port")
+    return out
+
+
+def run_sharded_bench(card: str, cap: int, per_dest: int) -> list:
+    """Phase 16, the `sharded_bench` path: the tile-sharded bench through
+    the CLI and the Gaussian-sharded one through the package bench, each
+    under torchrun with 2 ranks on cuda:0 over gloo, at the capacities the
+    tile-sharded and Gaussian-sharded phases measured; each must print its
+    JSON line once (rank 0), free of overflow. Their launches happen in torchrun's
+    processes, where this script cannot count them."""
+    cmds = [
+        ["-m", "gsplat_tpu_torch.cli", "bench", "--sharded-tiles", "2",
+         "--device", "cuda:0", "--dist-backend", "gloo",
+         *cli_cfg_flags(dict(BENCH, **DEFAULT, max_intersections=cap,
+                             max_tiles_per_gaussian=64)),
+         "--iters", "2"],
+        ["-m", "gsplat_tpu_torch.bench", "--gaussian-sharded", "2",
+         "--per-dest-capacity", str(per_dest), "--device", "cuda:0",
+         "--dist-backend", "gloo"],
+    ]
+    lines = []
+    for cmd in cmds:
+        argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc-per-node", "2", *cmd]
+        t0 = time.perf_counter()
+        try:
+            done = subprocess.run(argv, cwd=HERE, capture_output=True,
+                                  text=True, timeout=LAUNCH_TIMEOUT_S,
+                                  env=dict(os.environ, PYTHONPATH=HERE))
+        except subprocess.TimeoutExpired:
+            raise SystemExit(f"sharded_bench: {' '.join(cmd)} passed "
+                             f"{LAUNCH_TIMEOUT_S} s")
+        found = [json.loads(x) for x in done.stdout.splitlines()
+                 if x.startswith("{")]
+        log(f"[sharded_bench] torchrun {' '.join(cmd)}: exit "
+            f"{done.returncode}, {time.perf_counter() - t0:.1f} s wall, "
+            f"{len(found)} JSON line(s): {found}")
+        if done.returncode or len(found) != 1 or found[0].get("overflow"):
+            log(done.stdout[-4000:])
+            log(done.stderr[-4000:])
+            raise SystemExit("sharded_bench: the command failed, did not "
+                             "print one JSON line, or overflowed")
+        lines.append(dict(found[0], command=" ".join(cmd), card=card))
+    return lines
+
+
+def check_multi_device(card: str, by_path: dict) -> dict:
+    """Phases 13-17: ranks spawned on cuda:0 (gloo), the sharded benches
+    under torchrun, and NCCL at world size 1. Adds each path's launches,
+    summed over its ranks, to by_path; returns the numbers it printed."""
+    import torch
+
+    t0 = time.perf_counter()
+    cap = shard_capacity(torch.device("cuda", 0))
+    torch.cuda.empty_cache()
+    multi = {"shard_capacity": cap}
+    res = launch_ranks(rank_tile_sharded, 2, cap)
+    by_path["tile_sharded"] = check_counts(
+        "tile_sharded", sum_counts(res, "serve"),
+        ("cull", "raster_fwd", "raster_fwd_packed"))
+    by_path["tile_sharded_fit"] = check_counts(
+        "tile_sharded_fit", sum_counts(res, "fit"),
+        ("cull", "raster_fwd_packed", "raster_bwd_packed", "segsum_packed"))
+    fit0, fit1 = res
+    losses = [r["loss"] for r in fit0["fit_metrics"]]
+    resumed = [r["loss"] for r in fit0["resume_metrics"]]
+    log(f"[tile_sharded] ms per frame per rank {[r['ms'] for r in res]}; "
+        f"K1 at tile_offset {fit1['tile_offset']} max abs err f32 "
+        f"{fit1['k1_f32_err']} packed4 {fit1['k1_packed4_err']}")
+    log(f"[tile_sharded_fit] {fit0['fit_s']:.1f} s for {FIT_STEPS} + "
+        f"{FIT_STEPS - FIT_CKPT_EVERY} steps; losses {losses}, resumed "
+        f"{resumed}; checkpoints {fit0['ckpts']}; rank 0 printed "
+        f"{fit0['printed']!r}; rank 1 printed {fit1['printed']!r}")
+    rows = {r["step"]: r["loss"] for r in fit0["fit_metrics"]}
+    if not (losses[-1] < losses[0]
+            and all(rows[r["step"]] == r["loss"]
+                    for r in fit0["resume_metrics"])
+            and fit0["ckpts"] == [f"ckpt_{FIT_CKPT_EVERY:06d}.npz"]
+            and f"'densify_at': {FIT_DENSIFY_AT}" in fit0["printed"]
+            and fit1["printed"] == "" and fit0["digests"] == fit1["digests"]):
+        raise SystemExit("tile_sharded_fit: the loss did not fall, the "
+                         "resume's rows differ from the run's, or the "
+                         "checkpoint, the log or the replicas are wrong")
+    multi["tile_sharded"] = [{k: r[k] for k in ("ms", "vs_single", "fit_s")
+                              if k in r} for r in res]
+    res = launch_ranks(rank_tile_sharded_train, 4, cap)
+    by_path["tile_sharded_train"] = check_counts(
+        "tile_sharded_train", sum_counts(res, "train"),
+        ("cull", "raster_fwd", "raster_fwd_packed", "raster_bwd",
+         "raster_bwd_packed", "segsum", "segsum_packed"))
+    for name in SHARDED_STEPS:
+        ls = res[0]["losses"][name]
+        same = {r["digests"][name] for r in res}
+        log(f"[tile_sharded_train {name}] losses {ls}; ms per step per rank "
+            f"{[statistics.median(r['ms'][name]) for r in res]}; the scene "
+            f"bit-identical on all four ranks: {len(same) == 1}")
+        if not (statistics.mean(ls[-2:]) < statistics.mean(ls[:2])
+                and len(same) == 1):
+            raise SystemExit(f"tile_sharded_train {name}: the loss did not "
+                             "fall, or the replicas differ")
+    log(f"[tile_sharded_train] K2 at rank 3's tile offset max abs err "
+        f"default {res[3]['k2_default_err']} exact {res[3]['k2_exact_err']}")
+    multi["tile_sharded_train"] = dict(first=res[0]["first"], ms={
+        name: [statistics.median(r["ms"][name]) for r in res]
+        for name in SHARDED_STEPS})
+    res = launch_ranks(rank_gaussian_sharded, 2)
+    by_path["gaussian_sharded"] = check_counts(
+        "gaussian_sharded", sum_counts(res, "gauss"),
+        ("cull", "raster_fwd_packed", "raster_bwd_packed", "segsum_packed"))
+    wire = res[0]["wire"]
+    log(f"[gaussian_sharded] fragment exchange bytes per step over both "
+        f"ranks: forward {wire['fwd']}, backward {wire['bwd']} (per-dest "
+        f"capacity {res[0]['per_dest_capacity']}); occupancy "
+        f"{res[0]['occupancy']}; frame ms per rank "
+        f"{[statistics.median(r['frame_ms']) for r in res]}; step ms "
+        f"{[r['step_ms'] for r in res]}; fit {[r['fit_s'] for r in res]} s, "
+        f"losses {[m['loss'] for m in res[0]['metrics']]}; rank 1's K1, K2 "
+        f"at tile_offset {res[1]['tile_offset']} max abs err "
+        f"{res[1]['k1_err']}, {res[1]['k2_err']}; view 0's tied pairs "
+        f"{res[0]['tied_pairs']}, the tie witness's "
+        f"{res[0]['witness']['tied_pairs']}")
+    multi["gaussian_sharded"] = [{k: r[k] for k in (
+        "wire", "occupancy", "frame_ms", "step_ms", "fit_s", "step_vs_single",
+        "vs_single", "tied_pairs", "witness") if k in r} for r in res]
+    multi["sharded_bench"] = run_sharded_bench(
+        card, cap, res[0]["per_dest_capacity"])
+    res = launch_ranks(rank_nccl_world1, 1, backend="nccl")
+    by_path["nccl_world1"] = check_counts(
+        "nccl_world1", res[0]["nccl"],
+        ("cull", "raster_fwd_packed", "raster_bwd_packed", "segsum_packed"))
+    multi["nccl_world1"] = {k: res[0][k] for k in (
+        "frame_equal", "grads_equal", "loss", "single_loss")}
+    shutil.rmtree(os.path.join(HERE, "build", "chip_smoke"),
+                  ignore_errors=True)
+    log(f"[multi-device] {time.perf_counter() - t0:.1f} s wall; D ranks "
+        f"time-sharing one card over gloo, on {card}")
+    log(json.dumps({"multi_device": multi}))
+    return multi
+
+
 def drive(path, needs, fn):
     """Run one main path with the launch counts set to 0 just before and
     read just after; fail unless each kernel in `needs` was launched."""
@@ -1428,7 +2547,6 @@ def run(dev) -> int:
     from gsplat_tpu_torch import (
         Camera,
         RenderConfig,
-        random_scene,
         realistic_scene,
         render,
     )
@@ -1441,8 +2559,6 @@ def run(dev) -> int:
         _image_to_tiles,
         _raster_tiles,
         _raster_tiles_bwd_walk,
-        _tiles_to_image,
-        _tiles_to_scalar_image,
         walked_pairs,
     )
     from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS, render_loss_and_grad
@@ -1468,9 +2584,7 @@ def run(dev) -> int:
 
     cfg = RenderConfig(**BENCH)
     cfg4 = RenderConfig(**dict(BENCH, **DEFAULT))
-    gen = torch.Generator(device=dev).manual_seed(0)
-    scene = random_scene(NUM_GAUSSIANS, sh_degree=3, generator=gen,
-                         device=dev)
+    scene = bench_scene(dev)
     cams = views(cfg.width, cfg.height, dev)
     kernels = {name: dict(name=name, route="cuda", source=src, replaces=rep)
                for name, (_, src, rep) in KERNELS.items()}
@@ -1536,76 +2650,6 @@ def run(dev) -> int:
     if any(any(d) for d in nan_differ.values()):
         raise SystemExit("K3 NaN rows: kernel differs from the plain version")
     del nan_rows
-
-    def check_k1(tag, stream, ranges, c):
-        """K1 on `stream` against the plain tiled walk (of the unpacked
-        stream): (kernel colour, T, plain colour, T, per-pixel walk, max abs
-        error, plain ms); exits outside the stated tolerance."""
-        col_k, tr_k = raster.raster_tiles_cuda(stream, ranges, c)
-        plain_in = stream if c.stream_format == "f32" else \
-            stream16.unpack_block(stream, c)
-        (col_p, tr_p, walk), ms_p = timed_once(
-            lambda: _raster_tiles(plain_in, ranges, 0, c))
-        img_k, img_p = _tiles_to_image(col_k, c), _tiles_to_image(col_p, c)
-        t_k, t_p = _tiles_to_scalar_image(tr_k, c), _tiles_to_scalar_image(tr_p, c)
-        err_img = (img_k - img_p).abs()
-        err_t = (t_k - t_p).abs()
-        p_db = psnr(img_k, img_p)
-        within_img = float((err_img.amax(-1) <= 1e-4).float().mean())
-        within_t = float((err_t <= 1e-4).float().mean())
-        log(f"[K1 {tag}] {int(ranges[-1])} intersections, {int(walk.sum())} "
-            f"pixel-Gaussian pairs walked; PSNR {p_db} dB, max abs err image "
-            f"{float(err_img.max())} trans {float(err_t.max())}, within "
-            f"1e-4: image {within_img} trans {within_t}")
-        if not (p_db >= 60.0 and within_img >= 0.9999 and within_t >= 0.9999):
-            raise SystemExit(f"K1 {tag}: kernel outside the stated "
-                             "tolerance of the plain version")
-        err = max(float(err_img.max()), float(err_t.max()))
-        return col_k, tr_k, col_p, tr_p, walk, err, ms_p
-
-    def check_k2(tag, stream, ranges, c, fwd_out, g_col, g_tt, pack):
-        """K2 on `stream` (fed K1's outputs) against the plain re-walk (fed
-        the plain forward's), then a second launch that must give the same
-        bits: (kernel output, pairs applied, max abs error, plain ms);
-        exits outside the stated tolerance."""
-        col_k, tr_k, col_p, tr_p = fwd_out
-        total = int(ranges[-1])
-        b_k = ((g_col * col_k).sum(1) + g_tt * tr_k).contiguous()
-        b_p = (g_col * col_p).sum(1) + g_tt * tr_p
-        d_k = raster.raster_bwd_cuda(stream, ranges, g_col, b_k, c,
-                                     pack_out=pack)
-        same = torch.equal(d_k, raster.raster_bwd_cuda(
-            stream, ranges, g_col, b_k, c, pack_out=pack))
-        plain_in = stream if c.stream_format == "f32" else \
-            stream16.unpack_block(stream, c)
-        (d_p, applied), ms_p = timed_once(
-            lambda: _raster_tiles_bwd_walk(plain_in, ranges, 0, g_col,
-                                           b_p[..., None], c))
-        if pack:
-            d_p = pack_bf16_pairs(d_p)
-            walked_k = unpack_bf16_pairs(d_k[:, :total], 9)
-            walked_p = unpack_bf16_pairs(d_p[:, :total], 9)
-            err = (walked_k - walked_p).abs()
-            within, ulp_share = pair_shares(walked_k, walked_p)
-            what = (f"rtol 2e-3 / atol 2e-4 + one bf16 ulp (one bf16 ulp "
-                    f"alone: {ulp_share})")
-        else:
-            walked_k, walked_p = d_k[:, :total], d_p[:, :total]
-            err = (walked_k - walked_p).abs()
-            within = float((err <= 2e-4 + 2e-3 * walked_p.abs()).float().mean())
-            what = "rtol 2e-3 / atol 2e-4"
-        rel = ((walked_k - walked_p).norm(dim=1)
-               / walked_p.norm(dim=1).clamp_min(1e-30)).tolist()
-        tail_zero = bool((d_k[:, total:] == 0).all())
-        log(f"[K2 {tag}] {int(applied)} pixel-Gaussian pairs applied; "
-            f"relative L2 error per feature row {rel}, within {what}: "
-            f"{within}, max abs err {float(err.max())}, slots past the "
-            f"stream exactly 0: {tail_zero}; a second launch bit-identical: "
-            f"{same}")
-        if not (max(rel) <= 1e-3 and within >= 0.999 and tail_zero and same):
-            raise SystemExit(f"K2 {tag}: kernel outside the stated tolerance "
-                             "of the plain version, or not deterministic")
-        return d_k, int(applied), float(err.max()), ms_p
 
     # 4. K1 blend at the bench shape on the port's own binned stream: the
     # float32 stream and the packed4 stream of the same binning. The walk
@@ -2000,6 +3044,9 @@ def run(dev) -> int:
             raise SystemExit(f"golden gradients {tag}: card outside the "
                              "stated tolerance of the CPU path, or not "
                              f"through {needs}")
+
+    # 13-17. The multi-device paths.
+    check_multi_device(card, by_path)
 
     kernels["cull"]["rank_launches_by_path"] = {
         p: c["cull_rank"] for p, c in by_path.items()}

@@ -15,8 +15,10 @@ heavy-tailed `realistic_scene`; and the single-device user surface on top:
 `train.loop.fit` with densification (`train/densify.py`) and checkpoints
 (`utils/checkpoint.py`), PLY, cameras.json and PNG I/O (`io/`,
 `utils/image.py`), `utils.bench.run_bench`, and the command line
-(`python -m gsplat_tpu_torch.cli`, `python -m gsplat_tpu_torch.bench`).
-The multi-device modes come in a later slice.
+(`python -m gsplat_tpu_torch.cli`, `python -m gsplat_tpu_torch.bench`);
+and the multi-device modes on `torch.distributed`, one process per rank
+(`parallel/`): the tile-sharded render, train step and `fit(mesh=...)`,
+and the Gaussian-sharded render, training and per-shard checkpoints.
 """
 
 from gsplat_tpu_torch.config import RenderConfig

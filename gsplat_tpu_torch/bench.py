@@ -4,6 +4,9 @@
     python -m gsplat_tpu_torch.bench [--scene random|realistic]
                                      [--exact-grads] [--mode fwd|fwd_bwd]
                                      [--device cuda|cpu]
+    torchrun --standalone --nproc-per-node D -m gsplat_tpu_torch.bench \
+        {--sharded-tiles D [--data-shards 1] | --gaussian-sharded D
+        [--per-dest-capacity C]} [--ssim-weight W] --dist-backend nccl|gloo
 
 prints ONE JSON line {"metric", "value", "unit", "vs_baseline"} (with
 "overflow" and its cause when a frame overflowed) and the details on
@@ -14,6 +17,13 @@ realistic scene adds the jumbo tiers. With no flag, the realistic scene's
 run rides in the same line (`realistic_it_per_s`), as in the root bench.
 `--device cpu` runs a small configuration (20k Gaussians, 256x256) through
 the kernels' plain versions: a smoke run, not a measurement of the card.
+
+The sharded benches run one process per rank (torchrun), with the root
+bench's settings: --sharded-tiles D gives each shard the capacity
+max(4.1M // D, 4096); --gaussian-sharded D exchanges the packed16 stream
+with fragment_format='bf16'. --dist-backend names the backend (nccl with
+one card per rank; gloo for ranks sharing one card, --device cuda:0), and
+rank 0 prints the line.
 """
 
 from __future__ import annotations
@@ -61,7 +71,29 @@ def preset(scene: str = "random", exact_grads: bool = False,
     return kw
 
 
+def sharded(kw: dict, sharded_tiles: int = 0, data_shards: int = 1,
+            gaussian_sharded: int = 0, per_dest_capacity: int | None = None,
+            ssim_weight: float = 0.0) -> dict:
+    """run_bench's arguments of a sharded run on top of a preset, as the
+    root bench sets them (bench.py:183-207)."""
+    kw = dict(kw)
+    if gaussian_sharded:
+        # The packed16 stream doubles as the fragment exchange's wire format.
+        kw.update(gaussian_shards=gaussian_sharded,
+                  per_dest_capacity=per_dest_capacity,
+                  ssim_weight=ssim_weight, stream_format="packed16",
+                  fragment_format="bf16")
+    if sharded_tiles:
+        # Per-shard capacity: each shard sorts and blends only its rows.
+        kw.update(sharded_tiles=sharded_tiles, data_shards=data_shards,
+                  ssim_weight=ssim_weight,
+                  max_intersections=max(
+                      kw["max_intersections"] // sharded_tiles, 1 << 12))
+    return kw
+
+
 def main(argv=None) -> int:
+    from gsplat_tpu_torch.parallel.multihost import is_primary, rank_device
     from gsplat_tpu_torch.utils.bench import run_bench
 
     ap = argparse.ArgumentParser("gsplat_tpu_torch.bench")
@@ -72,19 +104,30 @@ def main(argv=None) -> int:
                          "packed4 / bf16 default")
     ap.add_argument("--mode", default=None, choices=["fwd", "fwd_bwd"])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--sharded-tiles", type=int, default=0)
+    ap.add_argument("--data-shards", type=int, default=1)
+    ap.add_argument("--gaussian-sharded", type=int, default=0)
+    ap.add_argument("--per-dest-capacity", type=int, default=None)
+    ap.add_argument("--ssim-weight", type=float, default=0.0)
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"])
     args = ap.parse_args(argv)
 
-    kwargs = preset(args.scene, args.exact_grads, args.mode, args.device)
-    result = run_bench(**kwargs)
+    device = rank_device(args.device)
+    kwargs = sharded(preset(args.scene, args.exact_grads, args.mode, device),
+                     args.sharded_tiles, args.data_shards,
+                     args.gaussian_sharded, args.per_dest_capacity,
+                     args.ssim_weight)
+    result = run_bench(**kwargs, dist_backend=args.dist_backend)
     line = {k: result[k] for k in ("metric", "value", "unit", "vs_baseline")}
     if result["details"].get("overflow"):
         line["overflow"] = True
         line["overflow_cause"] = result["details"].get("overflow_cause")
     # With no flag on the card, the realistic scene's run rides in the same
     # line (the root bench's default headline).
-    on_card = str(args.device).startswith("cuda")
+    on_card = device.type == "cuda"
     if on_card and not (args.mode or args.exact_grads
-                        or args.scene != "random"):
+                        or args.scene != "random" or args.sharded_tiles
+                        or args.gaussian_sharded):
         r2 = run_bench(**preset("realistic", device=args.device))
         line["realistic_it_per_s"] = r2["value"]
         line["realistic_vs_baseline"] = r2["vs_baseline"]
@@ -93,8 +136,9 @@ def main(argv=None) -> int:
             line["realistic_overflow_cause"] = r2["details"].get(
                 "overflow_cause")
         result["details"]["realistic"] = r2["details"]
-    print(json.dumps(line))
-    print(json.dumps(result["details"]), file=sys.stderr)
+    if is_primary():
+        print(json.dumps(line))
+        print(json.dumps(result["details"]), file=sys.stderr)
     return 0
 
 

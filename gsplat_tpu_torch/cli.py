@@ -10,7 +10,10 @@ Subcommands:
   warmup   build the CUDA kernels, then render once per capacity bucket
 
 The flags are the JAX command's, plus `--device` (default cuda; `--device
-cpu` runs the kernels' plain versions), `--tier-spec` (the tiered ladder,
+cpu` runs the kernels' plain versions; a bare cuda under torchrun is
+cuda:LOCAL_RANK), `bench --dist-backend` (the sharded bench's backend,
+launched as `torchrun --standalone --nproc-per-node D -m
+gsplat_tpu_torch.cli bench --sharded-tiles D ...`), `--tier-spec` (the tiered ladder,
 e.g. '4:0,8:2,16:6,32:25,64:50') and `train --retighten-capacity` (fit's
 staged-capacity schedule). `--impl` is accepted so that a JAX command line
 runs unchanged, and selects nothing: the port has one path. The JAX command
@@ -226,13 +229,18 @@ def cmd_info(args) -> int:
 def cmd_bench(args) -> int:
     """A reproducible bench (utils/bench.py), and with --profile DIR a
     `torch.profiler` trace of it, written to DIR/trace.json (Chrome trace
-    format: chrome://tracing or Perfetto)."""
+    format: chrome://tracing or Perfetto). With --sharded-tiles every rank
+    started by torchrun runs it, on the backend --dist-backend names, and
+    rank 0 prints the line."""
     import os
 
+    from gsplat_tpu_torch.parallel.multihost import is_primary
     from gsplat_tpu_torch.utils.bench import run_bench
 
     if not args.profile:
-        print(json.dumps(_run_bench_args(args, run_bench)))
+        result = _run_bench_args(args, run_bench)
+        if is_primary():
+            print(json.dumps(result))
         return 0
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -244,11 +252,14 @@ def cmd_bench(args) -> int:
         result = _run_bench_args(args, run_bench)
     os.makedirs(args.profile, exist_ok=True)
     prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
-    print(json.dumps(result))
+    if is_primary():
+        print(json.dumps(result))
     return 0
 
 
 def _run_bench_args(args, run_bench):
+    from gsplat_tpu_torch.parallel.multihost import rank_device
+
     extra = {}
     if args.tier_spec:
         extra["tier_spec"] = _parse_tier_spec(args.tier_spec)
@@ -267,7 +278,8 @@ def _run_bench_args(args, run_bench):
         sharded_tiles=args.sharded_tiles or None,
         data_shards=args.data_shards,
         ssim_weight=args.ssim_weight,
-        device=args.device,
+        device=rank_device(args.device),
+        dist_backend=args.dist_backend,
         **extra,
     )
 
@@ -372,9 +384,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", metavar="DIR",
                    help="write a torch.profiler trace to DIR/trace.json")
     p.add_argument("--sharded-tiles", type=int, default=0,
-                   help="the tile-sharded bench (not yet ported: raises)")
+                   help="bench the tile-sharded path on a data-shards x N "
+                        "mesh, one process per rank started by torchrun "
+                        "(max-intersections becomes the per-shard capacity)")
     p.add_argument("--data-shards", type=int, default=1)
     p.add_argument("--ssim-weight", type=float, default=0.0)
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend of the sharded bench: "
+                        "nccl with one card per rank, gloo on the CPU or "
+                        "for ranks sharing one card (--device cuda:0)")
     _common_flags(p)
     p.set_defaults(fn=cmd_bench)
 

@@ -15,8 +15,9 @@ from the JAX package:
   - Keys are int64 with the values of the JAX u32 keys
     (`tile << depth_bits | depth_q`, sentinel 0xFFFFFFFF), because PyTorch's
     uint32 sort support on CUDA is not to be relied on.
-  - Sorts are `torch.sort(stable=False)` and ranges `torch.searchsorted`:
-    plain XLA ops in the JAX package, library calls here.
+  - Sorts are `torch.sort` and ranges `torch.searchsorted`: plain XLA ops
+    in the JAX package, library calls here. The key sort is stable, so that
+    ties keep the candidates' order.
   - The gather backward's strategies 'variadic', 'permute' and 'c64' are
     one code path here (see `_GatherSlots`), and so are its segment sums
     'doubling' and 'pallas' (see `gather_slots_bwd`).
@@ -27,8 +28,17 @@ from the JAX package:
     max_I + 1 rows), then orders the buffer by two stable sorts; its gather
     is a plain differentiable `index_select`, whose backward is a
     scatter-add (`gather_features`).
-  - Not yet ported: `_align_stream`, `quant_ranges` and shard-local tile
-    ranges (the sharded paths).
+  - `bin_gaussians(..., tile_start, num_local_tiles)` is the shard-local
+    binning of the sharded paths (`parallel/`): every route bins only the
+    tiles [tile_start, tile_start + num_local_tiles) of the global grid,
+    with local tile ids, after the global cull (K3 is unchanged), and
+    counts each Gaussian's candidates within the range for the gather
+    backward. tile_start is a Python int (one process per shard). Its keys
+    pack the global grid's depth bits (the JAX package packs the band's,
+    one more bit at 2 bands), and the key sort is stable: a band's stream
+    is then the single-device stream's, tie for tie, and the tile-sharded
+    render equals the single-device one bit for bit. With the band's bits,
+    the extra bit reorders Gaussians whose depths tie in the global key.
 """
 
 from __future__ import annotations
@@ -190,15 +200,20 @@ def _normalize_tier_plan(spec, kmax: int, n: int):
     return plan
 
 
-def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig):
+def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig,
+                       n_local: int, tile_start: int | None = None):
     """Tiered candidate expansion straight to (key, gidk) sort operands:
     every Gaussian gets a dense tier of candidate slots; Gaussians with more
     surviving tiles take rows in budgeted pools (prefixes of one shared
     count-descending ranking). Tiers enumerate only the tiles that survive
-    the cull (a per-row compaction of the cull mask).
+    the cull (a per-row compaction of the cull mask). With tile_start, only
+    the tiles [tile_start, tile_start + n_local) stay valid, re-based to
+    local ids; tier membership and pool budgets still follow the global
+    culled counts, as in the JAX package.
 
     Returns (key (M,) int64 with SENTINEL_KEY for invalid, gidk (M,) int32,
-    total () int32 valid count, pool_overflow () bool, counts (N,) int32)."""
+    total () int32 valid count, pool_overflow () bool, counts (N,) int32 of
+    candidates within the tile range)."""
     n = proj.mask.shape[0]
     dev = proj.mask.device
     kmax = cfg.max_tiles_per_gaussian
@@ -219,6 +234,20 @@ def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig):
         counts = torch.where(is_jumbo, 0, counts)
 
     tiers = _normalize_tier_plan(cfg.tier_spec, kmax, n)
+    if tile_start is None:
+        gcounts = counts
+    else:
+        # Shard-local candidate counts for the gather backward (the global
+        # culled counts over-count the lanes outside the tile range), on the
+        # compact (N, K_max) grid.
+        cky, ckx = _rect_divmod(torch.clamp_max(compact_k, kmax - 1),
+                                rect_w[:, None])
+        tile_all = ((proj.rect[:, 1:2] + cky) * cfg.tiles_x
+                    + (proj.rect[:, 0:1] + ckx))
+        k_all = torch.arange(kmax, dtype=torch.int32, device=dev)[None, :]
+        gcounts = ((k_all < counts[:, None]) & (tile_all >= tile_start)
+                   & (tile_all < tile_start + n_local)).sum(
+                       dim=1, dtype=torch.int32)
 
     # One count-descending ranking shared by every pool tier: memberships
     # are nested, so the members of any pool tier are a prefix of it.
@@ -260,6 +289,9 @@ def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig):
         cky, ckx = _rect_divmod(ck, row_w)
         tile = (row_y0 + cky) * cfg.tiles_x + (row_x0 + ckx)
         valid = kk < row_counts
+        if tile_start is not None:
+            valid = valid & (tile >= tile_start) & (tile < tile_start + n_local)
+            tile = tile - tile_start
         key = (tile.to(torch.int64) << depth_bits) | row_dq
         key = torch.where(valid, key, torch.full_like(key, SENTINEL_KEY))
         gidk = ((ids_c[:, None] << kb) | kk).to(torch.int32)
@@ -268,18 +300,20 @@ def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig):
         gidk_l.append(gidk.expand(key.shape).reshape(-1))
 
     if cfg.max_tiles_jumbo:
-        jkey_l, jgidk_l, jtotal, jovf, counts = _jumbo_candidates(
-            proj, cfg, rect_w, area_raw, is_jumbo, counts, depth_bits, kb)
+        jkey_l, jgidk_l, jtotal, jovf, gcounts = _jumbo_candidates(
+            proj, cfg, rect_w, area_raw, is_jumbo, gcounts, depth_bits, kb,
+            n_local, tile_start)
         key_l += jkey_l
         gidk_l += jgidk_l
         total = total + jtotal
         pool_overflow = pool_overflow | jovf
 
-    return torch.cat(key_l), torch.cat(gidk_l), total, pool_overflow, counts
+    return torch.cat(key_l), torch.cat(gidk_l), total, pool_overflow, gcounts
 
 
 def _jumbo_candidates(proj: ProjectedGaussians, cfg: RenderConfig, rect_w,
-                      area_raw, is_jumbo, counts, depth_bits: int, kb: int):
+                      area_raw, is_jumbo, counts, depth_bits: int, kb: int,
+                      n_local: int, tile_start: int | None = None):
     """The jumbo tiers (`cfg.max_tiles_jumbo`, port of
     `gsplat_tpu.ops.binning._jumbo_candidates`): full enumeration of the
     raw rect walk, up to max_tiles_jumbo tiles, for the splats whose rect
@@ -288,6 +322,9 @@ def _jumbo_candidates(proj: ProjectedGaussians, cfg: RenderConfig, rect_w,
     tier [k_lo, k_hi) takes the prefix of that ranking whose area exceeds
     k_lo, within its row budget. Membership past a budget, or a rect past
     max_tiles_jumbo, sets the overflow flag.
+
+    With tile_start, only the lanes on the tiles [tile_start, tile_start +
+    n_local) stay valid, re-based to local ids, and only they are counted.
 
     Returns (key chunks, gidk chunks, total, overflow, counts with the jumbo
     splats' culled counts added: the gather backward's run lengths)."""
@@ -318,9 +355,13 @@ def _jumbo_candidates(proj: ProjectedGaussians, cfg: RenderConfig, rect_w,
                                                       cfg.tile_size)
     else:
         maskj, krank, jcounts = rank_from_mask(kj < bound[ids_r][:, None])
-    counts = counts.index_add(0, ids_r, jcounts)
     tile_j = ((proj.rect[ids_r, 1:2] + ky_r) * cfg.tiles_x
               + (proj.rect[ids_r, 0:1] + kx_r))
+    if tile_start is not None:
+        maskj = maskj & (tile_j >= tile_start) & (tile_j < tile_start + n_local)
+        jcounts = maskj.sum(dim=1, dtype=torch.int32)
+        tile_j = tile_j - tile_start
+    counts = counts.index_add(0, ids_r, jcounts)
     key_j = ((tile_j.to(torch.int64) << depth_bits)
              | _depth_q(proj.depth[ids_r], depth_bits)[:, None])
     gidk_j = ((ids_r[:, None] << kb) | krank).to(torch.int32)
@@ -340,9 +381,12 @@ def _jumbo_candidates(proj: ProjectedGaussians, cfg: RenderConfig, rect_w,
     return key_l, gidk_l, total, overflow, counts
 
 
-def _candidate_tiles(proj: ProjectedGaussians, cfg: RenderConfig):
+def _candidate_tiles(proj: ProjectedGaussians, cfg: RenderConfig,
+                     n_local: int, tile_start: int | None = None):
     """Every Gaussian's K_max candidate (tile, gid << kbits | k), row-major
-    walk of its rect, with the cull/walk validity mask: (N, K_max) each."""
+    walk of its rect, with the cull/walk validity mask: (N, K_max) each.
+    With tile_start, only the tiles [tile_start, tile_start + n_local) stay
+    valid, re-based to local ids."""
     n = proj.mask.shape[0]
     dev = proj.mask.device
     kmax = cfg.max_tiles_per_gaussian
@@ -352,22 +396,87 @@ def _candidate_tiles(proj: ProjectedGaussians, cfg: RenderConfig):
     ky, kx = _rect_divmod(k, rect_w[:, None])
     tile = (proj.rect[:, 1:2] + ky) * cfg.tiles_x + (proj.rect[:, 0:1] + kx)
     valid = _rect_cull_mask(proj, cfg)
+    if tile_start is not None:
+        valid = valid & (tile >= tile_start) & (tile < tile_start + n_local)
+        tile = tile - tile_start
     gid = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
     gidk = ((gid << kb) | k).expand(tile.shape)
     return tile, gidk, valid
 
 
-def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussians:
+def _tile_ranges(s_tile: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """(n_tiles + 1,) int32 segment starts of the tile-sorted stream."""
+    return torch.searchsorted(
+        s_tile, torch.arange(n_tiles + 1, dtype=torch.int32,
+                             device=s_tile.device), side="left",
+    ).to(torch.int32)
+
+
+def _align_stream(s_tile, s_gid, ranges, max_i: int, n_local: int,
+                  align: int, s_cand=None):
+    """Re-space the sorted stream so that every tile's segment length is a
+    multiple of `align` (port of `gsplat_tpu.ops.binning._align_stream`).
+    Padding slots get gid -1, which gathers to an all-zero column (zero
+    opacity: no contribution, no gradient); s_cand, when given, is re-spaced
+    alongside (-1 on padding). Returns (tile, gid, ranges, total_padded[,
+    cand]); a total_padded above max_i means the stream was cut."""
+    dev = s_tile.device
+    counts = ranges[1:] - ranges[:-1]
+    padded = (counts + align - 1) // align * align
+    pstart = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
+                        torch.cumsum(padded, 0).to(torch.int32)])
+    total_padded = pstart[-1]
+    new_ranges = torch.clamp_max(pstart, max_i).to(torch.int32)
+
+    # Every per-slot quantity needed (tile index, padding shift before it,
+    # segment end) is monotone over the slots: written at the segment
+    # starts (max over empty tiles sharing a start), then a running max.
+    s = torch.arange(max_i, dtype=torch.int32, device=dev)
+    pos = torch.clamp_max(pstart[:-1], max_i).to(torch.int64)
+
+    def seg_broadcast(values):
+        m = torch.zeros((max_i + 1,), dtype=torch.int32, device=dev)
+        m = m.scatter_reduce(0, pos, values.to(torch.int32), "amax")
+        return torch.cummax(m[:max_i], 0).values
+
+    shift_of_s = seg_broadcast(pstart[:-1] - ranges[:-1])
+    end_of_s = seg_broadcast(ranges[1:])
+    t_of_s = seg_broadcast(torch.arange(n_local, dtype=torch.int32,
+                                        device=dev))
+    orig = s - shift_of_s
+    valid = (orig < end_of_s) & (s < total_padded)
+    orig_c = torch.clamp(orig, 0, max_i - 1).to(torch.int64)
+    new_gid = torch.where(valid, s_gid[orig_c], -1).to(torch.int32)
+    new_tile = torch.where(valid, t_of_s, n_local).to(torch.int32)
+    if s_cand is None:
+        return new_tile, new_gid, new_ranges, total_padded
+    new_cand = torch.where(valid, s_cand[orig_c], -1).to(torch.int32)
+    return new_tile, new_gid, new_ranges, total_padded, new_cand
+
+
+def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig,
+                  tile_start: int | None = None,
+                  num_local_tiles: int | None = None) -> BinnedGaussians:
     """Bin into the (tile, depth)-sorted stream of cfg.max_intersections
-    slots. No host synchronisation: overflow is reported as a flag."""
+    slots. No host synchronisation: overflow is reported as a flag.
+
+    tile_start / num_local_tiles restrict the binning to the global tiles
+    [tile_start, tile_start + num_local_tiles) with local tile ids: the
+    per-shard binning of the sharded paths, where cfg.max_intersections is
+    the per-shard capacity and the per-Gaussian counts are those within the
+    range. cfg.stream_align > 1 pads every tile's segment to a multiple of
+    it (`_align_stream`)."""
     max_i = cfg.max_intersections
     n = proj.mask.shape[0]
     dev = proj.mask.device
     kmax = cfg.max_tiles_per_gaussian
     kb = _kbits(kmax_eff(cfg))
-    n_tiles = cfg.num_tiles
+    n_tiles = cfg.num_tiles if num_local_tiles is None else num_local_tiles
+    if (tile_start is None) != (num_local_tiles is None):
+        raise ValueError("bin_gaussians: tile_start and num_local_tiles go "
+                         "together")
     if cfg.binning == "scatter":
-        return _bin_scatter(proj, cfg)
+        return _bin_scatter(proj, cfg, n_tiles, tile_start)
     n_cap = min((1 << 24) - 1, 1 << (31 - kb))
     if kmax > (1 << kb) or n >= n_cap:
         raise ValueError(
@@ -376,9 +485,10 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussian
         )
 
     if cfg.binning == "tiered":
-        key, gidk, total, pool_ovf, gcounts = _tiered_candidates(proj, cfg)
+        key, gidk, total, pool_ovf, gcounts = _tiered_candidates(
+            proj, cfg, n_tiles, tile_start)
     else:
-        tile, gidk, valid = _candidate_tiles(proj, cfg)
+        tile, gidk, valid = _candidate_tiles(proj, cfg, n_tiles, tile_start)
         pool_ovf = torch.zeros((), dtype=torch.bool, device=dev)
         gcounts = valid.sum(dim=1, dtype=torch.int32)
         total = gcounts.sum(dtype=torch.int32)
@@ -399,12 +509,12 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussian
     else:
         if cfg.binning == "packed":
             key = pack_tile_depth_key(
-                tile, proj.depth[:, None].expand(tile.shape), n_tiles
+                tile, proj.depth[:, None].expand(tile.shape), cfg.num_tiles
             )
             key = torch.where(valid, key, SENTINEL_KEY).reshape(-1)
-        order = torch.sort(key, stable=False).indices[:max_i]
+        order = torch.sort(key, stable=True).indices[:max_i]
         s_tile = torch.clamp_max(
-            key[order] >> depth_bits_for(n_tiles), n_tiles
+            key[order] >> depth_bits_for(cfg.num_tiles), n_tiles
         ).to(torch.int32)
     s_gidk = gidk[order]
     if order.shape[0] < max_i:
@@ -414,11 +524,11 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussian
     # Invalid candidates sort to the sentinel tile; mark them out.
     s_gidk = torch.where(s_tile < n_tiles, s_gidk, -1)
     s_gid = torch.where(s_gidk >= 0, s_gidk >> kb, 0)
-
-    ranges = torch.searchsorted(
-        s_tile, torch.arange(n_tiles + 1, dtype=torch.int32, device=dev),
-        side="left",
-    ).to(torch.int32)
+    ranges = _tile_ranges(s_tile, n_tiles)
+    if (cfg.stream_align or 1) > 1:
+        s_tile, s_gid, ranges, total_padded, s_gidk = _align_stream(
+            s_tile, s_gid, ranges, max_i, n_tiles, cfg.stream_align, s_gidk)
+        overflow = overflow | (total_padded > max_i)
 
     return BinnedGaussians(
         sorted_tile=s_tile,
@@ -432,7 +542,8 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussian
     )
 
 
-def _bin_scatter(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussians:
+def _bin_scatter(proj: ProjectedGaussians, cfg: RenderConfig, n_tiles: int,
+                 tile_start: int | None = None) -> BinnedGaussians:
     """binning='scatter': each valid candidate goes to the slot offsets[g] +
     its rank among g's valid candidates; slots past max_I and invalid lanes
     go to the trash row max_I, which is sliced off. The buffer is then
@@ -441,8 +552,7 @@ def _bin_scatter(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussians
     max_i = cfg.max_intersections
     n = proj.mask.shape[0]
     dev = proj.mask.device
-    n_tiles = cfg.num_tiles
-    tile, _, valid = _candidate_tiles(proj, cfg)
+    tile, _, valid = _candidate_tiles(proj, cfg, n_tiles, tile_start)
     counts = valid.sum(dim=1, dtype=torch.int32)
     total = counts.sum(dtype=torch.int32)
     overflow = proj.overflow | (total > max_i)
@@ -467,13 +577,15 @@ def _bin_scatter(proj: ProjectedGaussians, cfg: RenderConfig) -> BinnedGaussians
     order = torch.sort(depth_buf, stable=True).indices
     order = order[torch.sort(tile_buf[order], stable=True).indices]
     s_tile = tile_buf[order]
-    ranges = torch.searchsorted(
-        s_tile, torch.arange(n_tiles + 1, dtype=torch.int32, device=dev),
-        side="left",
-    ).to(torch.int32)
+    s_gid = gid_buf[order]
+    ranges = _tile_ranges(s_tile, n_tiles)
+    if (cfg.stream_align or 1) > 1:
+        s_tile, s_gid, ranges, total_padded = _align_stream(
+            s_tile, s_gid, ranges, max_i, n_tiles, cfg.stream_align)
+        overflow = overflow | (total_padded > max_i)
     return BinnedGaussians(
         sorted_tile=s_tile,
-        sorted_gid=gid_buf[order],
+        sorted_gid=s_gid,
         ranges=ranges,
         num_intersections=total,
         overflow=overflow,

@@ -266,12 +266,13 @@ class _RasterizePacked16(torch.autograd.Function):
     go through K4 with the config's read-out."""
 
     @staticmethod
-    def forward(ctx, feats, slots, gidk, offsets, counts, ranges, cfg):
-        tile_colors, tile_trans = raster_fwd(slots, ranges, cfg)
+    def forward(ctx, feats, slots, gidk, offsets, counts, ranges, cfg,
+                tile_offset):
+        tile_colors, tile_trans = raster_fwd(slots, ranges, cfg, tile_offset)
         if ctx.needs_input_grad[0]:
             ctx.save_for_backward(slots, gidk, offsets, counts, ranges,
                                   tile_colors, tile_trans)
-            ctx.cfg = cfg
+            ctx.cfg, ctx.tile_offset = cfg, tile_offset
         return tile_colors, tile_trans
 
     @staticmethod
@@ -280,19 +281,24 @@ class _RasterizePacked16(torch.autograd.Function):
             ctx.saved_tensors
         cfg = ctx.cfg
         dslot = raster_bwd(slots, ranges, g_colors, tile_colors, g_trans,
-                           tile_trans, cfg, pack_out=packs_grads(cfg))
+                           tile_trans, cfg, ctx.tile_offset,
+                           pack_out=packs_grads(cfg))
         dfeats = gather_slots_bwd(dslot, gidk, offsets, counts, kmax_eff(cfg),
                                   cfg.gather_backward, cfg.grad_readout)
-        return dfeats, None, None, None, None, None, None
+        return dfeats, None, None, None, None, None, None, None
 
 
-def rasterize_packed16(feats, slots, binned, cfg: RenderConfig):
+def rasterize_packed16(feats, slots, binned, cfg: RenderConfig, tile_offset=0):
     """feats (NUM_FEATURES, N) float32 and slots, the packed stream
     `stream16.gather_packed` made of them in `binned`'s slot order ->
-    (image (H, W, 3), trans (H, W)), differentiable in feats."""
+    (image (H, W, 3), trans (H, W)), differentiable in feats. cfg describes
+    the rasterized tiles: on the tile-sharded path one band of tile rows
+    (`parallel.sharding.local_tile_cfg`, which pins the global quant ranges
+    the stream was packed with), whose first tile is tile_offset of the
+    global grid; the JAX function's `lcfg`."""
     _check_device(slots)
     tile_colors, tile_trans = _RasterizePacked16.apply(
         feats, slots, binned.sorted_gidk, binned.gauss_offsets,
-        binned.gauss_counts, binned.ranges, cfg,
+        binned.gauss_counts, binned.ranges, cfg, tile_offset,
     )
     return _tiles_to_image(tile_colors, cfg), _tiles_to_scalar_image(tile_trans, cfg)

@@ -2,8 +2,9 @@
 backward through kernels K2 and K4 or K5, and an Adam update) and `fit`,
 the training loop with densification, opacity reset, SH warm-up,
 position-lr decay, the staged-capacity schedule, evals, metrics CSV and
-checkpoints (port of `gsplat_tpu.train.loop` without its multi-device
-path, and of `gsplat_tpu.parallel.train_step.make_optimizer`).
+checkpoints (port of `gsplat_tpu.train.loop`, and of
+`gsplat_tpu.parallel.train_step.make_optimizer`); with `mesh=` the fit
+drives the tile-sharded step of `parallel/train_step.py`.
 
 Where the JAX step is a pure function of a train state, the port's step
 updates the scene's tensors in place: they are the optimizer's parameters
@@ -275,6 +276,8 @@ def fit(
     trace_dir: str | None = None,
     trace_steps: tuple[int, int] | None = None,
     mesh=None,
+    data_axis: str = "data",
+    tile_axis: str = "tiles",
     retighten_capacity: float = 0.0,
 ):
     """Fit `scene` to `targets` seen from `cameras` (port of
@@ -282,8 +285,15 @@ def fit(
     metrics list). The caller's scene is not modified: the fit trains a
     copy, and returns its tensors detached.
 
-    mesh: the JAX fit's multi-device path; not yet ported (ROADMAP queue 1
-    item 4), so anything but None raises.
+    mesh: a `parallel.sharding.Mesh` with ('data', 'tiles') axes (an absent
+    axis counts as size 1): every rank of the mesh calls fit alike, and it
+    runs the tile-sharded step (`parallel/train_step.py`) with the same
+    protocol: densification, opacity reset, SH warm-up, the staged capacity
+    and the overflow and health guards. `batch` must divide by the data
+    axis; cfg.max_intersections is the per-shard capacity. The scene and
+    Adam's state stay replicated, bit for bit alike on every rank, so
+    eval_fn and checkpoints see whole tensors; only the primary rank (rank
+    0) writes checkpoints, the metrics CSV and the log rows.
 
     sh_warmup_every > 0 activates the SH bands progressively: active degree
     = min(sh_degree, step // sh_warmup_every) (graphdeco's oneupSHdegree).
@@ -322,11 +332,6 @@ def fit(
     """
     if overflow_policy not in ("raise", "warn", "ignore"):
         raise ValueError(f"unknown overflow_policy {overflow_policy!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit(mesh=...): the multi-device fit is not yet ported "
-            "(ROADMAP.md queue 1 item 4)"
-        )
     from gsplat_tpu_torch.train.densify import (
         accumulate_grads,
         densify_and_prune,
@@ -352,17 +357,52 @@ def fit(
     n_cap = scene.num_gaussians
     dstate = init_densify_state(n_cap, dev)
     start_step = 0
+    # With a mesh, rank 0 alone writes checkpoints, the CSV and the log.
+    primary = mesh is None or mesh.rank == 0
+
+    def say(msg) -> None:
+        if primary:
+            print(msg)
+
     if resume:
         start_step = load_checkpoint(resume, scene, optimizer)
-        print(f"resumed from {resume} at step {start_step}")
+        say(f"resumed from {resume} at step {start_step}")
 
     def detached():
         return GaussianScene(*(p.detach() for p in params))
 
+    if mesh is not None:
+        from gsplat_tpu_torch.parallel.sharding import local_tile_cfg
+        from gsplat_tpu_torch.parallel.train_step import (
+            make_sharded_train_step,
+            shard_batch,
+        )
+
+        local_tile_cfg(cfg, mesh.size_of(tile_axis))  # validates the grid
+        if batch % mesh.size_of(data_axis) != 0:
+            raise ValueError(f"batch={batch} not divisible by data axis "
+                             f"{mesh.size_of(data_axis)}")
+        # Targets padded once to the tile grid; each rank then takes only
+        # its band of its views (shard_batch).
+        ph, pw = cfg.padded_height, cfg.padded_width
+        targets = torch.nn.functional.pad(
+            targets, (0, 0, 0, pw - targets.shape[2], 0, ph - targets.shape[1]))
+
     def build_step(c: RenderConfig):
         """The train step under config c: rebuilt by the staged-capacity
         schedule with a different max_intersections and tier_spec."""
-        return make_train_step(c, optimizer, ssim_weight)
+        if mesh is None:
+            return make_train_step(c, optimizer, ssim_weight)
+        sharded_step = make_sharded_train_step(
+            c, mesh, optimizer, ssim_weight, data_axis=data_axis,
+            tile_axis=tile_axis)
+
+        def step_fn(scene, cams_b, targets_b, active_sh=None):
+            cams_b, targets_b = shard_batch(cams_b, targets_b, mesh,
+                                            data_axis, tile_axis)
+            return sharded_step(scene, cams_b, targets_b, active_sh)
+
+        return step_fn
 
     step_fn = build_step(cfg)
     # Staged capacity: 'full' -> (tighten at densify_until) -> 'tight' ->
@@ -390,7 +430,7 @@ def fit(
             # Any overflow under the tightened config (stream demand or a
             # tightened pool) regrows instead of aborting. Gradients of at
             # most log_every steps were truncated.
-            print(
+            say(
                 f"WARNING: staged capacity overflowed at step <= {at_step} "
                 f"(stream demand {demand} vs tightened "
                 f"{tight_cfg.max_intersections}; or a tightened pool); "
@@ -422,7 +462,7 @@ def fit(
         )
         if overflow_policy == "raise":
             raise RuntimeError(msg)
-        print(f"WARNING: {msg}")
+        say(f"WARNING: {msg}")
         ovf_any = torch.zeros_like(ovf_any)
         int_max = torch.zeros_like(int_max)
 
@@ -469,7 +509,7 @@ def fit(
             )
             if overflow_policy == "raise":
                 raise RuntimeError(msg)
-            print(f"WARNING: {msg}")
+            say(f"WARNING: {msg}")
 
     # Epoch-shuffled view sampling: a reshuffled stack of the views each
     # epoch (uniform draws with replacement can starve views).
@@ -543,8 +583,8 @@ def fit(
                 # Moments survive for untouched slots; killed and new slots
                 # start cold.
                 mask_opt_moments(optimizer, changed)
-                print({k: int(v) if k != "saturated" else bool(v)
-                       for k, v in dstats.items()} | {"densify_at": it + 1})
+                say({k: int(v) if k != "saturated" else bool(v)
+                     for k, v in dstats.items()} | {"densify_at": it + 1})
         if (
             retighten_capacity
             and capacity_stage == "full"
@@ -587,7 +627,7 @@ def fit(
                     **({"tier_spec": new_spec}
                        if new_spec is not None else {}),
                 )
-                print(
+                say(
                     f"staged capacity: tightening max_intersections "
                     f"{cfg.max_intersections} -> "
                     f"{tight_cfg.max_intersections} and tier_spec "
@@ -622,7 +662,7 @@ def fit(
                 )
                 if overflow_policy == "raise":
                     raise FloatingPointError(msg)
-                print(f"WARNING: {msg}")
+                say(f"WARNING: {msg}")
                 grads_ok = torch.ones_like(grads_ok)
                 grads_leaf_ok = None
             loss = float(loss)
@@ -638,13 +678,19 @@ def fit(
                 check_scene_health(row, it + 1)
                 t_last = time.time()  # eval time is not billed to it/s
             metrics.append(row)
-            print(row if on_metrics is None else on_metrics(row))
-            if metrics_csv:
+            say(row if on_metrics is None else on_metrics(row))
+            if metrics_csv and primary:
                 _append_csv_row(metrics_csv, row)
         if checkpoint_every and (it + 1) % checkpoint_every == 0:
             path = os.path.join(checkpoint_dir, f"ckpt_{it + 1:06d}.npz")
-            save_checkpoint(path, scene, optimizer, it + 1)
-            print(f"checkpoint -> {path}")
+            if primary:
+                save_checkpoint(path, scene, optimizer, it + 1)
+                print(f"checkpoint -> {path}")
+            if mesh is not None:
+                # Every rank goes on once the file is written.
+                from gsplat_tpu_torch.parallel.sharding import all_reduce
+
+                all_reduce(torch.zeros((1,), device=dev), mesh)
     if prof is not None:
         prof.__exit__(None, None, None)
         os.makedirs(trace_dir, exist_ok=True)

@@ -1,6 +1,9 @@
-"""Benchmark harness (port of `gsplat_tpu.utils.bench`, single device): times
-the fwd or fwd+bwd pipeline on one device and reports it/s and Mpix/s, with
-the same arguments and result keys as the JAX `run_bench`.
+"""Benchmark harness (port of `gsplat_tpu.utils.bench`): times the fwd or
+fwd+bwd pipeline and reports it/s and Mpix/s, with the same arguments and
+result keys as the JAX `run_bench`; with `sharded_tiles` or
+`gaussian_shards` the tile-sharded or Gaussian-sharded path, one process per
+rank (`torchrun`), each rank timing the same window between two collectives
+and rank 0's numbers reported.
 
 The window dispatches `iters` calls and synchronises once, so host dispatch
 overlaps device work as in a training loop; the host clock is read around
@@ -20,10 +23,6 @@ from gsplat_tpu_torch.config import RenderConfig
 from gsplat_tpu_torch.models.gaussians import random_scene, realistic_scene
 from gsplat_tpu_torch.ops.camera import Camera
 from gsplat_tpu_torch.render.pipeline import render, render_loss_and_grad
-
-NOT_PORTED = ("the multi-device benches are not yet ported (ROADMAP.md "
-              "queue 1 item 4)")
-
 
 def device_name(device) -> str:
     """The card's name and power limit as `nvidia-smi --query-gpu=name,
@@ -114,21 +113,22 @@ def run_bench(
     jumbo_tier_spec: tuple | None = None,
     device="cuda",
     after_window=None,
+    dist_backend: str | None = None,
 ) -> dict:
     """it/s of `mode` ('fwd': the render; 'fwd_bwd': the L1 loss and its
     scene gradients) at width x height on `device`, with the JAX result's
     keys. `impl` selects nothing in the port (one path) and is only named
     in the metric. `compile_s` is the first call's seconds: it includes
     the `nvcc` build of the kernels when `build/` holds none for these
-    sources. `sharded_tiles` and `gaussian_shards` (with data_shards,
-    per_dest_capacity and ssim_weight, which only they read) are the JAX
-    package's multi-device benches: not yet ported, they raise. The port
-    adds `after_window`: called, when given, with the call the window
-    timed, after the window (`chip_smoke.py` counts its synchronising
-    calls)."""
-    if sharded_tiles or gaussian_shards:
-        raise NotImplementedError(f"run_bench(sharded_tiles / "
-                                  f"gaussian_shards): {NOT_PORTED}")
+    sources. `sharded_tiles` (a data_shards x sharded_tiles mesh; the
+    capacity is per shard) and `gaussian_shards` (with per_dest_capacity)
+    are the multi-device benches, with ssim_weight the loss's, which only
+    they read: every rank of the process group calls run_bench alike, and
+    `dist_backend` names the backend to bring the group up with from
+    torchrun's environment when it is not up yet (`multihost.initialize`).
+    The port adds `after_window`: called, when given, with the call the
+    window timed, after the window (`chip_smoke.py` counts its
+    synchronising calls)."""
     device = torch.device(device)
     extra = {}
     if tier_spec is not None:
@@ -168,6 +168,18 @@ def run_bench(
     )
     scene = bench_scene(num_gaussians, ply, seed, scene_kind, device)
     cam = Camera.default(width, height, device=device)
+    if sharded_tiles or gaussian_shards:
+        from gsplat_tpu_torch.parallel import multihost
+
+        multihost.initialize(dist_backend, device=device)
+        if sharded_tiles:
+            return _run_bench_sharded(scene, cam, cfg, mode, iters,
+                                      sharded_tiles, data_shards, ssim_weight,
+                                      target_its, impl, device)
+        return _run_bench_gaussian_sharded(scene, cam, cfg, mode, iters,
+                                           gaussian_shards, per_dest_capacity,
+                                           ssim_weight, target_its, impl,
+                                           device)
     fn = bench_iteration(scene, cam, cfg, mode)
 
     # The first call (the kernels' build included) and one more.
@@ -221,5 +233,182 @@ def run_bench(
             "suggested_max_intersections": int(out.num_intersections * 1.15),
             "device": device_name(device),
             "impl": impl,
+        },
+    }
+
+
+def _timed_window(fn, iters: int, mesh, device):
+    """(compile_s, seconds per call) of fn on every rank of the mesh: the
+    first call, one more, then `iters` calls between two collectives, so
+    that the window closes when the slowest rank is done."""
+    from gsplat_tpu_torch.parallel.sharding import all_reduce
+
+    fence = torch.zeros((1,), device=device)
+    all_reduce(fence, mesh)
+    synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    synchronize(device)
+    compile_s = time.perf_counter() - t0
+    out = fn()
+    all_reduce(fence, mesh)
+    synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn()
+    all_reduce(fence, mesh)
+    synchronize(device)
+    del out
+    return compile_s, (time.perf_counter() - t0) / iters
+
+
+def _run_bench_sharded(scene, cam, cfg, mode, iters, n_tiles, n_data,
+                       ssim_weight, target_its, impl, device):
+    """The tile-sharded (x data-parallel) bench body: the forward of one
+    band per rank (no collective on the image), or the sharded train step
+    on n_data views, with the bytes its collectives move."""
+    import dataclasses
+
+    from gsplat_tpu_torch.parallel.sharding import (
+        _render_local_tiles,
+        local_tile_cfg,
+        make_mesh,
+        render_tile_sharded,
+    )
+    from gsplat_tpu_torch.parallel.train_step import (
+        make_sharded_train_step,
+        shard_batch,
+    )
+    from gsplat_tpu_torch.train.loop import make_optimizer
+    from gsplat_tpu_torch.train.losses import SSIM_HALO
+
+    mesh = make_mesh({"data": n_data, "tiles": n_tiles}, device)
+    w, h = cfg.width, cfg.height
+    # Bytes per step (float32): the gradient all_reduce's payload (the whole
+    # scene, once; a ring moves about twice that), and the SSIM halo rows of
+    # prediction and target, both ways, per view.
+    grad_bytes = sum(getattr(scene, f.name).numel() * 4
+                     for f in dataclasses.fields(scene))
+    halo_bytes = (2 * SSIM_HALO * cfg.padded_width * 3 * 4 * 2 * n_data
+                  if ssim_weight > 0.0 else 0)
+    if mode == "fwd":
+        lcfg = local_tile_cfg(cfg, n_tiles)
+        band = mesh.index("tiles")
+
+        def fn():
+            with torch.no_grad():
+                return _render_local_tiles(scene, cam, cfg, lcfg, band)[0]
+
+        comm = {"fwd_comm_bytes_per_frame": 0}
+    else:
+        train = type(scene)(**{f.name: getattr(scene, f.name).detach().clone()
+                               for f in dataclasses.fields(scene)})
+        step = make_sharded_train_step(cfg, mesh, make_optimizer(train, 1e-2),
+                                       ssim_weight=ssim_weight)
+        targets = torch.zeros((n_data, cfg.padded_height, cfg.padded_width, 3),
+                              device=device)
+        cams, targets = shard_batch([cam] * n_data, targets, mesh)
+
+        def fn():
+            return step(train, cams, targets)
+
+        comm = {"grad_psum_bytes_per_step": grad_bytes,
+                "ssim_halo_bytes_per_step": halo_bytes}
+    compile_s, dt = _timed_window(fn, iters, mesh, device)
+    its = 1.0 / dt
+    with torch.no_grad():
+        _, _, ovf = render_tile_sharded(scene, cam, cfg, mesh)
+    return {
+        "metric": (f"{mode} it/s @ {w}x{h}, {scene.num_gaussians} gaussians "
+                   f"(sharded data{n_data}xtiles{n_tiles}, {impl})"),
+        "value": round(its, 3),
+        "unit": "it/s",
+        "vs_baseline": round(its / target_its, 4),
+        "details": {
+            "ms_per_iter": round(dt * 1000, 3),
+            "mpix_per_s": round(w * h / dt / 1e6, 2),
+            "compile_s": round(compile_s, 1),
+            "mesh": {"data": n_data, "tiles": n_tiles},
+            "per_shard_max_intersections": cfg.max_intersections,
+            "overflow": bool(ovf),
+            "devices": mesh.size,
+            "device": device_name(device),
+            **comm,
+        },
+    }
+
+
+def _run_bench_gaussian_sharded(scene, cam, cfg, mode, iters, d,
+                                per_dest_capacity, ssim_weight, target_its,
+                                impl, device):
+    """The Gaussian-sharded bench body: the forward of one shard per rank
+    (exchange, merge, its band's blend), or the sharded train step, with the
+    fragment exchange's bytes and the occupancy report against
+    per_dest_capacity."""
+    from gsplat_tpu_torch.parallel.gaussian_sharded import (
+        _shard_render,
+        _src_cfg_for,
+        exchange_bytes,
+        fragment_occupancy,
+        shard_scene,
+    )
+    from gsplat_tpu_torch.parallel.gaussian_train import (
+        make_gaussian_sharded_train_step,
+        shard_train_state,
+    )
+    from gsplat_tpu_torch.parallel.sharding import local_tile_cfg, make_mesh
+    from gsplat_tpu_torch.train.losses import SSIM_HALO
+
+    mesh = make_mesh({"gauss": d}, device)
+    w, h = cfg.width, cfg.height
+    cap = per_dest_capacity or max(cfg.max_intersections // d, 1)
+    occ = fragment_occupancy(scene, cam, cfg, d, per_dest_capacity=cap)
+    wire = exchange_bytes(cfg, d, cap)
+    lcfg = local_tile_cfg(cfg, d)
+    if mode == "fwd":
+        local = shard_scene(scene, mesh)
+        src_cfg = _src_cfg_for(cfg)
+
+        def fn():
+            with torch.no_grad():
+                return _shard_render(local, cam, cfg, src_cfg, lcfg, mesh,
+                                     "gauss", cap, cfg.stream_align or 1)[0]
+
+        comm = {"a2a_bytes_per_frame": wire["fwd"]}
+    else:
+        local, opt = shard_train_state(scene, mesh, lr=1e-2)
+        step = make_gaussian_sharded_train_step(
+            cfg, mesh, opt, scene.num_gaussians, ssim_weight=ssim_weight,
+            per_dest_capacity=cap)
+        targets = torch.zeros((1, lcfg.height, lcfg.width, 3), device=device)
+
+        def fn():
+            return step(local, [cam], targets)
+
+        comm = {
+            "a2a_bytes_per_step": wire["fwd"] + wire["bwd"],
+            "ssim_halo_bytes_per_step": (
+                2 * SSIM_HALO * cfg.padded_width * 3 * 4 * 2
+                if ssim_weight > 0.0 else 0),
+        }
+    compile_s, dt = _timed_window(fn, iters, mesh, device)
+    its = 1.0 / dt
+    return {
+        "metric": (f"{mode} it/s @ {w}x{h}, {scene.num_gaussians} gaussians "
+                   f"(gaussian-sharded x{d}, {impl})"),
+        "value": round(its, 3),
+        "unit": "it/s",
+        "vs_baseline": round(its / target_its, 4),
+        "details": {
+            "ms_per_iter": round(dt * 1000, 3),
+            "mpix_per_s": round(w * h / dt / 1e6, 2),
+            "compile_s": round(compile_s, 1),
+            "mesh": {"gauss": d},
+            "per_dest_capacity": cap,
+            "fragment_occupancy": occ,
+            "overflow": occ["overflow"],
+            "devices": mesh.size,
+            "device": device_name(device),
+            **comm,
         },
     }

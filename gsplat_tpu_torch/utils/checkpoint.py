@@ -47,6 +47,11 @@ def save_checkpoint(path: str, scene: GaussianScene, optimizer,
                     step: int) -> None:
     """Atomically save the scene, the `SceneAdam` state and the fit's step
     to an .npz."""
+    atomic_savez(path, checkpoint_arrays(scene, optimizer, step))
+
+
+def checkpoint_arrays(scene: GaussianScene, optimizer, step: int) -> dict:
+    """The named host arrays of a checkpoint."""
     payload = {}
     for group in optimizer.param_groups:
         name, param = group["name"], group["params"][0]
@@ -58,6 +63,11 @@ def save_checkpoint(path: str, scene: GaussianScene, optimizer,
             payload[f"adam.{name}.{k}"] = v
     payload["adam.updates"] = np.int64(optimizer.updates)
     payload["step"] = np.int64(step)
+    return payload
+
+
+def atomic_savez(path: str, payload: dict) -> None:
+    """np.savez to a temp file beside `path`, then `os.replace` onto it."""
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
@@ -86,7 +96,12 @@ def load_checkpoint(path: str, scene: GaussianScene, optimizer) -> int:
     nothing, if an array's shape differs from its tensor's. Returns the
     fit's step."""
     with np.load(path) as data:
-        arrays = {k: data[k] for k in data.files}
+        return restore_arrays({k: data[k] for k in data.files}, scene,
+                              optimizer)
+
+
+def restore_arrays(arrays: dict, scene: GaussianScene, optimizer) -> int:
+    """`load_checkpoint` from the named arrays of a checkpoint."""
     restore = []
     for group in optimizer.param_groups:
         name, param = group["name"], group["params"][0]

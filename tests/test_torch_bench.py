@@ -108,8 +108,11 @@ def test_run_bench_matches_jax_keys_and_readings(tmp_path):
 
 
 def test_run_bench_refuses_the_sharded_benches():
+    """In one process with no process group, a sharded bench is refused:
+    its mesh needs a rank per shard (tests/test_torch_sharding.py and
+    tests/test_torch_gaussian_sharded.py run them on gloo ranks)."""
     for kw in (dict(sharded_tiles=2), dict(gaussian_shards=2)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        with pytest.raises(ValueError, match="mesh needs 2 ranks"):
             run_bench(num_gaussians=10, width=16, height=16, device="cpu",
                       **kw)
 

@@ -330,3 +330,99 @@ def test_scatter_binning_is_a_later_slice():
                                       np.asarray(jb.sorted_tile))
         np.testing.assert_array_equal(b.sorted_gid.numpy()[:n],
                                       np.asarray(jb.sorted_gid)[:n])
+
+
+SHARD_KW = [
+    dict(BASE, binning="tiered", tier_spec=((4, 0), (8, 2), (16, 6),
+                                            (32, 25), (64, 50))),
+    dict(BASE, binning="packed"),
+    dict(BASE, binning="sort"),
+    dict(BASE, binning="tiered", tile_culling=False),
+    # The jumbo tiers of tests/test_torch_jumbo.py's config.
+    dict(BASE, binning="tiered", max_tiles_per_gaussian=8,
+         tier_spec=((4, 0), (8, 2)), max_tiles_jumbo=64,
+         jumbo_tier_spec=((16, 16), (32, 8), (64, 8))),
+]
+
+
+@pytest.mark.parametrize("band,bands", [(0, 4), (2, 4), (1, 2)])
+@pytest.mark.parametrize("kw", SHARD_KW)
+def test_shard_local_binning_matches_jax(kw, band, bands):
+    """bin_gaussians(tile_start, num_local_tiles), the sharded paths'
+    binning, equals JAX's on every route: the local stream, its ranges and
+    the per-Gaussian counts within the band (the gather backward's runs)."""
+    proj, cfg, jproj, jcfg = both(kw, scale_shift=0.5)
+    n_local = cfg.num_tiles // bands
+    t0 = band * n_local
+    b = tbin.bin_gaussians(proj, cfg, tile_start=t0, num_local_tiles=n_local)
+    jb = jbin.bin_gaussians(jproj, jcfg, tile_start=t0,
+                            num_local_tiles=n_local)
+    assert b.ranges.shape[0] == n_local + 1 and int(b.num_intersections) > 0
+    assert_binned_equal(b, jb)
+    # The band's counts are at most the whole grid's, and differ somewhere.
+    whole = tbin.bin_gaussians(proj, cfg).gauss_counts
+    assert bool((b.gauss_counts <= whole).all())
+    assert not torch.equal(b.gauss_counts, whole)
+
+
+def test_shard_local_scatter_binning_matches_jax():
+    kw = dict(BASE, binning="scatter")
+    proj, cfg, jproj, jcfg = both(kw)
+    n_local = cfg.num_tiles // 2
+    with torch.no_grad():
+        b = tbin.bin_gaussians(proj, cfg, tile_start=n_local,
+                               num_local_tiles=n_local)
+    jb = jbin.bin_gaussians(jproj, jcfg, tile_start=n_local,
+                            num_local_tiles=n_local)
+    n = int(jb.num_intersections)
+    assert int(b.num_intersections) == n > 0
+    np.testing.assert_array_equal(b.ranges.numpy(), np.asarray(jb.ranges))
+    np.testing.assert_array_equal(b.sorted_tile.numpy(),
+                                  np.asarray(jb.sorted_tile))
+    np.testing.assert_array_equal(b.sorted_gid.numpy()[:n],
+                                  np.asarray(jb.sorted_gid)[:n])
+
+
+@pytest.mark.parametrize("kw", [dict(BASE, binning="tiered", stream_align=4),
+                                dict(BASE, binning="scatter", stream_align=8)])
+def test_stream_align_matches_jax(kw):
+    """stream_align > 1 (`_align_stream`): every segment padded to a
+    multiple of the alignment with gid -1 slots, as in JAX."""
+    proj, cfg, jproj, jcfg = both(kw, scale_shift=0.5)
+    with torch.no_grad():
+        b = tbin.bin_gaussians(proj, cfg)
+    jb = jbin.bin_gaussians(jproj, jcfg)
+    r = b.ranges.numpy()
+    np.testing.assert_array_equal(r, np.asarray(jb.ranges))
+    assert np.all(np.diff(r) % cfg.stream_align == 0) and int(b.ranges[-1]) > 0
+    np.testing.assert_array_equal(b.sorted_tile.numpy(),
+                                  np.asarray(jb.sorted_tile))
+    assert _per_tile_multisets(b.sorted_gid, b.ranges) == \
+        _per_tile_multisets(jb.sorted_gid, jb.ranges)
+    assert bool(b.overflow) == bool(jb.overflow) is False
+
+
+@pytest.mark.parametrize("max_i", [4096, 200])
+def test_align_stream_matches_jax(max_i):
+    """_align_stream alone on a hand-made sorted stream with empty tiles,
+    with room to spare and cut short (total_padded > max_i), with the
+    candidate stream carried along: every output equal to JAX's."""
+    rng = np.random.default_rng(0)
+    n_tiles, align = 40, 8
+    counts = rng.integers(0, 12, n_tiles) * (rng.random(n_tiles) < 0.7)
+    tiles = np.repeat(np.arange(n_tiles), counts).astype(np.int32)
+    total = tiles.shape[0]
+    s_tile = np.full((max_i,), n_tiles, np.int32)
+    s_tile[:min(total, max_i)] = tiles[:max_i]
+    s_gid = rng.integers(0, 500, max_i).astype(np.int32)
+    s_cand = rng.integers(0, 1 << 20, max_i).astype(np.int32)
+    ranges = np.searchsorted(s_tile, np.arange(n_tiles + 1)).astype(np.int32)
+    got = tbin._align_stream(*(torch.from_numpy(a) for a in (
+        s_tile, s_gid, ranges)), max_i, n_tiles, align,
+        torch.from_numpy(s_cand))
+    want = jbin._align_stream(jnp.asarray(s_tile), jnp.asarray(s_gid),
+                              jnp.asarray(ranges), max_i, n_tiles, align,
+                              jnp.asarray(s_cand))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    assert (int(got[3]) > max_i) == (max_i == 200)

@@ -100,7 +100,8 @@ def test_cli_bench_smoke_and_profile(tmp_path, capsys):
                      "--iters", "1", "--profile", str(prof)]
                     + _common() + CPU) == 0
     assert (prof / "trace.json").stat().st_size > 0
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    # One process, no process group: the sharded bench needs 2 ranks.
+    with pytest.raises(ValueError, match="mesh needs 2 ranks"):
         cli.main(["bench", "--synthetic-n", "300", "--sharded-tiles", "2"]
                  + _common() + CPU)
 

@@ -201,10 +201,20 @@ def test_fit_aborts_naming_nonfinite_grad_leaf():
 
 
 def test_fit_refuses_a_mesh():
+    """fit(mesh=...) refuses a mesh whose data axis does not divide the
+    batch, and one whose tile axis does not divide the tile rows (rank 0's
+    view of such meshes; tests/test_torch_sharding.py fits on real ones)."""
+    from gsplat_tpu_torch.parallel.sharding import Mesh
+
     scene = _scene(0)
     cams, targets = _batch(scene)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        fit(scene, cams, targets, CFG, steps=1, mesh=object())
+    cpu = torch.device("cpu")
+    data2 = Mesh(("data", "tiles"), (2, 1), (0, 0), (None, None), cpu, False)
+    with pytest.raises(ValueError, match="not divisible by data axis"):
+        fit(scene, cams, targets, CFG, steps=1, batch=1, mesh=data2)
+    tiles3 = Mesh(("tiles",), (3,), (0,), (None,), cpu, False)
+    with pytest.raises(ValueError, match="not divisible by 3 shards"):
+        fit(scene, cams, targets, CFG, steps=1, mesh=tiles3)
 
 
 def test_staged_capacity_tightens(capsys):
