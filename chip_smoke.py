@@ -100,11 +100,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
        differing entries, K5 the tolerances of 6 and a relaunch
        bit-identical;
      - bench: `run_bench` of {fwd, fwd_bwd} x {random, realistic} x
-       {default, --exact-grads} (`gsplat_tpu_torch.bench.preset`, iters
+       {default, --exact-grads} (`gsplat_tpu_torch.bench.preset`, the
+       realistic runs with the default headline's jumbo ladder, iters
        10), each free of overflow with view 0's intersections of the
-       matching serve path, and the synchronising calls per iteration of
-       the call its window timed (`torch.cuda.set_sync_debug_mode`, a
-       reading);
+       matching serve path; and the ninth, `--viewer` (800x800, forward,
+       K_max 32, jumbo tiers to 1024; the arguments
+       `gsplat_tpu_torch.bench.main` makes for the flag), free of
+       overflow, below its 2,330,000 capacity, through K3's rank stage;
+       each window's timed call making 0 synchronising calls per
+       iteration (`torch.cuda.set_sync_debug_mode`);
      - cli_render: `cli render` of the trained PLY with --viewer-preset
        --pad-bucket --orbit 4; orbit view 0's own inputs to K3's compact
        stage (K 32) and rank stage (the jumbo grid, K 1024, which holds no
@@ -189,6 +193,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
      17. nccl_world1: one rank on NCCL, a tile-sharded frame (tiles 1) and
          a Gaussian-sharded train step (gauss 1), both bit-identical to the
          single-device port.
+ 18. the ports of the root tools, each a main path (`check_tools`):
+     - scene_report: `python -m gsplat_tpu_torch.scene_report` of the 1M
+       random scene at the bench's flags, orbit 4, camera 0's
+       intersections equal to view 0's of the serve path; then the
+       realistic scene with the jumbo ladder, its jumbo block printed;
+     - train_protocol: `gsplat_tpu_torch.train_protocol.main` at its full
+       512x512 shape cut to 1200 steps (`PROTOCOL_ARGV`): no overflow under
+       'raise', a densify round that split or cloned, the capacity
+       tightened, the loss falling, the last held-out PSNR finite and
+       above the first eval's; after the path, the first step's own
+       inputs to K3 (compact, K 128), K1 and K2 (packed16, tile 16, bf16
+       pairs out) and K5 against their plain versions with the tolerances
+       of 4-6, each relaunch bit-identical; then 0 synchronising calls per
+       train step, and as many in `fit` at 3 steps as at 6
+       (`check_step_syncs`);
+     - train_sharded_smoke: the module's rank body at its shape (128x128,
+       350 steps) on data 2 x tiles 2, four ranks sharing cuda:0 over
+       gloo, and its asserts (loss, PSNR, scene alive, more alive than
+       the init: a densify round split or cloned);
+     - fit_demo: 800 steps of `gsplat_tpu_torch.fit_demo` per stream
+       (f32; packed16 and packed4 with --fast), each view-0 PSNR finite
+       and >= 5 dB above its initial render's, printed beside the JAX
+       demo's TPU readings.
+     Each phase prints its seconds.
 Then one JSON line of kernel numbers, each kernel with its launches on each
 main path (`launches_by_path`, and their sum as `launches`; K3's rank stage
 on the jumbo grid also alone, `rank_launches_by_path`), and as the last
@@ -263,10 +291,10 @@ from gsplat_tpu_torch import bench as _bench  # noqa: E402
 
 NUM_GAUSSIANS = _bench.CARD["num_gaussians"]
 BENCH = dict({k: v for k, v in _bench.CARD.items()
-              if k not in ("num_gaussians", "impl", "mode", "iters",
-                           "segment_sum")}, stream_format="f32")
-DEFAULT = dict(_bench.DEFAULT, segment_sum=_bench.CARD["segment_sum"])
-EXACT = dict(_bench.EXACT, segment_sum=_bench.CARD["segment_sum"])
+              if k not in ("num_gaussians", "impl", "mode", "iters")},
+             stream_format="f32")
+DEFAULT = _bench.DEFAULT
+EXACT = _bench.EXACT
 JUMBO = _bench.JUMBO
 GOLDEN = dict(width=64, height=64, tile_size=8, max_intersections=1 << 14,
               max_tiles_per_gaussian=64, block_size=8, max_per_tile=512)
@@ -1497,44 +1525,62 @@ def count_syncs(fn, iters: int):
 def check_bench(view0: dict, card: str) -> list:
     """The `bench` path: `run_bench` of the 8 runs {fwd, fwd_bwd} x
     {random, realistic} x {default, --exact-grads} of
-    `gsplat_tpu_torch.bench.preset`, iters 10, with the count of
-    synchronising calls per iteration of the call its window timed, after
-    the window (`after_window`). Fails unless every run is free of
-    overflow and its num_intersections equals view 0's of the matching
-    serve path (`view0`; the stream format does not change the
-    binning)."""
+    `gsplat_tpu_torch.bench.preset` (the realistic runs with the default
+    headline's jumbo ladder), iters 10, and the ninth, `--viewer`, with the
+    arguments `gsplat_tpu_torch.bench.main` makes for that flag; each with
+    the count of synchronising calls per iteration of the call its window
+    timed, after the window (`after_window`). Fails unless every run is
+    free of overflow and makes no synchronising call, the 8 runs'
+    num_intersections equal view 0's of the matching serve path (`view0`;
+    the stream format does not change the binning), and the viewer run's
+    stay below its capacity and it launched K3's rank stage."""
     import torch
 
-    from gsplat_tpu_torch.bench import preset
+    from gsplat_tpu_torch.bench import build_kwargs, build_parser, preset
+    from gsplat_tpu_torch.ops.cuda import cull
     from gsplat_tpu_torch.utils import bench
 
+    runs = [(dict(mode=mode, scene=kind, exact_grads=exact),
+             dict(preset(kind, exact, mode, "cuda",
+                         jumbo=kind == "realistic"), iters=10))
+            for mode in ("fwd", "fwd_bwd")
+            for kind in ("random", "realistic")
+            for exact in (False, True)]
+    viewer = build_kwargs(build_parser().parse_args(["--viewer"]),
+                          torch.device("cuda", 0))
+    runs.append((dict(flags="--viewer"), viewer))
     results = []
-    for mode in ("fwd", "fwd_bwd"):
-        for kind in ("random", "realistic"):
-            for exact in (False, True):
-                kw = dict(preset(kind, exact, mode, "cuda"), iters=10)
-                syncs = []
-                r = bench.run_bench(
-                    **kw, after_window=lambda fn: syncs.append(
-                        count_syncs(fn, kw["iters"])))
-                torch.cuda.empty_cache()
-                (per_iter, sites), = syncs
-                want = view0["serve packed4 realistic" if kind == "realistic"
-                             else "serve f32"]
-                d = r["details"]
-                line = dict(mode=mode, scene=kind, exact_grads=exact,
-                            value=r["value"], ms_per_iter=d["ms_per_iter"],
-                            num_intersections=d["num_intersections"],
-                            serve_view0=want, overflow=d["overflow"],
-                            compile_s=d["compile_s"],
-                            syncs_per_iter=per_iter, sync_sites=sites,
-                            device=d["device"])
-                log(f"[bench] {json.dumps(line)}")
-                results.append(line)
-                if d["overflow"] or d["num_intersections"] != want:
-                    raise SystemExit(f"bench {mode} {kind} exact={exact}: "
-                                     "overflow, or intersections differ from "
-                                     "the serve path's view 0")
+    for tag, kw in runs:
+        syncs = []
+        rank_before = cull.rank_launches
+        r = bench.run_bench(**kw, after_window=lambda fn: syncs.append(
+            count_syncs(fn, kw["iters"])))
+        torch.cuda.empty_cache()
+        (per_iter, sites), = syncs
+        d = r["details"]
+        line = dict(tag, value=r["value"], ms_per_iter=d["ms_per_iter"],
+                    iters=kw["iters"],
+                    num_intersections=d["num_intersections"],
+                    overflow=d["overflow"], compile_s=d["compile_s"],
+                    syncs_per_iter=per_iter, sync_sites=sites,
+                    device=d["device"])
+        if "flags" in tag:
+            line.update(max_intersections=kw["max_intersections"],
+                        rank_launches=cull.rank_launches - rank_before)
+            ok = (d["num_intersections"] < kw["max_intersections"]
+                  and line["rank_launches"] > 0)
+        else:
+            line["serve_view0"] = view0[
+                "serve packed4 realistic" if tag["scene"] == "realistic"
+                else "serve f32"]
+            ok = d["num_intersections"] == line["serve_view0"]
+        log(f"[bench] {json.dumps(line)}")
+        results.append(line)
+        if d["overflow"] or per_iter != 0 or not ok:
+            raise SystemExit(f"bench {tag}: overflow, a synchronising call "
+                             "in the window, intersections off the serve "
+                             "path's view 0 or past the viewer's capacity, "
+                             "or no K3 rank stage in the viewer run")
     return results
 
 
@@ -2513,6 +2559,332 @@ def check_multi_device(card: str, by_path: dict) -> dict:
     return multi
 
 
+# ---- the root tools' ports (phase 18) ---------------------------------------
+# The train_protocol path: the 512x512 protocol at its full shape (a 200k
+# target, a 120k init in 256k slots, 24 + 4 orbit views, batch 2), cut in
+# depth to 1200 steps: the 5000-step run's position-lr horizon, the opacity
+# reset at 720 (3/5 of the steps, as the full run's 3000 of 5000) and an
+# eval every 300.
+PROTOCOL_ARGV = ["--steps", "1200", "--lr-max-steps", "5000",
+                 "--opacity-reset-every", "720", "--eval-every", "300"]
+# The fit_demo path: 800 steps of each stream; the JAX demo's view-0 PSNR
+# after 800 steps on a TPU (bench.py:105-112), shown beside the port's; the
+# gain over the initial render each run must reach.
+DEMO_STEPS = 800
+DEMO_FLAGS = {"f32": ["--stream-format", "f32"],
+              "packed16": ["--stream-format", "packed16", "--fast"],
+              "packed4": ["--stream-format", "packed4", "--fast"]}
+DEMO_JAX_TPU_DB = {"packed4": 31.46, "packed16": 31.34}
+DEMO_GAIN_DB = 5.0
+
+
+def run_logged(fn, argv):
+    """fn(argv) with its standard output and error shown and kept:
+    (its result, the output, the error)."""
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, out)), \
+            contextlib.redirect_stderr(_Tee(sys.stderr, err)):
+        result = fn(argv)
+    return result, out.getvalue(), err.getvalue()
+
+
+def check_scene_report(view0: dict, card: str) -> dict:
+    """The `scene_report` path: the capacity report of the 1M random scene
+    at the bench's flags (1920x1080, tile 32, K 64, its ladder, 4.1M) over
+    `Camera.default` and 4 orbit views, then of the realistic scene with the
+    jumbo ladder. Fails unless each reports 5 cameras, the random scene's
+    camera 0 has view 0's intersections of the serve path and every
+    realistic camera has its jumbo block."""
+    from gsplat_tpu_torch import RenderConfig, scene_report
+
+    cfg = RenderConfig(**BENCH)
+    flags = ["--n", str(NUM_GAUSSIANS), "--width", str(cfg.width),
+             "--height", str(cfg.height), "--tile-size", str(cfg.tile_size),
+             "--kmax", str(cfg.max_tiles_per_gaussian),
+             "--tier-spec", ",".join(f"{k}:{r}" for k, r in cfg.tier_spec),
+             "--max-intersections", str(cfg.max_intersections),
+             "--orbit", "4", "--device", "cuda"]
+    jumbo = ["--max-tiles-jumbo", str(JUMBO["max_tiles_jumbo"]),
+             "--jumbo-tier-spec",
+             ",".join(f"{k}:{r}" for k, r in JUMBO["jumbo_tier_spec"])]
+    out = {}
+    for kind, extra in (("random", []), ("realistic", jumbo)):
+        t0 = time.perf_counter()
+        _, text, err = run_logged(scene_report.main,
+                                  ["--scene", kind, *flags, *extra])
+        cams = [json.loads(x) for x in err.splitlines()
+                if x.startswith('{"tiers"')]
+        worst = json.loads(text)
+        out[kind] = dict(
+            seconds=time.perf_counter() - t0,
+            intersections=[c["num_intersections"] for c in cams],
+            rect_overflow=[c["rect_overflow"] for c in cams],
+            worst_camera=worst["camera"],
+            suggested_max_intersections=worst["suggested_max_intersections"],
+            jumbo=worst.get("jumbo"))
+        log(f"[scene_report {kind}] {json.dumps(out[kind])} on {card}")
+        if len(cams) != 5 or (kind == "realistic"
+                              and not all("jumbo" in c for c in cams)):
+            raise SystemExit(f"scene_report {kind}: not 5 cameras, or no "
+                             "jumbo block")
+    want = view0["serve f32"]
+    log(f"[scene_report] random camera 0: "
+        f"{out['random']['intersections'][0]} intersections, the serve "
+        f"path's view 0 {want}")
+    if out["random"]["intersections"][0] != want:
+        raise SystemExit("scene_report: camera 0's intersections differ "
+                         "from the serve path's view 0")
+    return out
+
+
+def check_step_syncs(init, cams, targets, cfg, fit) -> dict:
+    """The synchronising calls of the train step (`make_train_step`, L1 +
+    0.2 DSSIM, two views a step, SH degree 1 after one warm-up step) per
+    step, and of `fit` run for 3 and for 6 steps with one log row each,
+    densification accumulating and no eval. Fails unless the step makes
+    none and both fits make as many (so that none is made per step)."""
+    from gsplat_tpu_torch import GaussianScene
+    from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
+    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+
+    scene = GaussianScene(**{f: getattr(init, f).detach().clone()
+                             for f in SCENE_FIELDS})
+    step = make_train_step(cfg, make_optimizer(scene, TRAIN_LR),
+                           ssim_weight=SSIM_WEIGHT)
+
+    def one_step():
+        return step(scene, cams[:2], targets[:2], 1)
+
+    one_step()
+    per_step, sites = count_syncs(one_step, 5)
+    fits = {}
+    for n in (3, 6):
+        fits[n] = count_syncs(lambda: fit(
+            init, cams, targets, cfg, steps=n, batch=2, log_every=n,
+            ssim_weight=SSIM_WEIGHT, densify_every=100, densify_from=500,
+            sh_warmup_every=1000, position_lr_final_ratio=0.01,
+            lr_max_steps=5000, overflow_policy="raise"), 1)
+    out = dict(step_per_iter=per_step, step_sites=sites,
+               fit={n: dict(total=t, sites=st) for n, (t, st) in fits.items()})
+    log(f"[train_protocol syncs] {json.dumps(out)}")
+    if per_step != 0 or fits[3][0] != fits[6][0]:
+        raise SystemExit("train_protocol: the train step or fit's per-step "
+                         "path made a synchronising call")
+    return out
+
+
+def run_protocol(out_dir: str, card: str, inputs: dict,
+                 fit_args: list) -> dict:
+    """The `train_protocol` path: `train_protocol.main` with PROTOCOL_ARGV,
+    keeping in `inputs` the first training step's own inputs to K3's
+    compact stage, K1, K2 and K5, and in `fit_args` the fit's arguments.
+    Fails unless the fit raised no overflow or non-finite gradient, a
+    densify round split or cloned, the staged capacity tightened, the last
+    log row's loss is below the first's and the last held-out PSNR is
+    finite and above the first eval's."""
+    import ast
+    import csv
+
+    from gsplat_tpu_torch import train_protocol
+    from gsplat_tpu_torch.ops.cuda import cull, raster, segsum
+    from gsplat_tpu_torch.train import loop
+
+    real_fit = loop.fit
+
+    def fit(*args, **kw):
+        # The kernels' inputs from the fit's first step on (the targets and
+        # the capacity probe run before it).
+        fit_args.append(args)
+        with contextlib.ExitStack() as stack:
+            for module, name in ((cull, "cull_compact_cuda"),
+                                 (raster, "raster_tiles_cuda"),
+                                 (raster, "raster_bwd_cuda"),
+                                 (segsum, "segmented_suffix_sum_packed_cuda")):
+                stack.enter_context(first_inputs(inputs, module, name))
+            return real_fit(*args, **kw)
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = [*PROTOCOL_ARGV, "--out-dir", out_dir, "--device", "cuda"]
+    loop.fit = fit
+    t0 = time.perf_counter()
+    try:
+        summary, text, _ = run_logged(train_protocol.main, argv)
+    except (RuntimeError, FloatingPointError) as e:
+        raise SystemExit(f"train_protocol: the fit raised: {e}")
+    finally:
+        loop.fit = real_fit
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r["loss"]) for r in rows]
+    evals = [float(r["holdout_psnr"]) for r in rows if r.get("holdout_psnr")]
+    densify = [ast.literal_eval(x) for x in text.splitlines()
+               if "'densify_at':" in x]
+    tighten = [x for x in text.splitlines()
+               if x.startswith("staged capacity: tightening")]
+    plain_rows = [float(r["it_per_s"]) for r in rows
+                  if not r.get("holdout_psnr")] or [float("nan")]
+    checks = {
+        "loss falls": losses[-1] < losses[0],
+        "held-out PSNR finite and rises": len(evals) > 1
+        and bool(np.isfinite(evals[-1])) and evals[-1] > evals[0],
+        "a round split or cloned": any(
+            d["num_split"] + d["num_clone"] > 0 for d in densify),
+        "capacity tightened": bool(tighten),
+    }
+    log(f"[train_protocol] {wall:.1f} s; summary {json.dumps(summary)}; "
+        f"held-out PSNR per eval {evals}; densify rounds {densify}; "
+        f"{tighten}; it/s on rows without an eval: median "
+        f"{statistics.median(plain_rows)}; checks {checks} on {card}")
+    if not all(checks.values()):
+        raise SystemExit(f"train_protocol: checks failed: {checks}")
+    return dict(summary=summary, wall_s=wall, held_out=evals,
+                densify=densify, tighten=tighten,
+                it_per_s_median=statistics.median(plain_rows))
+
+
+def check_protocol_inputs(inputs: dict, fit_args: list) -> dict:
+    """After the `train_protocol` path: its first training step's own
+    inputs to K3's compact stage (K 128), K1 and K2 (packed16, tile 16,
+    bf16 pairs out) and K5 through the kernels and their plain versions
+    (K3 0 differing entries, K1 and K2 the tolerances of phases 4 and 5,
+    K5 those of 6, each relaunch bit-identical); then the step's and the
+    fit's synchronising calls (`check_step_syncs`)."""
+    import torch
+
+    from gsplat_tpu_torch.ops.cuda import raster
+    from gsplat_tpu_torch.train import loop
+
+    missing = [k for k in ("raster_tiles_cuda", "raster_bwd_cuda")
+               if k not in inputs]
+    if missing:
+        raise SystemExit(f"train_protocol: no inputs kept for {missing}")
+    k1 = inputs.pop("raster_tiles_cuda")
+    col_k, tr_k, *_, err1, _ = check_k1("train_protocol packed16", *k1)
+    again = raster.raster_tiles_cuda(*k1)
+    same1 = torch.equal(col_k, again[0]) and torch.equal(tr_k, again[1])
+    log(f"[K1 train_protocol packed16] a second launch bit-identical: "
+        f"{same1}")
+    if not same1:
+        raise SystemExit("train_protocol: K1 relaunch differs")
+    err2 = check_k2_inputs("train_protocol packed16",
+                           inputs.pop("raster_bwd_cuda"))
+    check_path_inputs("train_protocol", inputs, (
+        "cull_compact_cuda", "segmented_suffix_sum_packed_cuda"))
+    del k1, col_k, tr_k, again
+    init, cams, targets, cfg = fit_args[0][:4]
+    syncs = check_step_syncs(init, cams, targets, cfg, loop.fit)
+    return dict(k1_err=err1, k2_err=err2, syncs=syncs)
+
+
+def rank_sharded_smoke(rank: int, argv: list) -> dict:
+    """One rank of the `train_sharded_smoke` path: the module's rank body,
+    with this rank's launches counted."""
+    from gsplat_tpu_torch import train_sharded_smoke
+
+    rank_setup()
+    reset_launch_counts()
+    summary = train_sharded_smoke.rank_main(
+        rank, train_sharded_smoke.parse_args(argv))
+    return {"summary": summary, "smoke": launch_counts()}
+
+
+def check_sharded_smoke(out_dir: str, card: str, by_path: dict) -> dict:
+    """The `train_sharded_smoke` path: the smoke at its shape (128x128, 350
+    steps) on a data 2 x tiles 2 mesh, four ranks sharing cuda:0 over
+    gloo; the script's asserts (`check`) on rank 0's summary."""
+    from gsplat_tpu_torch import train_sharded_smoke
+
+    argv = ["--dist-backend", "gloo", "--device", "cuda:0", "--data", "2",
+            "--tiles", "2", "--out-dir", out_dir]
+    t0 = time.perf_counter()
+    res = launch_ranks(rank_sharded_smoke, 4, argv)
+    by_path["train_sharded_smoke"] = check_counts(
+        "train_sharded_smoke", sum_counts(res, "smoke"),
+        ("cull", "raster_fwd", "raster_bwd", "segsum"))
+    summary = res[0]["summary"]
+    log(f"[train_sharded_smoke] {time.perf_counter() - t0:.1f} s wall; "
+        f"summary {json.dumps(summary)}; 4 ranks time-sharing one card "
+        f"over gloo, on {card}")
+    try:
+        train_sharded_smoke.check(
+            summary, train_sharded_smoke.parse_args(argv).init_n)
+    except AssertionError as e:
+        raise SystemExit(f"train_sharded_smoke: {e}")
+    return summary
+
+
+def check_fit_demo(out_dir: str, card: str) -> dict:
+    """The `fit_demo` path: DEMO_STEPS steps of each stream (float32;
+    packed16 and packed4 with --fast). Fails unless each fitted view-0 PSNR
+    is finite and DEMO_GAIN_DB above its initial render's."""
+    from gsplat_tpu_torch import fit_demo
+
+    out = {}
+    for fmt, flags in DEMO_FLAGS.items():
+        t0 = time.perf_counter()
+        r = fit_demo.main(["--steps", str(DEMO_STEPS), *flags, "--out-dir",
+                           os.path.join(out_dir, fmt), "--device", "cuda"])
+        its = [m["it_per_s"] for m in r["metrics"][1:]]
+        out[fmt] = dict(psnr=r["psnr"], initial_psnr=r["initial_psnr"],
+                        wall_s=time.perf_counter() - t0,
+                        it_per_s_median=statistics.median(its),
+                        jax_tpu_psnr=DEMO_JAX_TPU_DB.get(fmt))
+        jax_db = DEMO_JAX_TPU_DB.get(fmt)
+        log(f"[fit_demo {fmt}] view-0 PSNR {r['psnr']} dB after "
+            f"{DEMO_STEPS} steps (initial {r['initial_psnr']} dB"
+            + (f"; the JAX demo on a TPU: {jax_db} dB" if jax_db else "")
+            + f"); {json.dumps(out[fmt])} on {card}")
+        if not (np.isfinite(r["psnr"])
+                and r["psnr"] >= r["initial_psnr"] + DEMO_GAIN_DB):
+            raise SystemExit(f"fit_demo {fmt}: PSNR not finite or not "
+                             f"{DEMO_GAIN_DB} dB above the initial render's")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return out
+
+
+def check_tools(card: str, by_path: dict, view0: dict) -> dict:
+    """Phase 18: the ports of the root tools, each a main path."""
+    import torch
+
+    root = os.path.join(HERE, "build", "chip_smoke", "tools")
+    tools, seconds = {}, {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+    timed("scene_report", lambda: by_path.update(scene_report=drive(
+        "scene_report", ("cull",), lambda: tools.update(
+            scene_report=check_scene_report(view0, card)))))
+    inputs, fit_args = {}, []
+    timed("train_protocol", lambda: by_path.update(train_protocol=drive(
+        "train_protocol", ("cull", "raster_fwd_packed", "raster_bwd_packed",
+                           "segsum_packed"), lambda: tools.update(
+            train_protocol=run_protocol(os.path.join(root, "protocol"),
+                                        card, inputs, fit_args)))))
+    # The kernels on the path's own inputs, and the syncs, after the path:
+    # their launches are not the path's.
+    timed("train_protocol checks", lambda: tools["train_protocol"].update(
+        check_protocol_inputs(inputs, fit_args)))
+    timed("train_sharded_smoke", lambda: tools.update(
+        train_sharded_smoke=check_sharded_smoke(
+            os.path.join(root, "sharded_smoke"), card, by_path)))
+    timed("fit_demo", lambda: by_path.update(fit_demo=drive(
+        "fit_demo", ("cull", "raster_fwd", "raster_fwd_packed", "raster_bwd",
+                     "raster_bwd_packed", "segsum", "segsum_packed"),
+        lambda: tools.update(fit_demo=check_fit_demo(
+            os.path.join(root, "demo"), card)))))
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[tools] seconds per path {seconds}")
+    log(json.dumps({"tools": tools}, default=str))
+    return tools
+
+
 def drive(path, needs, fn):
     """Run one main path with the launch counts set to 0 just before and
     read just after; fail unless each kernel in `needs` was launched."""
@@ -2917,6 +3289,7 @@ def run(dev) -> int:
     log(f"[phases 1-8] {time.perf_counter() - t_start:.1f} s")
 
     # 9. Main paths.
+    t0 = time.perf_counter()
     tcfg = RenderConfig(**dict(BENCH, **EXACT))
     rexact = RenderConfig(**dict(BENCH, **EXACT, **JUMBO))
     rserve = RenderConfig(**dict(BENCH, **DEFAULT, **JUMBO))
@@ -2948,6 +3321,7 @@ def run(dev) -> int:
             train_default_realistic=train("train default realistic", rscene,
                                           cams, rserve, dev, card)))
     log(f"[main] ms per frame / step {times}")
+    log(f"[phase 9] {time.perf_counter() - t0:.1f} s")
     del rscene, scene
     torch.cuda.empty_cache()
 
@@ -3007,6 +3381,7 @@ def run(dev) -> int:
     # 12. Golden gradients: the card's kernels against the CPU plain path
     # (last, so that its CPU threads do not share the host with the main
     # paths' timing).
+    t0 = time.perf_counter()
     target = np.random.default_rng(0).uniform(size=(64, 64, 3)).astype(np.float32)
     for tag, extra in (("exact", dict(EXACT)),
                        ("bench default", dict(DEFAULT, binning="tiered"))):
@@ -3045,8 +3420,18 @@ def run(dev) -> int:
                              "stated tolerance of the CPU path, or not "
                              f"through {needs}")
 
+    log(f"[phase 12] {time.perf_counter() - t0:.1f} s")
+
     # 13-17. The multi-device paths.
+    t0 = time.perf_counter()
     check_multi_device(card, by_path)
+    log(f"[phases 13-17] {time.perf_counter() - t0:.1f} s")
+
+    # 18. The ports of the root tools: the capacity report, the training
+    # protocol, the sharded smoke and the demo.
+    t0 = time.perf_counter()
+    check_tools(card, by_path, view0)
+    log(f"[phase 18] {time.perf_counter() - t0:.1f} s")
 
     kernels["cull"]["rank_launches_by_path"] = {
         p: c["cull_rank"] for p, c in by_path.items()}

@@ -18,7 +18,9 @@ heavy-tailed `realistic_scene`; and the single-device user surface on top:
 (`python -m gsplat_tpu_torch.cli`, `python -m gsplat_tpu_torch.bench`);
 and the multi-device modes on `torch.distributed`, one process per rank
 (`parallel/`): the tile-sharded render, train step and `fit(mesh=...)`,
-and the Gaussian-sharded render, training and per-shard checkpoints.
+and the Gaussian-sharded render, training and per-shard checkpoints; and
+the tools around the package, each runnable with `python -m`: `bench`,
+`scene_report`, `train_protocol`, `train_sharded_smoke` and `fit_demo`.
 """
 
 from gsplat_tpu_torch.config import RenderConfig

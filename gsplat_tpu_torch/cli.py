@@ -30,17 +30,8 @@ import sys
 import time
 
 
-def _parse_tier_spec(text: str) -> tuple:
-    """'4:0,8:2,16:6' -> ((4, 0), (8, 2), (16, 6)); '8,5,16' -> (8, 5, 16)
-    (the forms of bench.py's --tier-spec)."""
-    return tuple(
-        tuple(int(y) for y in x.split(":")) if ":" in x else int(x)
-        for x in text.split(",")
-    )
-
-
 def _build_cfg(args, width: int, height: int):
-    from gsplat_tpu_torch.config import RenderConfig
+    from gsplat_tpu_torch.config import RenderConfig, parse_tier_spec
 
     if getattr(args, "viewer_preset", False):
         # The interactive-viewer configuration of the JAX command: tile 32,
@@ -63,7 +54,7 @@ def _build_cfg(args, width: int, height: int):
         )
     extra = {}
     if getattr(args, "tier_spec", None):
-        extra["tier_spec"] = _parse_tier_spec(args.tier_spec)
+        extra["tier_spec"] = parse_tier_spec(args.tier_spec)
     return RenderConfig(
         width=width,
         height=height,
@@ -258,11 +249,12 @@ def cmd_bench(args) -> int:
 
 
 def _run_bench_args(args, run_bench):
+    from gsplat_tpu_torch.config import parse_tier_spec
     from gsplat_tpu_torch.parallel.multihost import rank_device
 
     extra = {}
     if args.tier_spec:
-        extra["tier_spec"] = _parse_tier_spec(args.tier_spec)
+        extra["tier_spec"] = parse_tier_spec(args.tier_spec)
     return run_bench(
         num_gaussians=args.synthetic_n,
         width=args.width,

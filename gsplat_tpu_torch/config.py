@@ -26,6 +26,13 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def parse_tier_spec(text: str) -> tuple:
+    """A --tier-spec flag: '4:0,8:2,16:6' -> ((4, 0), (8, 2), (16, 6)); the
+    legacy '8,5,16' -> (8, 5, 16) (the forms of the root bench's flag)."""
+    return tuple(tuple(int(y) for y in x.split(":")) if ":" in x else int(x)
+                 for x in text.split(","))
+
+
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     # Image / tiling.

@@ -164,8 +164,11 @@ def project_gaussians(
     ext = torch.where((opacity > cfg.alpha_min)[:, None], ext,
                       torch.full_like(ext, -1.0))  # empty rect
     ext = ext.detach()  # rect is ordering-only (ints downstream)
-    pix = uv * torch.tensor([cfg.width, cfg.height], dtype=torch.float32,
-                            device=uv.device)
+    # Scaled by Python floats, not a tensor built here: that would be a copy
+    # from the host on every frame (width and height are exact in float32,
+    # so the products are the same).
+    pix = torch.stack([uv[:, 0] * float(cfg.width),
+                       uv[:, 1] * float(cfg.height)], -1)
     ts = float(cfg.tile_size)
     ntx, nty = cfg.tiles_x, cfg.tiles_y
     lo = torch.floor((pix - ext) / ts)

@@ -64,7 +64,9 @@ def pack_stream(feats: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     row0 = (_fixed(feats[0] - lox, sx, 65535.0)
             | (_fixed(feats[1] - loy, sy, 65535.0) << 16))
     if cfg.stream_format == "packed4":
-        pairs = pack_bf16_pairs(feats[[2, 3, 4, 8]])  # (ca|cb), (cc|op)
+        # (ca|cb), (cc|op); slices, not a list index, which the card would
+        # have to copy from the host on every frame.
+        pairs = pack_bf16_pairs(torch.cat([feats[2:5], feats[8:9]]))
         s = PACKED4_COLOR_RANGE
         row3 = (_fixed(feats[5], 2047.0 / s, 2047.0)
                 | (_fixed(feats[6], 2047.0 / s, 2047.0) << 11)

@@ -43,12 +43,14 @@ LR_SCALES = dict(means=0.016, log_scales=0.5, quats=0.1, opacity_logits=5.0,
 
 def sh_band_mask(num_coeffs: int, active_degree, device="cuda") -> torch.Tensor:
     """(K, 1) float mask keeping the SH bands <= active_degree. The band of
-    coefficient j is floor(sqrt(j)), computed with an integer sqrt so there
-    is no float edge at j = 1, 4, 9."""
-    band = torch.tensor([math.isqrt(j) for j in range(num_coeffs)],
-                        dtype=torch.int32, device=device)
-    return (band <= torch.as_tensor(active_degree, device=device)).to(
-        torch.float32)[:, None]
+    coefficient j is floor(sqrt(j)), counted in integers on the device (the
+    d >= 1 with d^2 <= j): no float edge at j = 1, 4, 9, and no copy from
+    the host, which would make the step wait for the card."""
+    j = torch.arange(num_coeffs, dtype=torch.int32, device=device)
+    band = torch.zeros_like(j)
+    for d in range(1, math.isqrt(max(num_coeffs - 1, 0)) + 1):
+        band += j >= d * d
+    return (band <= active_degree).to(torch.float32)[:, None]
 
 
 class SceneAdam(torch.optim.Adam):

@@ -39,10 +39,17 @@ def _fp32_convs():
                        deterministic=cudnn.deterministic, allow_tf32=False)
 
 
+@functools.lru_cache()
+def _gaussian_window(device: torch.device) -> torch.Tensor:
+    """The window on `device`, copied there once: a copy from the host in
+    every blur would make each train step wait for the card."""
+    return torch.from_numpy(_gaussian_window_np()).to(device)
+
+
 def _blur_nchw(x: torch.Tensor) -> torch.Tensor:
     """Separable zero-padded Gaussian blur of every channel of (1, C, H, W)."""
     c = x.shape[1]
-    w = torch.from_numpy(_gaussian_window_np()).to(x.device)
+    w = _gaussian_window(x.device)
     size = w.shape[0]
     with _fp32_convs():
         x = F.conv2d(x, w.reshape(1, 1, size, 1).repeat(c, 1, 1, 1),

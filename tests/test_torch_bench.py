@@ -118,10 +118,13 @@ def test_run_bench_refuses_the_sharded_benches():
 
 
 def test_package_bench_presets_and_line(capsys):
-    card = preset("realistic", exact_grads=True, mode="fwd", device="cuda")
+    card = preset("realistic", exact_grads=True, mode="fwd", device="cuda",
+                  jumbo=True)
     assert (card["width"], card["height"], card["num_gaussians"]) == \
         (1920, 1080, 1_000_000)
     assert card["stream_format"] == "f32" and card["max_tiles_jumbo"] == 2048
+    # The root bench's --scene realistic has no jumbo ladder.
+    assert "max_tiles_jumbo" not in preset("realistic", device="cuda")
     default = preset(device="cuda")
     assert default["stream_format"] == "packed4"
     assert default["gather_backward"] == "bf16" and "max_tiles_jumbo" not in default
