@@ -72,8 +72,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and read just after:
      - serving, float32 (bench.py --exact-grads's stream): `render` of the
        1M-Gaussian SH-3 random scene at 1920x1080 for four views;
-     - training, exact (bench.py --exact-grads): L1 + 0.2 DSSIM, Adam at lr
-       1e-2, from a copy of the scene whose SH DC carries seeded noise,
+     - training, exact (bench.py --exact-grads), on the captured step
+       (`make_train_step`): L1 + 0.2 DSSIM, Adam at lr 1e-2, from a copy
+       of the scene whose SH DC carries seeded noise,
        against renders of the scene itself, one view per step; the random
        scene, then the realistic scene with the jumbo tiers (K4 at depth
        2048);
@@ -98,7 +99,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
        own inputs to K3's compact stage (K 128) and to K5 (depth 128) then
        go through the kernels and their plain versions again: K3 0
        differing entries, K5 the tolerances of 6 and a relaunch
-       bit-identical;
+       bit-identical; the fit captured 1 + its capacity rebuilds train-step
+       graphs;
      - bench: `run_bench` of {fwd, fwd_bwd} x {random, realistic} x
        {default, --exact-grads} (`gsplat_tpu_torch.bench.preset`, the
        realistic runs with the default headline's jumbo ladder, iters
@@ -108,7 +110,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
        `gsplat_tpu_torch.bench.main` makes for the flag), free of
        overflow, below its 2,330,000 capacity, through K3's rank stage;
        each window's timed call making 0 synchronising calls per
-       iteration (`torch.cuda.set_sync_debug_mode`);
+       iteration (`torch.cuda.set_sync_debug_mode`), and each run one
+       CUDA graph captured (`render_jit` or `render_loss_and_grad`);
      - cli_render: `cli render` of the trained PLY with --viewer-preset
        --pad-bucket --orbit 4; orbit view 0's own inputs to K3's compact
        stage (K 32) and rank stage (the jumbo grid, K 1024, which holds no
@@ -216,6 +219,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
        (f32; packed16 and packed4 with --fast), each view-0 PSNR finite
        and >= 5 dB above its initial render's, printed beside the JAX
        demo's TPU readings.
+   19. the captured paths (`utils/graphs.py`: one CUDA graph per static
+     key, captured by the first call and replayed after). Each path's
+     count wraps its captured calls alone (the first call, which warms up
+     and captures, and the replays): their launches are the wrappers'
+     counts at warm-up plus each graph's counted launches per replay. The
+     eager references, timing, sync counts and profiled passes run after
+     the count is read:
+     - render_jit (`check_render_jit`): the random and realistic 1M scenes,
+       float32 and packed4, the four views in turn twice; every output
+       bit-identical to eager `render`'s, one capture per (cfg, scene), 0
+       synchronising calls per replay, the profiler's records of a replay
+       naming K3 and K1 as often as the graph counts them;
+     - train_jit (`check_train_jit`): the exact and bench-default steps on
+       both scenes, 10 captured steps (`make_train_step`) from one init
+       against 10 steps of `make_eager_train_step` from a second copy:
+       losses, tap gradients, visibility and final parameters
+       bit-identical (or, named, within rtol 5e-3 / atol 1e-5, with the
+       ops that have no deterministic implementation listed), 0
+       synchronising calls per replay, the profiler naming K2 and K4 or
+       K5 as often as the graph counts them;
+     - loss_and_grad_jit (`check_loss_and_grad_jit`): `render_loss_and_grad`
+       (bench default, random scene) over the four views twice, each
+       bit-identical to its eager body, 0 synchronising calls per replay,
+       the profiler's records of the bench's own fwd_bwd call
+       (`bench_iteration`) naming K3, K1, K2 and K5 as often as the graph
+       counts them.
+     Then, as a reference and not a path, phase 10's `cli train` recipe on
+     the eager step (`check_cli_train_eager`): its held-out PSNR at step
+     180 equal to the captured run's (phase 10 also requires 1 + the
+     capacity rebuilds train-step captures). Eager against replayed ms per
+     frame and step (CUDA events and the host clock, medians), the replays'
+     busy share from one profiled pass, and the peak memory of each kind's
+     calls.
      Each phase prints its seconds.
 Then one JSON line of kernel numbers, each kernel with its launches on each
 main path (`launches_by_path`, and their sum as `launches`; K3's rank stage
@@ -902,20 +938,26 @@ def reset_launch_counts() -> None:
     probes.gather_launches = probes.coldma_launches = 0
 
 
-def make_trainer(scene, cams, cfg, dev):
+def make_trainer(scene, cams, cfg, dev, eager=False):
     """The training main path: targets rendered from `scene` at `cams`, a
     trained copy of `scene` whose SH DC carries seeded noise, and its train
-    step. Returns (trained scene, targets (V, H, W, 3), step)."""
+    step (the captured `make_train_step`, or with `eager` the same body run
+    op by op). Returns (trained scene, targets (V, H, W, 3), step)."""
     import torch
 
     from gsplat_tpu_torch import render
-    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+    from gsplat_tpu_torch.train.loop import (
+        make_eager_train_step,
+        make_optimizer,
+        make_train_step,
+    )
 
     with torch.no_grad():
         targets = torch.stack([render(scene, cam, cfg).image for cam in cams])
     train = noisy_copy(scene, dev)
     opt = make_optimizer(train, TRAIN_LR)
-    return train, targets, make_train_step(cfg, opt, ssim_weight=SSIM_WEIGHT)
+    make = make_eager_train_step if eager else make_train_step
+    return train, targets, make(cfg, opt, ssim_weight=SSIM_WEIGHT)
 
 
 def serve(tag, scene, cams, cfg, card, view0=None):
@@ -1361,9 +1403,11 @@ def check_cli_train(out_dir: str, card: str, inputs: dict) -> dict:
 
     from gsplat_tpu_torch.io.ply import load_ply
     from gsplat_tpu_torch.ops.cuda import cull, segsum
+    from gsplat_tpu_torch.utils import graphs
 
     os.makedirs(out_dir, exist_ok=True)
     argv = cli_train_argv(out_dir)
+    caps = graphs.captures["train_step"]
     t0 = time.perf_counter()
     try:
         with contextlib.ExitStack() as stack:
@@ -1378,6 +1422,7 @@ def check_cli_train(out_dir: str, card: str, inputs: dict) -> dict:
     except RuntimeError as e:
         raise SystemExit(f"cli_train: the fit raised: {e}")
     wall = time.perf_counter() - t0
+    captures = graphs.captures["train_step"] - caps
     with open(os.path.join(out_dir, "metrics.csv")) as f:
         rows = list(csv.DictReader(f))
     losses = [float(r["loss"]) for r in rows]
@@ -1386,6 +1431,8 @@ def check_cli_train(out_dir: str, card: str, inputs: dict) -> dict:
                if line.startswith("{'num_alive'")]
     tighten = [line for line in text.splitlines()
                if line.startswith("staged capacity: tightening")]
+    rebuilds = tighten + [line for line in text.splitlines()
+                          if "rebuilding the step at the original" in line]
     ckpt = os.path.join(out_dir, "ckpt", f"ckpt_{CLI_STEPS:06d}.npz")
     ply = load_ply(os.path.join(out_dir, "trained.ply"), device="cpu")
     with np.load(ckpt) as d:
@@ -1396,7 +1443,9 @@ def check_cli_train(out_dir: str, card: str, inputs: dict) -> dict:
     ply_ok = ply_err <= 1e-6
     log(f"[cli_train] {wall:.1f} s; log rows {rows}")
     log(f"[cli_train] densify rounds {densify}; {tighten}; PLY against the "
-        f"step-{CLI_STEPS} checkpoint: largest relative difference {ply_err}")
+        f"step-{CLI_STEPS} checkpoint: largest relative difference {ply_err};"
+        f" {captures} train-step graphs captured, {len(rebuilds)} capacity "
+        "rebuilds")
 
     resume_dir = os.path.join(out_dir, "resume")
     rargv = argv + ["--resume", os.path.join(out_dir, "ckpt",
@@ -1423,12 +1472,13 @@ def check_cli_train(out_dir: str, card: str, inputs: dict) -> dict:
         "PLY equals the trained scene": ply_ok,
         "resume reached the last step": bool(rrows)
         and int(rrows[-1]["step"]) == CLI_STEPS,
+        "captures 1 + the capacity rebuilds": captures == 1 + len(rebuilds),
     }
     log(f"[cli_train] checks {checks} on {card}")
     if not all(checks.values()):
         raise SystemExit(f"cli_train: checks failed: {checks}")
     return {"rows": rows, "densify": densify,
-            "tighten": tighten,
+            "tighten": tighten, "captures": captures,
             "wall_s": wall, "resume_rows": rrows, "resume_wall_s": rwall}
 
 
@@ -1533,12 +1583,14 @@ def check_bench(view0: dict, card: str) -> list:
     free of overflow and makes no synchronising call, the 8 runs'
     num_intersections equal view 0's of the matching serve path (`view0`;
     the stream format does not change the binning), and the viewer run's
-    stay below its capacity and it launched K3's rank stage."""
+    stay below its capacity and it launched K3's rank stage. Each run
+    times a replayed CUDA graph (`render_jit` or `render_loss_and_grad`):
+    it must capture one graph of its kind, in its first call."""
     import torch
 
     from gsplat_tpu_torch.bench import build_kwargs, build_parser, preset
     from gsplat_tpu_torch.ops.cuda import cull
-    from gsplat_tpu_torch.utils import bench
+    from gsplat_tpu_torch.utils import bench, graphs
 
     runs = [(dict(mode=mode, scene=kind, exact_grads=exact),
              dict(preset(kind, exact, mode, "cuda",
@@ -1553,6 +1605,8 @@ def check_bench(view0: dict, card: str) -> list:
     for tag, kw in runs:
         syncs = []
         rank_before = cull.rank_launches
+        kind = "loss_and_grad" if kw["mode"] == "fwd_bwd" else "render"
+        caps = graphs.captures[kind]
         r = bench.run_bench(**kw, after_window=lambda fn: syncs.append(
             count_syncs(fn, kw["iters"])))
         torch.cuda.empty_cache()
@@ -1563,6 +1617,7 @@ def check_bench(view0: dict, card: str) -> list:
                     num_intersections=d["num_intersections"],
                     overflow=d["overflow"], compile_s=d["compile_s"],
                     syncs_per_iter=per_iter, sync_sites=sites,
+                    captures=graphs.captures[kind] - caps,
                     device=d["device"])
         if "flags" in tag:
             line.update(max_intersections=kw["max_intersections"],
@@ -1576,11 +1631,12 @@ def check_bench(view0: dict, card: str) -> list:
             ok = d["num_intersections"] == line["serve_view0"]
         log(f"[bench] {json.dumps(line)}")
         results.append(line)
-        if d["overflow"] or per_iter != 0 or not ok:
+        if d["overflow"] or per_iter != 0 or not ok or line["captures"] != 1:
             raise SystemExit(f"bench {tag}: overflow, a synchronising call "
                              "in the window, intersections off the serve "
                              "path's view 0 or past the viewer's capacity, "
-                             "or no K3 rank stage in the viewer run")
+                             "no K3 rank stage in the viewer run, or not "
+                             "one graph captured")
     return results
 
 
@@ -1995,7 +2051,7 @@ def rank_tile_sharded_train(rank: int, cap: int) -> dict:
         shard_batch,
     )
     from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
-    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+    from gsplat_tpu_torch.train.loop import make_eager_train_step, make_optimizer
 
     dev = rank_setup()
     mesh = make_mesh({"data": 2, "tiles": 2}, dev)
@@ -2019,8 +2075,9 @@ def rank_tile_sharded_train(rank: int, cap: int) -> dict:
         ref = None
         if rank == 0:
             single = noisy_copy(scene, dev)
-            step_r = make_train_step(full, make_optimizer(single, TRAIN_LR),
-                                     ssim_weight=SSIM_WEIGHT)
+            step_r = make_eager_train_step(
+                full, make_optimizer(single, TRAIN_LR),
+                ssim_weight=SSIM_WEIGHT)
             loss_r, _, _ = step_r(single, cams[:2], targets[:2])
             ref = (float(loss_r), {f: getattr(single, f).grad.clone()
                                    for f in SCENE_FIELDS})
@@ -2123,7 +2180,7 @@ def rank_gaussian_sharded(rank: int) -> dict:
     )
     from gsplat_tpu_torch.parallel.sharding import local_tile_cfg, make_mesh
     from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
-    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+    from gsplat_tpu_torch.train.loop import make_eager_train_step, make_optimizer
     from gsplat_tpu_torch.utils.checkpoint import checkpoint_arrays
 
     dev = rank_setup()
@@ -2246,8 +2303,8 @@ def rank_gaussian_sharded(rank: int) -> dict:
 
     # The step's shard-local gradients against the single-device step.
     ref = noisy_copy(scene, dev)
-    step_r = make_train_step(cfg, make_optimizer(ref, TRAIN_LR),
-                             ssim_weight=SSIM_WEIGHT)
+    step_r = make_eager_train_step(cfg, make_optimizer(ref, TRAIN_LR),
+                                   ssim_weight=SSIM_WEIGHT)
     loss_r, _, (_, vis_r) = step_r(ref, cams[:1], targets[:1])
     n = GAUSS_CAPACITY // d
     rows = slice(rank * n, (rank + 1) * n)
@@ -2311,7 +2368,7 @@ def gaussian_tie_witness(rank: int, mesh, cam, cfg, dev) -> dict:
     )
     from gsplat_tpu_torch.parallel.sharding import local_tile_cfg
     from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
-    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+    from gsplat_tpu_torch.train.loop import make_eager_train_step, make_optimizer
 
     d = mesh.size_of("gauss")
     scene = tie_witness_scene(cam, cfg, dev, d)
@@ -2331,8 +2388,8 @@ def gaussian_tie_witness(rank: int, mesh, cam, cfg, dev) -> dict:
                                             ssim_weight=SSIM_WEIGHT)
     m, (_, visible) = step(local, [cam], band)
     ref = noisy_copy(scene, dev)
-    step_r = make_train_step(cfg, make_optimizer(ref, TRAIN_LR),
-                             ssim_weight=SSIM_WEIGHT)
+    step_r = make_eager_train_step(cfg, make_optimizer(ref, TRAIN_LR),
+                                   ssim_weight=SSIM_WEIGHT)
     loss_r, _, (_, vis_r) = step_r(ref, [cam], want.image[None])
     n = TIE_WITNESS_CAPACITY // d
     rows = slice(rank * n, (rank + 1) * n)
@@ -2372,7 +2429,7 @@ def rank_nccl_world1(rank: int) -> dict:
     )
     from gsplat_tpu_torch.parallel.sharding import make_mesh, render_tile_sharded
     from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
-    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+    from gsplat_tpu_torch.train.loop import make_eager_train_step, make_optimizer
 
     dev = rank_setup()
     backend = torch.distributed.get_backend()
@@ -2399,8 +2456,8 @@ def rank_nccl_world1(rank: int) -> dict:
     frame_equal = bool(torch.equal(img, ref.image)
                        and torch.equal(trans, ref.transmittance))
     single = noisy_copy(scene, dev)
-    step_r = make_train_step(g16, make_optimizer(single, TRAIN_LR),
-                             ssim_weight=SSIM_WEIGHT)
+    step_r = make_eager_train_step(g16, make_optimizer(single, TRAIN_LR),
+                                   ssim_weight=SSIM_WEIGHT)
     loss_r, _, (_, vis_r) = step_r(single, [cam], target[None])
     grads = {f: close_share(getattr(local, f).grad, getattr(single, f).grad,
                             5e-3, 5e-5) for f in SCENE_FIELDS}
@@ -2883,6 +2940,469 @@ def check_tools(card: str, by_path: dict, view0: dict) -> dict:
     log(f"[tools] seconds per path {seconds}")
     log(json.dumps({"tools": tools}, default=str))
     return tools
+
+
+# Phase 19: the captured paths. A substring of each path kernel's demangled
+# name in the profiler's records, and the launch counters (names of
+# ops/cuda/counters.py) whose launches it makes.
+PROFILE_NAMES = {
+    "cull": ("cull_kernel", ("cull.launches",)),
+    "raster_fwd": ("raster_fwd_kernel", ("raster.launches",
+                                         "raster.packed_launches")),
+    "raster_bwd": ("raster_bwd_kernel", ("raster.bwd_launches",
+                                         "raster.bwd_packed_launches")),
+    "segsum": ("F32Rows", ("segsum.launches",)),
+    "segsum_packed": ("Bf16Pairs", ("segsum.packed_launches",)),
+}
+JIT_STEPS = 10       # steps from one init, eager and captured
+JIT_TIMED = 8        # frames or calls timed, eager and replayed
+
+
+def profile_window(fn, calls: int, skip=()) -> dict:
+    """fn called `calls` times under torch.profiler (CPU and CUDA), after a
+    synchronise and ending in one: per call, the host wall ms, the device
+    ms of every kernel, memset and copy (the device's busy time; the
+    device side of the spans in `skip` left out), the busy share of the
+    wall, and each kernel's ms and count by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    kernels: dict = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                and e.name not in skip):
+            k = kernels.setdefault(e.name, [0.0, 0])
+            k[0] += e.device_time_total
+            k[1] += 1
+    busy = sum(v[0] for v in kernels.values()) / 1e3 / calls
+    return dict(wall_ms=wall, kernel_ms=busy, busy_share=busy / wall,
+                kernels={name: dict(ms=v[0] / 1e3 / calls, calls=v[1] / calls)
+                         for name, v in sorted(kernels.items(),
+                                               key=lambda kv: -kv[1][0])})
+
+
+def path_kernels(prof: dict, launches: dict, per: int = 1) -> dict:
+    """Per path kernel of PROFILE_NAMES: its calls per replay in the
+    profiler's records (of `per` replays), and the launches one replay
+    makes by the graph's own count (`Entry.launches`, the wrappers'
+    counters' rise at capture)."""
+    out = {}
+    for name, (sub, names) in PROFILE_NAMES.items():
+        out[name] = dict(
+            profiler=sum(v["calls"] for k, v in prof["kernels"].items()
+                         if sub in k) / per,
+            counted=sum(launches.get(c, 0) for c in names))
+    return out
+
+
+def kernels_off(kern: dict, needs) -> bool:
+    """True if a kernel in `needs` is missing from the profiler's records
+    of a replay, or any path kernel's records differ from the graph's own
+    count."""
+    return (any(kern[n]["profiler"] == 0 for n in needs)
+            or any(k["profiler"] != k["counted"] for k in kern.values()))
+
+
+def timed_calls(fn, n: int) -> dict:
+    """fn(i) for i < n, each between CUDA events and a host clock that
+    ends in a synchronise: the medians, ms."""
+    import torch
+
+    host, device = [], []
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn(i)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        device.append(start.elapsed_time(end))
+    return dict(host_ms=statistics.median(host),
+                device_ms=statistics.median(device), n=n)
+
+
+def check_render_jit(scene, rscene, cams, card, by_path) -> dict:
+    """The `render_jit` path at the bench config: the random and the
+    realistic 1M scene (the realistic one with the jumbo ladder), float32
+    and packed4. The path (counted in by_path["render_jit"]): for each,
+    `render_jit` of the four views in turn, twice (the first call warms up
+    and captures, the other seven replay), the peak memory of these calls
+    above what was allocated before. Then, outside the path's count: every
+    output bit-identical to eager `render` of its view, one capture, 0
+    synchronising calls per replay, and one profiled pass of four replays
+    naming K3 and K1 (their calls per replay equal to the graph's counted
+    launches); eager and replayed frames timed (CUDA events and the host
+    clock) and the busy share of the profiled replays."""
+    import torch
+
+    from gsplat_tpu_torch import RenderConfig, render, render_jit
+    from gsplat_tpu_torch.render import pipeline
+    from gsplat_tpu_torch.utils import graphs
+
+    fields = ("image", "transmittance", "num_intersections", "overflow",
+              "gauss_counts")
+    cases = [(tag, sc, RenderConfig(**dict(BENCH, **extra)))
+             for tag, sc, extra in (
+                 ("random f32", scene, {}),
+                 ("random packed4", scene, DEFAULT),
+                 ("realistic f32", rscene, dict(EXACT, **JUMBO)),
+                 ("realistic packed4", rscene, dict(DEFAULT, **JUMBO)))]
+    runs = {}
+
+    def path():
+        for tag, sc, cfg in cases:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            caps = graphs.captures["render"]
+            got = [render_jit(sc, cam, cfg) for _ in range(2) for cam in cams]
+            torch.cuda.synchronize()
+            runs[tag] = dict(
+                got=got, peak=torch.cuda.max_memory_allocated() - base,
+                captured=graphs.captures["render"] - caps,
+                entry=next(reversed(pipeline.RENDER_GRAPHS.entries.values())))
+
+    by_path["render_jit"] = drive(
+        "render_jit", ("cull", "cull_rank", "raster_fwd",
+                       "raster_fwd_packed"), path)
+    out = {}
+    caps = graphs.captures["render"]
+    for tag, sc, cfg in cases:
+        run = runs.pop(tag)
+        entry = run["entry"]
+        with torch.no_grad():
+            eager = [render(sc, c, cfg) for c in cams]
+        differ = [(k // len(cams), k % len(cams), f)
+                  for k, got in enumerate(run["got"]) for f in fields
+                  if not torch.equal(getattr(got, f),
+                                     getattr(eager[k % len(cams)], f))]
+        del eager, run["got"]
+        syncs, sites = count_syncs(lambda: [render_jit(sc, c, cfg)
+                                            for c in cams], 1)
+        with torch.no_grad():
+            eager_t = timed_calls(lambda i: render(sc, cams[i % 4], cfg),
+                                  JIT_TIMED)
+        replay_t = timed_calls(lambda i: render_jit(sc, cams[i % 4], cfg),
+                               JIT_TIMED)
+        prof = profile_window(lambda: [render_jit(sc, c, cfg) for c in cams],
+                              1, skip=pipeline.STAGES)
+        kern = path_kernels(prof, entry.launches, len(cams))
+        row = dict(differ=differ, captures=run["captured"],
+                   capture_s=entry.capture_s,
+                   syncs_per_replay=syncs / len(cams),
+                   sync_sites=sites, eager=eager_t, replay=replay_t,
+                   replay_busy_share=prof["busy_share"],
+                   replay_profiled_wall_ms=prof["wall_ms"] / len(cams),
+                   replay_kernel_ms=prof["kernel_ms"] / len(cams),
+                   path_kernels=kern, peak_bytes=run["peak"],
+                   top_kernels=dict(list(prof["kernels"].items())[:8]))
+        log(f"[render_jit {tag}] {json.dumps(row, default=str)}")
+        out[tag] = row
+        if (differ or run["captured"] != 1 or syncs
+                or graphs.captures["render"] != caps
+                or kernels_off(kern, ("cull", "raster_fwd"))):
+            raise SystemExit(f"render_jit {tag}: a replayed frame differs "
+                             "from eager render, not one capture, a "
+                             "synchronising call, or the profiler's K3 / K1 "
+                             "records missing or off the graph's launches")
+        torch.cuda.empty_cache()
+    log(f"[render_jit] on {card}")
+    return out
+
+
+def _snapshot(scene):
+    return {f.name: getattr(scene, f.name).detach().clone()
+            for f in dataclasses.fields(scene)}
+
+
+def train_steps(train, targets, step, cams) -> dict:
+    """JIT_STEPS steps of `step` (one view a step, in turn), each timed
+    (the first not): the losses, the last step's tap gradients and
+    visibility, the final parameters, the times' medians and whether the
+    last step neither overflowed nor went non-finite."""
+    import torch
+
+    losses, times = [], []
+    for i in range(JIT_STEPS):
+        v = i % len(cams)
+        res = []
+        t = timed_calls(lambda _: res.append(step(
+            train, [cams[v]], targets[v:v + 1])), 1)
+        loss, aux, (tap, vis) = res[0]
+        losses.append(loss)
+        if i:
+            times.append(t)
+    torch.cuda.synchronize()
+    return dict(
+        losses=torch.stack(losses), tap=tap, visible=vis,
+        params=_snapshot(train),
+        ok=not bool(aux["overflow"]) and bool(aux["grads_finite"]),
+        host_ms=statistics.median(x["host_ms"] for x in times),
+        device_ms=statistics.median(x["device_ms"] for x in times))
+
+
+def check_train_jit(scene, rscene, cams, dev, card, by_path) -> dict:
+    """The captured train step (`make_train_step`) at the exact and the
+    bench-default configurations on both scenes. The path (counted in
+    by_path["train_jit"]): JIT_STEPS steps of each configuration's captured
+    step from one init (its first call warms up and captures, the rest
+    replay), and the peak memory of those steps above what was allocated
+    before them. Then, outside the path's count: JIT_STEPS steps of the
+    eager body (`make_eager_train_step`) from a second copy of the init.
+    The losses, the last step's tap gradients and visibility and the final
+    parameters must be bit-identical; where they are not, each differing
+    output is named, held to rtol 5e-3 / atol 1e-5, and one eager step
+    under `torch.use_deterministic_algorithms(True, warn_only=True)` names
+    the ops without a deterministic implementation. Then 0 synchronising
+    calls per replayed step, one profiled pass of the four views naming K2
+    and K4 (exact) or K5 (default), and the eager and replayed steps'
+    times."""
+    import warnings
+
+    import torch
+
+    from gsplat_tpu_torch import RenderConfig
+    from gsplat_tpu_torch.render.pipeline import STAGES
+    from gsplat_tpu_torch.train.loop import TRAIN_SPANS
+    from gsplat_tpu_torch.utils import graphs
+
+    cases = [(tag, sc, RenderConfig(**dict(BENCH, **extra)), seg)
+             for tag, sc, extra, seg in (
+                 ("exact random", scene, EXACT, "segsum"),
+                 ("exact realistic", rscene, dict(EXACT, **JUMBO), "segsum"),
+                 ("default random", scene, DEFAULT, "segsum_packed"),
+                 ("default realistic", rscene, dict(DEFAULT, **JUMBO),
+                  "segsum_packed"))]
+    # The trainers (their targets rendered eagerly) before the path.
+    trainers = {tag: make_trainer(sc, cams, cfg, dev)
+                for tag, sc, cfg, _ in cases}
+    captured = {}
+
+    def path():
+        for tag, _, _, _ in cases:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            caps = graphs.captures["train_step"]
+            captured[tag] = train_steps(*trainers[tag], cams)
+            captured[tag].update(
+                captures=graphs.captures["train_step"] - caps,
+                peak_bytes=torch.cuda.max_memory_allocated() - base)
+
+    by_path["train_jit"] = drive(
+        "train_jit", ("cull", "raster_fwd", "raster_fwd_packed",
+                      "raster_bwd", "raster_bwd_packed", "segsum",
+                      "segsum_packed"), path)
+    out = {}
+    for tag, sc, cfg, seg in cases:
+        c = captured.pop(tag)
+        train, targets, step = trainers.pop(tag)
+        caps = graphs.captures["train_step"]
+        syncs, sites = count_syncs(
+            lambda: step(train, [cams[0]], targets[:1]), 2)
+        prof = profile_window(
+            lambda: [step(train, [cam], targets[v:v + 1])
+                     for v, cam in enumerate(cams)], 1,
+            skip=TRAIN_SPANS + STAGES)
+        (entry,) = step.graphs.entries.values()
+        kern = path_kernels(prof, entry.launches, len(cams))
+        recaptured = graphs.captures["train_step"] - caps
+        del train, targets, step
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        trainer = make_trainer(sc, cams, cfg, dev, eager=True)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        e = train_steps(*trainer, cams)
+        e["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        del trainer
+        pairs = dict(losses=(c["losses"], e["losses"]),
+                     tap_grads=(c["tap"], e["tap"]),
+                     visible=(c["visible"], e["visible"]),
+                     **{f"param {f}": (c["params"][f], e["params"][f])
+                        for f in e["params"]})
+        differ = {}
+        for name, (a, b) in pairs.items():
+            if torch.equal(a, b):
+                continue
+            a, b = a.double(), b.double()
+            differ[name] = dict(
+                max_abs=float((a - b).abs().max()),
+                within=bool(torch.allclose(a, b, rtol=5e-3, atol=1e-5)))
+        nondet = []
+        if differ:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    train, targets, step = make_trainer(sc, cams, cfg, dev,
+                                                        eager=True)
+                    step(train, [cams[0]], targets[:1])
+                    torch.cuda.synchronize()
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            nondet = sorted({str(w.message)[:160] for w in caught
+                             if "deterministic" in str(w.message)})
+            del train, targets, step
+        row = dict(
+            bit_identical=not differ, differ=differ, nondeterministic=nondet,
+            losses=c["losses"].tolist(), eager_ms=dict(
+                host=e["host_ms"], device=e["device_ms"]),
+            replay_ms=dict(host=c["host_ms"], device=c["device_ms"]),
+            captures=c["captures"], capture_s=entry.capture_s,
+            syncs_per_replay=syncs, sync_sites=sites,
+            busy_share=prof["busy_share"],
+            profiled_wall_ms=prof["wall_ms"] / len(cams),
+            kernel_ms=prof["kernel_ms"] / len(cams),
+            path_kernels=kern,
+            top_kernels=dict(list(prof["kernels"].items())[:8]),
+            peak_bytes=dict(eager=e["peak_bytes"],
+                            captured=c["peak_bytes"]))
+        log(f"[train_jit {tag}] {json.dumps(row, default=str)}")
+        out[tag] = row
+        needs = ("cull", "raster_fwd", "raster_bwd", seg)
+        if (not (e["ok"] and c["ok"]) or c["captures"] != 1 or recaptured
+                or syncs
+                or any(not d["within"] for d in differ.values())
+                or kernels_off(kern, needs)):
+            raise SystemExit(f"train_jit {tag}: a step overflowed or went "
+                             "non-finite, not one capture, a synchronising "
+                             "call, the captured steps outside rtol 5e-3 / "
+                             "atol 1e-5 of the eager steps, or the "
+                             f"profiler's records of {needs} missing or off "
+                             "the graph's launches")
+        del c, e, pairs
+        torch.cuda.empty_cache()
+    log(f"[train_jit] on {card}")
+    return out
+
+
+def check_loss_and_grad_jit(scene, cams, card, by_path) -> dict:
+    """`render_loss_and_grad` at the bench-default config on the random
+    scene, the bench's fwd_bwd call. The path (counted in
+    by_path["loss_and_grad_jit"]): the four views in turn, twice (the first
+    call warms up and captures, the other seven replay), and the peak
+    memory of these calls above what was allocated before. Then, outside
+    the path's count: each loss and gradient bit-identical to the eager
+    body's on its view, 0 synchronising calls per replay, one profiled
+    pass of four calls of `utils.bench.bench_iteration(..., "fwd_bwd")`
+    naming K3, K1, K2 and K5 (their calls per replay equal to the graph's
+    counted launches), and the eager and replayed calls' times."""
+    import torch
+
+    from gsplat_tpu_torch import RenderConfig
+    from gsplat_tpu_torch.render import pipeline
+    from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS, STAGES
+    from gsplat_tpu_torch.utils import graphs
+    from gsplat_tpu_torch.utils.bench import bench_iteration
+
+    cfg = RenderConfig(**dict(BENCH, **DEFAULT))
+    target = torch.zeros((cfg.height, cfg.width, 3), device=scene.means.device)
+    got = []
+    run = {}
+
+    def path():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        caps = graphs.captures["loss_and_grad"]
+        got.extend(pipeline.render_loss_and_grad(scene, cam, target, cfg)
+                   for _ in range(2) for cam in cams)
+        torch.cuda.synchronize()
+        run.update(peak=torch.cuda.max_memory_allocated() - base,
+                   captured=graphs.captures["loss_and_grad"] - caps)
+
+    by_path["loss_and_grad_jit"] = drive(
+        "loss_and_grad_jit", ("cull", "raster_fwd_packed",
+                              "raster_bwd_packed", "segsum_packed"), path)
+    caps = graphs.captures["loss_and_grad"]
+    same = []
+    for k, (loss, grads) in enumerate(got):
+        want_loss, want = pipeline._loss_and_grad(
+            scene, cams[k % len(cams)], target, cfg)
+        same.append(bool(torch.equal(loss, want_loss)) and all(
+            torch.equal(getattr(grads, f), getattr(want, f))
+            for f in SCENE_FIELDS))
+    got.clear()
+    del want, want_loss
+    torch.cuda.empty_cache()
+    syncs, sites = count_syncs(
+        lambda: [pipeline.render_loss_and_grad(scene, c, target, cfg)
+                 for c in cams], 1)
+    eager_t = timed_calls(lambda i: pipeline._loss_and_grad(
+        scene, cams[i % 4], target, cfg), JIT_TIMED)
+    replay_t = timed_calls(lambda i: pipeline.render_loss_and_grad(
+        scene, cams[i % 4], target, cfg), JIT_TIMED)
+    fns = [bench_iteration(scene, c, cfg, "fwd_bwd") for c in cams]
+    prof = profile_window(lambda: [fn() for fn in fns], 1, skip=STAGES)
+    entry = next(reversed(pipeline.LOSS_AND_GRAD_GRAPHS.entries.values()))
+    kern = path_kernels(prof, entry.launches, len(cams))
+    row = dict(bit_identical=same, captures=run["captured"],
+               capture_s=entry.capture_s, syncs_per_replay=syncs / len(cams),
+               sync_sites=sites, eager=eager_t, replay=replay_t,
+               replay_busy_share=prof["busy_share"],
+               replay_profiled_wall_ms=prof["wall_ms"] / len(cams),
+               replay_kernel_ms=prof["kernel_ms"] / len(cams),
+               path_kernels=kern, peak_bytes=run["peak"],
+               top_kernels=dict(list(prof["kernels"].items())[:8]))
+    log(f"[loss_and_grad_jit] {json.dumps(row, default=str)} on {card}")
+    if (not all(same) or run["captured"] != 1 or syncs
+            or graphs.captures["loss_and_grad"] != caps
+            or kernels_off(kern, ("cull", "raster_fwd", "raster_bwd",
+                                  "segsum_packed"))):
+        raise SystemExit("loss_and_grad_jit: a replayed loss or gradient "
+                         "differs from the eager body's, not one capture, a "
+                         "synchronising call, or the profiler's K3 / K1 / "
+                         "K2 / K5 records of the bench's fwd_bwd replays "
+                         "missing or off the graph's launches")
+    return row
+
+
+def check_cli_train_eager(out_dir: str, captured: dict, card: str) -> dict:
+    """`cli train` (cli_train_argv) once more with the train step run
+    eagerly (`make_train_step` patched to `make_eager_train_step`): its
+    log rows' losses and held-out PSNRs against phase 10's run on the
+    captured step, which must end at the same held-out PSNR."""
+    import csv
+
+    from gsplat_tpu_torch.train import loop
+
+    os.makedirs(out_dir, exist_ok=True)
+    captured_step = loop.make_train_step
+    loop.make_train_step = loop.make_eager_train_step
+    t0 = time.perf_counter()
+    try:
+        cli_run(cli_train_argv(out_dir))
+    finally:
+        loop.make_train_step = captured_step
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    keys = ("step", "loss", "holdout_psnr", "train_psnr")
+    eager_rows = [{k: r.get(k) for k in keys} for r in rows]
+    graph_rows = [{k: r.get(k) for k in keys} for r in captured["rows"]]
+    last = (eager_rows[-1]["holdout_psnr"], graph_rows[-1]["holdout_psnr"])
+    out = dict(wall_s=wall, captured_wall_s=captured["wall_s"],
+               rows_equal=eager_rows == graph_rows, holdout_psnr=last,
+               eager_rows=eager_rows)
+    log(f"[cli_train eager] {json.dumps(out)} on {card}")
+    if last[0] != last[1] or not last[0]:
+        raise SystemExit(f"cli_train eager: held-out PSNR at step "
+                         f"{CLI_STEPS} {last[0]} on the eager step, "
+                         f"{last[1]} on the captured one")
+    return out
 
 
 def drive(path, needs, fn):
@@ -3432,6 +3952,27 @@ def run(dev) -> int:
     t0 = time.perf_counter()
     check_tools(card, by_path, view0)
     log(f"[phase 18] {time.perf_counter() - t0:.1f} s")
+
+    # 19. The captured paths: render_jit, the captured train step and
+    # render_loss_and_grad against their eager bodies, then `cli train` on
+    # the eager step against phase 10's run on the captured one.
+    t0 = time.perf_counter()
+    scene = bench_scene(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rscene = realistic_scene(NUM_GAUSSIANS, sh_degree=3, generator=gen,
+                             device=dev)
+    check_render_jit(scene, rscene, cams, card, by_path)
+    check_train_jit(scene, rscene, cams, dev, card, by_path)
+    check_loss_and_grad_jit(scene, cams, card, by_path)
+    del scene, rscene
+    torch.cuda.empty_cache()
+    # The eager reference of phase 10's cli_train, not a path: its
+    # launches are not counted in launches_by_path.
+    check_cli_train_eager(os.path.join(out_dir, "train_eager"), fit_report,
+                          card)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[phase 19] {time.perf_counter() - t0:.1f} s")
 
     kernels["cull"]["rank_launches_by_path"] = {
         p: c["cull_rank"] for p, c in by_path.items()}

@@ -21,6 +21,12 @@ and the multi-device modes on `torch.distributed`, one process per rank
 and the Gaussian-sharded render, training and per-shard checkpoints; and
 the tools around the package, each runnable with `python -m`: `bench`,
 `scene_report`, `train_protocol`, `train_sharded_smoke` and `fit_demo`.
+
+As the JAX package dispatches a frame and a step each as one jitted
+program, the port replays CUDA graphs (`utils/graphs.py`): `render_jit`,
+`render.pipeline.render_loss_and_grad` and the step of
+`train.loop.make_train_step`, captured once per static configuration and
+input shapes; `render` is the eager function they capture.
 """
 
 from gsplat_tpu_torch.config import RenderConfig
@@ -30,7 +36,7 @@ from gsplat_tpu_torch.models.gaussians import (
     realistic_scene,
 )
 from gsplat_tpu_torch.ops.camera import Camera
-from gsplat_tpu_torch.render.pipeline import RenderOutput, render
+from gsplat_tpu_torch.render.pipeline import RenderOutput, render, render_jit
 
 __all__ = [
     "Camera",
@@ -40,4 +46,5 @@ __all__ = [
     "random_scene",
     "realistic_scene",
     "render",
+    "render_jit",
 ]

@@ -182,15 +182,14 @@ def _prepare_render(args):
 def cmd_render(args) -> int:
     import torch
 
-    from gsplat_tpu_torch.render.pipeline import render
+    from gsplat_tpu_torch.render.pipeline import render_jit
     from gsplat_tpu_torch.utils.bench import synchronize
     from gsplat_tpu_torch.utils.image import write_png
 
     scene, cfg, cams = _prepare_render(args)
     for name, cam in cams:
         t0 = time.perf_counter()
-        with torch.no_grad():
-            out = render(scene, cam, cfg)
+        out = render_jit(scene, cam, cfg)
         synchronize(args.device)
         dt = time.perf_counter() - t0
         path = args.output.replace("{}", name)
@@ -284,14 +283,16 @@ def cmd_train(args) -> int:
 
 def cmd_warmup(args) -> int:
     """Build every CUDA kernel into `build/` (one nvcc per source, all at
-    once), then render the viewer preset once per capacity bucket and print
-    the first and the steady frame's times. A later `render
-    --viewer-preset --pad-bucket` then finds its kernels built."""
+    once), then per capacity bucket build, capture and replay the viewer
+    preset's frame (`render_jit`: compile once, serve every scene under the
+    bucket) and print the first call's time (warm-up and capture) and the
+    steady, replayed frame's. A later `render --viewer-preset
+    --pad-bucket` then finds its kernels built."""
     import torch
 
     from gsplat_tpu_torch.models.gaussians import random_scene
     from gsplat_tpu_torch.ops.camera import Camera
-    from gsplat_tpu_torch.render.pipeline import render
+    from gsplat_tpu_torch.render.pipeline import render_jit
     from gsplat_tpu_torch.utils.bench import synchronize
 
     if torch.device(args.device).type == "cuda":
@@ -308,17 +309,16 @@ def cmd_warmup(args) -> int:
         gen = torch.Generator(device=args.device).manual_seed(0)
         scene = random_scene(b, min(args.sh_degree, 3), generator=gen,
                              device=args.device)
-        with torch.no_grad():
-            synchronize(args.device)
-            t0 = time.perf_counter()
-            render(scene, cam, cfg)
-            synchronize(args.device)
-            t1 = time.perf_counter()
-            render(scene, cam, cfg)
-            synchronize(args.device)
-            t2 = time.perf_counter()
-        print(f"bucket {b}: first frame {t1 - t0:.1f} s, "
-              f"steady frame {(t2 - t1) * 1000:.1f} ms")
+        synchronize(args.device)
+        t0 = time.perf_counter()
+        render_jit(scene, cam, cfg)
+        synchronize(args.device)
+        t1 = time.perf_counter()
+        render_jit(scene, cam, cfg)
+        synchronize(args.device)
+        t2 = time.perf_counter()
+        print(f"bucket {b}: first frame (warm-up and capture) "
+              f"{t1 - t0:.1f} s, steady frame {(t2 - t1) * 1000:.1f} ms")
     return 0
 
 

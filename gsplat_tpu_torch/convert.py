@@ -42,16 +42,13 @@ def scene_adam_from_numpy(scene: dict, mu: dict, nu: dict, count: int,
     (optax's count, shared by every field). `lr` and `opt_kw` are
     `make_optimizer`'s; the position-lr schedule resumes at `count`."""
     from gsplat_tpu_torch.train.loop import make_optimizer
+    from gsplat_tpu_torch.utils.checkpoint import set_adam_state
 
     out = scene_from_numpy(**scene, device=device)
     optimizer = make_optimizer(out, lr, **opt_kw)
     for group in optimizer.param_groups:
         name, param = group["name"], group["params"][0]
-        optimizer.state[param] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": _tensor(mu[name], device),
-            "exp_avg_sq": _tensor(nu[name], device),
-        }
+        set_adam_state(optimizer, param, mu[name], nu[name], float(count))
     optimizer.updates = int(count)
     return out, optimizer
 

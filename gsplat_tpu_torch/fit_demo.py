@@ -45,7 +45,7 @@ def main(argv=None) -> dict:
     from gsplat_tpu_torch.config import RenderConfig
     from gsplat_tpu_torch.models.gaussians import random_scene
     from gsplat_tpu_torch.ops.camera import orbit_cameras
-    from gsplat_tpu_torch.render.pipeline import render
+    from gsplat_tpu_torch.render.pipeline import render_jit
     from gsplat_tpu_torch.train import loop
     from gsplat_tpu_torch.train.losses import psnr
     from gsplat_tpu_torch.train_protocol import centred_target, to_device
@@ -70,8 +70,7 @@ def main(argv=None) -> dict:
     target = to_device(target, dev)
     cams = orbit_cameras(np.zeros(3), radius, args.views, s, s, fx=float(s),
                          fy=float(s), device=dev)
-    with torch.no_grad():
-        targets = torch.stack([render(target, c, cfg).image for c in cams])
+    targets = torch.stack([render_jit(target, c, cfg).image for c in cams])
 
     init = to_device(random_scene(
         args.n, sh_degree=2, generator=torch.Generator().manual_seed(1),
@@ -82,8 +81,7 @@ def main(argv=None) -> dict:
     os.makedirs(args.out_dir, exist_ok=True)
     write_png(os.path.join(args.out_dir, "target.png"),
               targets[0].cpu().numpy())
-    with torch.no_grad():
-        initial = render(init, cams[0], cfg).image
+    initial = render_jit(init, cams[0], cfg).image
     write_png(os.path.join(args.out_dir, "initial.png"),
               initial.cpu().numpy())
 
@@ -96,8 +94,7 @@ def main(argv=None) -> dict:
         densify_max_scale=0.05 * radius,
         metrics_csv=os.path.join(args.out_dir, "metrics.csv"),
     )
-    with torch.no_grad():
-        fitted = render(trained, cams[0], cfg).image
+    fitted = render_jit(trained, cams[0], cfg).image
     write_png(os.path.join(args.out_dir, "fitted.png"), fitted.cpu().numpy())
     p = float(psnr(fitted, targets[0]))
     print(f"view-0 PSNR after {args.steps} steps: {p:.2f} dB")

@@ -28,7 +28,7 @@ import ctypes
 import torch
 
 from gsplat_tpu_torch.config import RenderConfig
-from gsplat_tpu_torch.ops.cuda import _build
+from gsplat_tpu_torch.ops.cuda import _build, counters
 
 # Parameter rows of the (NUM_ROWS, N) input.
 R_GX, R_GY, R_A, R_B, R_C, R_TAU, R_X0, R_Y0, R_W, R_COUNT = range(10)
@@ -41,6 +41,7 @@ STAGES = {"mask": 0, "compact": 1, "rank": 2}
 # `rank_launches` the same for the rank stage alone (the jumbo grid).
 launches = 0
 rank_launches = 0
+counters.register(__name__, "launches", "rank_launches")
 
 
 def cull_params(proj, cfg: RenderConfig, counts=None) -> torch.Tensor:

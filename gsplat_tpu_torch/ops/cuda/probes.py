@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from gsplat_tpu_torch.ops.cuda import _build
+from gsplat_tpu_torch.ops.cuda import _build, counters
 
 # Launches of P1..P4: each `*_cuda` wrapper adds one per launch of its
 # kernel, nowhere else.
@@ -40,6 +40,8 @@ transc_launches = 0
 tricumsum_launches = 0
 gather_launches = 0
 coldma_launches = 0
+counters.register(__name__, "transc_launches", "tricumsum_launches",
+                  "gather_launches", "coldma_launches")
 
 # P1's modes, in the order of the TPU script; the value is the kernel's
 # `mode` argument (csrc/probe_transc.cu, Mode).

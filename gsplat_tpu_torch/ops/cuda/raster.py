@@ -31,7 +31,7 @@ from gsplat_tpu_torch.ops.binning import (
     gather_slots_bwd,
     kmax_eff,
 )
-from gsplat_tpu_torch.ops.cuda import _build
+from gsplat_tpu_torch.ops.cuda import _build, counters
 from gsplat_tpu_torch.ops.raster_torch import (
     _raster_tiles,
     _raster_tiles_bwd_walk,
@@ -53,6 +53,8 @@ packed_launches = 0
 # nowhere else; `bwd_packed_launches` the same on a packed stream.
 bwd_launches = 0
 bwd_packed_launches = 0
+counters.register(__name__, "launches", "packed_launches", "bwd_launches",
+                  "bwd_packed_launches")
 
 # The `fmt` argument of the kernels (csrc/blend.cuh, StreamFormat).
 _FORMATS = {"f32": 0, "packed16": 1, "packed4": 2}

@@ -32,13 +32,14 @@ import ctypes
 import torch
 
 from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs
-from gsplat_tpu_torch.ops.cuda import _build
+from gsplat_tpu_torch.ops.cuda import _build, counters
 
 # K4 launches: segmented_suffix_sum_cuda adds one per launch, nowhere else.
 launches = 0
 # K5 launches: segmented_suffix_sum_packed_cuda adds one per launch, nowhere
 # else.
 packed_launches = 0
+counters.register(__name__, "launches", "packed_launches")
 
 
 def doubling_depth(kmax: int) -> int:

@@ -15,7 +15,11 @@ for the fixed ordering. With no input requiring grad, autograd records
 nothing and no residual is kept: the serving path runs as before.
 
 `render` makes no host synchronisation: `num_intersections` and `overflow`
-stay device tensors. Each stage runs inside a
+stay device tensors, so a frame can be captured whole. `render_jit` and
+`render_loss_and_grad` are the counterparts of the JAX package's jitted
+functions: on a CUDA device each replays a CUDA graph captured once per
+config and input shapes (`utils/graphs.py`); `render` itself stays eager,
+as JAX's `render` is the function `render_jit` jits. Each stage runs inside a
 `torch.profiler.record_function` span named in `STAGES`, so a profiler sees
 the stages as they are (`scripts/profile_torch_render.py` reads them);
 outside a profiler a span costs a few microseconds.
@@ -40,6 +44,7 @@ from gsplat_tpu_torch.ops.cuda.raster import rasterize_packed16, rasterize_tiles
 from gsplat_tpu_torch.ops.projection import ProjectedGaussians, project_gaussians
 from gsplat_tpu_torch.ops.stream16 import gather_packed
 from gsplat_tpu_torch.train.losses import l1
+from gsplat_tpu_torch.utils.graphs import Captured
 
 # The profiler spans of `render`, in the order the stages run.
 STAGES = ("render.project", "render.bin", "render.gather", "render.blend")
@@ -123,12 +128,51 @@ def render_loss(scene, camera, target, cfg: RenderConfig, background=None):
 
 
 SCENE_FIELDS = tuple(f.name for f in dataclasses.fields(GaussianScene))
+CAMERA_FIELDS = tuple(f.name for f in dataclasses.fields(Camera))
+
+# The captured frames and loss-and-gradients, keyed by config and shapes.
+RENDER_GRAPHS = Captured("render")
+LOSS_AND_GRAD_GRAPHS = Captured("loss_and_grad")
 
 
-def render_loss_and_grad(scene, camera, target, cfg: RenderConfig):
-    """(loss, GaussianScene of d loss / d each field). The scene's own
-    tensors are left as they are: the gradient is taken on detached views
-    of them, so no `.grad` is written."""
+def scene_camera_inputs(scene: GaussianScene, camera: Camera) -> list:
+    """The scene's and the camera's tensors, in field order: the inputs of
+    a captured call."""
+    return ([getattr(scene, f) for f in SCENE_FIELDS]
+            + [getattr(camera, f) for f in CAMERA_FIELDS])
+
+
+def split_inputs(flat) -> tuple[GaussianScene, Camera, list]:
+    """`scene_camera_inputs` read back: (scene, camera, the rest)."""
+    n, m = len(SCENE_FIELDS), len(CAMERA_FIELDS)
+    return (GaussianScene(*flat[:n]), Camera(*flat[n:n + m]),
+            list(flat[n + m:]))
+
+
+def render_jit(scene: GaussianScene, camera: Camera, cfg: RenderConfig,
+               background: torch.Tensor | None = None) -> RenderOutput:
+    """`render` dispatched as one program, as the JAX package's `render_jit`
+    (a `jax.jit` with cfg static): on a CUDA device the frame is a CUDA
+    graph, captured on the first call for (cfg, input shapes, dtypes,
+    device, background or not, the scene's addresses) and replayed after;
+    the scene is read where it lies, the camera copied into the graph's
+    buffers (`utils/graphs.py`).
+    On the CPU the same call runs eagerly. The outputs are new tensors,
+    outside autograd."""
+    inputs = scene_camera_inputs(scene, camera)
+    if background is not None:
+        inputs.append(background)
+
+    def body(*flat):
+        s, c, rest = split_inputs(flat)
+        with torch.no_grad():
+            return render(s, c, cfg, rest[0] if rest else None)
+
+    return RENDER_GRAPHS((cfg, background is not None), inputs, body,
+                         held=len(SCENE_FIELDS))
+
+
+def _loss_and_grad(scene, camera, target, cfg: RenderConfig):
     leaves = {f: getattr(scene, f).detach().requires_grad_(True)
               for f in SCENE_FIELDS}
     with torch.enable_grad():
@@ -136,3 +180,20 @@ def render_loss_and_grad(scene, camera, target, cfg: RenderConfig):
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     materialize_grads=True)
     return loss.detach(), GaussianScene(*grads)
+
+
+def render_loss_and_grad(scene, camera, target, cfg: RenderConfig):
+    """(loss, GaussianScene of d loss / d each field), dispatched as one
+    program as the JAX package's jitted `render_loss_and_grad`: a CUDA
+    graph per (cfg, input shapes) on a CUDA device, eager on the CPU; the
+    scene is read where it lies. The scene's own tensors are left as they
+    are: the gradient is taken on detached views of them, so no `.grad` is
+    written."""
+
+    def body(*flat):
+        s, c, (t,) = split_inputs(flat)
+        return _loss_and_grad(s, c, t, cfg)
+
+    return LOSS_AND_GRAD_GRAPHS(
+        cfg, scene_camera_inputs(scene, camera) + [target], body,
+        held=len(SCENE_FIELDS))

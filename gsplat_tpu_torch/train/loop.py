@@ -8,8 +8,10 @@ drives the tile-sharded step of `parallel/train_step.py`.
 
 Where the JAX step is a pure function of a train state, the port's step
 updates the scene's tensors in place: they are the optimizer's parameters
-(leaf tensors with requires_grad), as torch optimizers hold them. Each
-phase runs inside a `torch.profiler.record_function` span named in
+(leaf tensors with requires_grad), as torch optimizers hold them. On a CUDA
+device the step is a CUDA graph, as the JAX step is one jitted program
+(`make_train_step`); `make_eager_train_step` runs the same body op by op.
+Each phase runs inside a `torch.profiler.record_function` span named in
 `TRAIN_SPANS` (`scripts/profile_torch_train.py` reads them).
 """
 
@@ -27,8 +29,14 @@ from torch.profiler import record_function
 from gsplat_tpu_torch.config import RenderConfig
 from gsplat_tpu_torch.models.gaussians import GaussianScene
 from gsplat_tpu_torch.ops.binning import _normalize_tier_plan
-from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS, render_with_projection
+from gsplat_tpu_torch.ops.camera import Camera
+from gsplat_tpu_torch.render.pipeline import (
+    CAMERA_FIELDS,
+    SCENE_FIELDS,
+    render_with_projection,
+)
 from gsplat_tpu_torch.train.losses import rgb_loss
+from gsplat_tpu_torch.utils.graphs import Captured
 
 # The profiler spans of a train step (a view's forward and loss spans
 # repeat once per view).
@@ -53,24 +61,76 @@ def sh_band_mask(num_coeffs: int, active_degree, device="cuda") -> torch.Tensor:
     return (band <= active_degree).to(torch.float32)[:, None]
 
 
+def decayed_lr(t, base: float, ratio: float, max_steps: int):
+    """optax.exponential_decay's rate at update t: base ratio^(t /
+    max_steps), held at base ratio from then on. t is a number (a float in
+    double precision) or a float64 tensor (the same on its device)."""
+    end = base * ratio
+    if isinstance(t, torch.Tensor):
+        x = base * torch.pow(ratio, t / max_steps)
+        return torch.clamp_min(x, end) if ratio < 1.0 else \
+            torch.clamp_max(x, end)
+    clip = max if ratio < 1.0 else min
+    return clip(base * ratio ** (t / max_steps), end)
+
+
 class SceneAdam(torch.optim.Adam):
     """`torch.optim.Adam` with one parameter group per scene field (named
-    by the group's "name") and an optional schedule for the "means" group:
-    `means_lr_at(t)` is the learning rate of the update t = 0, 1, ..."""
+    by the group's "name") and an optional exponential schedule of the
+    "means" group's rate, `decay` = (base, ratio, max_steps) of
+    `decayed_lr`: the rate of the update t = 0, 1, ... is
+    `means_lr_at(t)`.
 
-    def __init__(self, groups, means_lr_at=None):
+    On a CUDA device it is capturable (torch's `capturable=True`), so that
+    a captured train step replays it whole: the rates are float32 device
+    tensors, Adam's step counts stay on the device, and before each update
+    the "means" rate is computed there (in float64) from the device count
+    `count`. On the CPU the rates are floats, set from the host count, as
+    torch's non-capturable Adam wants them; `updates` reads either count."""
+
+    def __init__(self, groups, decay=None):
+        dev = groups[0]["params"][0].device
+        capturable = dev.type == "cuda"
+        if capturable:
+            groups = [dict(g, lr=torch.full((), g["lr"], dtype=torch.float32,
+                                            device=dev)) for g in groups]
         # optax.adam's defaults, which are torch's: eps outside the sqrt.
-        super().__init__(groups, betas=(0.9, 0.999), eps=1e-8)
-        self.means_lr_at = means_lr_at
-        self.updates = 0
+        super().__init__(groups, betas=(0.9, 0.999), eps=1e-8,
+                         capturable=capturable)
+        self.decay = decay
+        self.count = (torch.zeros((), dtype=torch.float64, device=dev)
+                      if capturable else None)
+        self._updates = 0
+
+    def means_lr_at(self, t: int) -> float:
+        return decayed_lr(t, *self.decay)
+
+    @property
+    def updates(self) -> int:
+        """Updates made so far (reads the card when capturable)."""
+        return self._updates if self.count is None else int(self.count)
+
+    @updates.setter
+    def updates(self, n: int) -> None:
+        if self.count is None:
+            self._updates = int(n)
+        else:
+            self.count.fill_(int(n))
 
     def step(self, closure=None):
-        if self.means_lr_at is not None:
+        if self.decay is not None:
             for group in self.param_groups:
-                if group["name"] == "means":
-                    group["lr"] = self.means_lr_at(self.updates)
+                if group["name"] != "means":
+                    continue
+                if self.count is None:
+                    group["lr"] = self.means_lr_at(self._updates)
+                else:
+                    group["lr"].copy_(decayed_lr(self.count, *self.decay))
         loss = super().step(closure)
-        self.updates += 1
+        if self.count is None:
+            self._updates += 1
+        else:
+            self.count.add_(1)
         return loss
 
 
@@ -89,18 +149,12 @@ def make_optimizer(
     decay of optax.exponential_decay: lr_means(t) = lr_means ratio^(t /
     lr_max_steps), held at lr_means ratio from then on. Other groups stay
     constant."""
-    means_lr = lr * LR_SCALES["means"]
-    means_lr_at = None
+    decay = None
     if position_lr_final_ratio is not None:
         if not lr_max_steps:
             raise ValueError("position_lr_final_ratio requires lr_max_steps")
-        ratio = float(position_lr_final_ratio)
-        end = means_lr * ratio
-        clip = max if ratio < 1.0 else min
-
-        def means_lr_at(t: int) -> float:
-            return clip(means_lr * ratio ** (t / lr_max_steps), end)
-
+        decay = (lr * LR_SCALES["means"], float(position_lr_final_ratio),
+                 lr_max_steps)
     groups = []
     for name in SCENE_FIELDS:
         param = getattr(scene, name)
@@ -109,52 +163,51 @@ def make_optimizer(
                              "tensor; pass a scene of plain tensors")
         param.requires_grad_(True)
         groups.append(dict(params=[param], lr=lr * LR_SCALES[name], name=name))
-    return SceneAdam(groups, means_lr_at)
+    return SceneAdam(groups, decay)
 
 
-def make_train_step(cfg: RenderConfig, optimizer: SceneAdam,
-                    ssim_weight: float = 0.2):
-    """Single-device train step over a small batch of views, unrolled (one
-    render per view, as the JAX step unrolls its batch).
+def _check_params(scene: GaussianScene, params) -> None:
+    if any(getattr(scene, f) is not p for f, p in zip(SCENE_FIELDS, params)):
+        raise ValueError("train step: the scene's tensors are not the "
+                         "optimizer's parameters")
 
-    Returns step(scene, cameras, targets, active_sh_degree=None) ->
-    (loss, aux, (tap_grads, visible)), where scene's tensors are the
-    optimizer's parameters and are updated in place:
-      cameras: a sequence of B `Camera`s; targets: (B, H, W, 3) images;
-      active_sh_degree: SH bands above it are masked out of the loss (and
-           get zero gradient), graphdeco's progressive SH activation;
-      loss: () the mean over views of the L1 + DSSIM loss, before the update;
-      aux: device tensors, no host read: "overflow" (any view), the largest
-           "num_intersections" of the views, "grads_finite" and the per-
-           field "grads_finite_leaves" (SCENE_FIELDS order), and
-           "tier_members" (members of each pool tier, worst view);
-      tap_grads: (N, 2) d loss / d uv_tap, the screen-space positional
-           gradient of the densification trigger;
-      visible: (N,) bool, Gaussian touched >= 1 tile in >= 1 view.
-    The gradients stay in each parameter's `.grad` after the step."""
+
+def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
+                     ssim_weight: float):
+    """(body, band_mask, params) of the train step.
+
+    body(scene, cameras, targets, mask) -> (loss, aux, (tap_grads,
+    visible)), mask a (K, 1) SH band mask or None. Its `.grad`s (the
+    parameters' and the (N, 2) zero leaf `tap` of the densification
+    trigger, made once) are zeroed and accumulated in place, so each keeps
+    its storage from the first step on, as a captured step needs.
+    band_mask(active_sh_degree) is the degree's mask, built once on the
+    device (no copy from the host), or None for None."""
     tier_klos = tuple(
         k_lo for k_lo, _, budget in _normalize_tier_plan(
             cfg.tier_spec, cfg.max_tiles_per_gaussian, 1)
         if budget is not None
     ) if cfg.binning == "tiered" else ()
     params = [group["params"][0] for group in optimizer.param_groups]
-    band_masks = {}
+    dev = params[0].device
+    tap = torch.zeros((params[0].shape[0], 2), device=dev, requires_grad=True)
+    num_coeffs = params[SCENE_FIELDS.index("sh")].shape[1]
+    masks = {}
 
-    def step(scene: GaussianScene, cameras, targets, active_sh_degree=None):
-        if any(getattr(scene, f) is not p for f, p in zip(SCENE_FIELDS, params)):
-            raise ValueError("train step: the scene's tensors are not the "
-                             "optimizer's parameters")
-        dev = scene.means.device
-        optimizer.zero_grad(set_to_none=True)
-        tap = torch.zeros((scene.num_gaussians, 2), device=dev,
-                          requires_grad=True)
-        if active_sh_degree is not None:
-            # One mask per degree, kept on the device: building it copies
-            # from the host, which would wait for the card every step.
-            key = (scene.sh.shape[1], int(active_sh_degree), dev)
-            if key not in band_masks:
-                band_masks[key] = sh_band_mask(*key)
-            scene = dataclasses.replace(scene, sh=scene.sh * band_masks[key])
+    def band_mask(active_sh_degree):
+        if active_sh_degree is None:
+            return None
+        degree = int(active_sh_degree)
+        if degree not in masks:
+            masks[degree] = sh_band_mask(num_coeffs, degree, dev)
+        return masks[degree]
+
+    def body(scene, cameras, targets, mask):
+        optimizer.zero_grad(set_to_none=False)
+        if tap.grad is not None:
+            tap.grad.zero_()
+        if mask is not None:
+            scene = dataclasses.replace(scene, sh=scene.sh * mask)
         losses, overflow, n_int, visible, members = [], [], [], [], []
         for camera, target in zip(cameras, targets):
             with record_function("train.forward"):
@@ -193,6 +246,78 @@ def make_train_step(cfg: RenderConfig, optimizer: SceneAdam,
         return (loss.detach(), aux,
                 (tap.grad, torch.stack(visible).any(0)))
 
+    return body, band_mask, params
+
+
+def make_eager_train_step(cfg: RenderConfig, optimizer: SceneAdam,
+                          ssim_weight: float = 0.2):
+    """`make_train_step`'s step run eagerly, op by op: the body the
+    captured step captures, with the same interface. The profile scripts
+    (`scripts/profile_torch_train*.py`) read its spans, and `chip_smoke.py`
+    holds the captured step to it."""
+    body, band_mask, params = _train_step_body(cfg, optimizer, ssim_weight)
+
+    def step(scene: GaussianScene, cameras, targets, active_sh_degree=None):
+        _check_params(scene, params)
+        loss, aux, (tap_grads, visible) = body(
+            scene, cameras, targets, band_mask(active_sh_degree))
+        return loss, aux, (tap_grads.clone(), visible)
+
+    return step
+
+
+def make_train_step(cfg: RenderConfig, optimizer: SceneAdam,
+                    ssim_weight: float = 0.2):
+    """Single-device train step over a small batch of views, unrolled (one
+    render per view, as the JAX step unrolls its batch), dispatched as one
+    program as the JAX package's jitted `_step`: on a CUDA device a CUDA
+    graph (`utils/graphs.py`) captured on the first call for (cfg, B, the
+    scene's capacity, ssim_weight, SH masking on or off: the JAX step's
+    static `mask_sh`) and replayed after; on the CPU the same body eagerly.
+
+    Returns step(scene, cameras, targets, active_sh_degree=None) ->
+    (loss, aux, (tap_grads, visible)), where scene's tensors are the
+    optimizer's parameters and are updated in place:
+      cameras: a sequence of B `Camera`s; targets: (B, H, W, 3) images;
+      active_sh_degree: SH bands above it are masked out of the loss (and
+           get zero gradient), graphdeco's progressive SH activation; the
+           degree's mask is an input of the graph (JAX's traced
+           `active_sh`), so one graph serves every degree;
+      loss: () the mean over views of the L1 + DSSIM loss, before the update;
+      aux: device tensors, no host read: "overflow" (any view), the largest
+           "num_intersections" of the views, "grads_finite" and the per-
+           field "grads_finite_leaves" (SCENE_FIELDS order), and
+           "tier_members" (members of each pool tier, worst view);
+      tap_grads: (N, 2) d loss / d uv_tap, the screen-space positional
+           gradient of the densification trigger;
+      visible: (N,) bool, Gaussian touched >= 1 tile in >= 1 view.
+    The gradients stay in each parameter's `.grad` after the step. The
+    parameters, their `.grad` and Adam's state keep their storage: code
+    between steps changes them in place (`fit`'s `_assign`)."""
+    body, band_mask, params = _train_step_body(cfg, optimizer, ssim_weight)
+    graphs = Captured("train_step")
+    n_cam = len(CAMERA_FIELDS)
+
+    def step(scene: GaussianScene, cameras, targets, active_sh_degree=None):
+        _check_params(scene, params)
+        mask = band_mask(active_sh_degree)
+        inputs = [getattr(c, f) for c in cameras for f in CAMERA_FIELDS]
+        inputs.append(targets)
+        if mask is not None:
+            inputs.append(mask)
+        b = len(cameras)
+
+        def captured(*flat):
+            cams = [Camera(*flat[i * n_cam:(i + 1) * n_cam])
+                    for i in range(b)]
+            return body(scene, cams, flat[b * n_cam],
+                        flat[b * n_cam + 1] if mask is not None else None)
+
+        key = (cfg, b, scene.num_gaussians, float(ssim_weight),
+               mask is not None)
+        return graphs(key, inputs, captured)
+
+    step.graphs = graphs
     return step
 
 
@@ -392,7 +517,8 @@ def fit(
 
     def build_step(c: RenderConfig):
         """The train step under config c: rebuilt by the staged-capacity
-        schedule with a different max_intersections and tier_spec."""
+        schedule with a different max_intersections and tier_spec (on a
+        CUDA device a new graph is captured then, where JAX re-jits)."""
         if mesh is None:
             return make_train_step(c, optimizer, ssim_weight)
         sharded_step = make_sharded_train_step(
@@ -730,7 +856,7 @@ def train_from_cli(args) -> int:
     from gsplat_tpu_torch.io.ply import save_ply
     from gsplat_tpu_torch.models.gaussians import random_scene
     from gsplat_tpu_torch.ops.camera import orbit_cameras
-    from gsplat_tpu_torch.render.pipeline import render
+    from gsplat_tpu_torch.render.pipeline import render_jit
     from gsplat_tpu_torch.train.losses import psnr as psnr_fn
 
     dev = torch.device(args.device)
@@ -750,9 +876,9 @@ def train_from_cli(args) -> int:
     )
     print(f"rendering {total_views} target views "
           f"({args.views} train + {holdout} held-out)...")
-    with torch.no_grad():
-        all_targets = torch.stack([render(target_scene, c, cfg).image
-                                   for c in all_cams])
+    # Targets and evals through render_jit, as the JAX command jits them.
+    all_targets = torch.stack([render_jit(target_scene, c, cfg).image
+                               for c in all_cams])
     # Interleave the held-out views so they sample the whole orbit, like
     # taking every Nth image of a capture (the graphdeco -eval convention).
     idx = np.arange(total_views)
@@ -773,12 +899,11 @@ def train_from_cli(args) -> int:
     eval_fn = None
     if holdout:
         def eval_fn(scene_now, step):
-            with torch.no_grad():
-                vals = [float(psnr_fn(render(scene_now, all_cams[i], cfg).image,
-                                      all_targets[i]))
-                        for i in hold_idx]
-                tr = float(psnr_fn(render(scene_now, cams[0], cfg).image,
-                                   targets[0]))
+            vals = [float(psnr_fn(render_jit(scene_now, all_cams[i],
+                                             cfg).image, all_targets[i]))
+                    for i in hold_idx]
+            tr = float(psnr_fn(render_jit(scene_now, cams[0], cfg).image,
+                               targets[0]))
             return {
                 "holdout_psnr": round(float(np.mean(vals)), 3),
                 "train_psnr": round(tr, 3),
@@ -806,9 +931,8 @@ def train_from_cli(args) -> int:
         eval_fn=eval_fn,
         retighten_capacity=args.retighten_capacity,
     )
-    with torch.no_grad():
-        final_psnr = float(
-            psnr_fn(render(trained, cams[0], cfg).image, targets[0]))
+    final_psnr = float(
+        psnr_fn(render_jit(trained, cams[0], cfg).image, targets[0]))
     print(f"final view-0 PSNR: {final_psnr:.2f} dB")
     if eval_fn is not None:
         print(f"final held-out metrics: {eval_fn(trained, args.steps)}")

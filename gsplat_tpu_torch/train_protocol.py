@@ -218,7 +218,7 @@ def build(args) -> dict:
     fit."""
     from gsplat_tpu_torch.models.gaussians import random_scene, realistic_scene
     from gsplat_tpu_torch.ops.camera import orbit_cameras
-    from gsplat_tpu_torch.render.pipeline import render
+    from gsplat_tpu_torch.render.pipeline import render_jit
     from gsplat_tpu_torch.train.losses import psnr
     from gsplat_tpu_torch.utils.image import write_png
 
@@ -263,9 +263,9 @@ def build(args) -> dict:
     cfg = dataclasses.replace(probe_cfg, max_intersections=max_i,
                               tier_spec=tuple(spec), **SIZED)
 
-    with torch.no_grad():
-        all_targets = torch.stack([render(target_scene, c, cfg).image
-                                   for c in cams])
+    # Targets and evals through render_jit, as the JAX script jits them.
+    all_targets = torch.stack([render_jit(target_scene, c, cfg).image
+                               for c in cams])
     idx = np.arange(total_views)
     hold_idx = (idx[:: total_views // args.holdout][: args.holdout]
                 if args.holdout else idx[:0])
@@ -278,8 +278,7 @@ def build(args) -> dict:
               targets[0].cpu().numpy())
 
     def eval_render(scene_now, cam):
-        with torch.no_grad():
-            return render(scene_now, cam, cfg).image
+        return render_jit(scene_now, cam, cfg).image
 
     def eval_fn(scene_now, step):
         hold = [float(psnr(eval_render(scene_now, cams[i]), all_targets[i]))

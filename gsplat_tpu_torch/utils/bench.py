@@ -22,7 +22,7 @@ import torch
 from gsplat_tpu_torch.config import RenderConfig
 from gsplat_tpu_torch.models.gaussians import random_scene, realistic_scene
 from gsplat_tpu_torch.ops.camera import Camera
-from gsplat_tpu_torch.render.pipeline import render, render_loss_and_grad
+from gsplat_tpu_torch.render.pipeline import render_jit, render_loss_and_grad
 
 def device_name(device) -> str:
     """The card's name and power limit as `nvidia-smi --query-gpu=name,
@@ -58,13 +58,13 @@ def bench_scene(num_gaussians: int, ply: str | None = None, seed: int = 0,
 
 
 def bench_iteration(scene, cam: Camera, cfg: RenderConfig, mode: str):
-    """The call the window repeats: the forward image ('fwd'), or the L1
-    loss against a black target and its scene gradients ('fwd_bwd')."""
+    """The call the window repeats, each one dispatch as the JAX bench
+    times jitted functions: the forward image of `render_jit` ('fwd'), or
+    `render_loss_and_grad`'s L1 loss against a black target and its scene
+    gradients ('fwd_bwd'). On a CUDA device both replay a CUDA graph
+    captured by the first call (`compile_s` includes the capture)."""
     if mode == "fwd":
-        def fn():
-            with torch.no_grad():
-                return render(scene, cam, cfg).image
-        return fn
+        return lambda: render_jit(scene, cam, cfg).image
     target = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
                          device=scene.means.device)
     return lambda: render_loss_and_grad(scene, cam, target, cfg)
@@ -204,8 +204,7 @@ def run_bench(
 
     its = 1.0 / dt
     mpix_s = width * height / dt / 1e6
-    with torch.no_grad():
-        out = render(scene, cam, cfg)
+    out = render_jit(scene, cam, cfg)
     # An overflowed frame dropped work (truncated rects, saturated pools or
     # stream): its cause is classified, so that a truncated frame's time is
     # never taken for a performance number.

@@ -119,13 +119,29 @@ def restore_arrays(arrays: dict, scene: GaussianScene, optimizer) -> int:
     with torch.no_grad():
         for name, param in restore:
             param.copy_(torch.from_numpy(arrays[f"scene.{name}"]))
-            st = optimizer.state[param]
-            for m in MOMENTS:
-                st[m] = torch.from_numpy(arrays[f"adam.{name}.{m}"]).to(
-                    param.device, param.dtype)
-            # torch keeps a non-capturable Adam's step as a float32 tensor
-            # on the host.
-            st["step"] = torch.tensor(float(arrays[f"adam.{name}.step"]),
-                                      dtype=torch.float32)
+            set_adam_state(optimizer, param,
+                           *(arrays[f"adam.{name}.{m}"] for m in MOMENTS),
+                           float(arrays[f"adam.{name}.step"]))
     optimizer.updates = int(arrays["adam.updates"])
     return int(arrays["step"])
+
+
+@torch.no_grad()
+def set_adam_state(optimizer, param, exp_avg, exp_avg_sq, step: float):
+    """Write one parameter's Adam moments (host arrays) and step count.
+    A state that exists is written in place, so a captured train step
+    keeps reading it; a new one is made as torch makes it: the step a
+    float32 tensor on the parameter's device when the optimizer is
+    capturable, on the host otherwise."""
+    st = optimizer.state[param]
+    moments = {"exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
+    if st:
+        for m, x in moments.items():
+            st[m].copy_(torch.from_numpy(np.array(x)))
+        st["step"].fill_(step)
+        return
+    capturable = optimizer.param_groups[0].get("capturable", False)
+    for m, x in moments.items():
+        st[m] = torch.from_numpy(np.array(x)).to(param.device, param.dtype)
+    st["step"] = torch.tensor(step, dtype=torch.float32,
+                              device=param.device if capturable else "cpu")

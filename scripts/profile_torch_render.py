@@ -14,7 +14,12 @@ Renders the chip_smoke.py main path (1M-Gaussian SH-3 random scene, seed 0,
     it (by time, since the CUDA kernels launched through ctypes have no
     PyTorch op to be attributed to);
   - the device time of every kernel by name, their sum, and the device's
-    busy share of the frame's host wall time.
+    busy share of the frame's host wall time;
+  - one row for the frame replayed as a CUDA graph (`render_jit`, the
+    port's one dispatch per frame): device ms (CUDA events) and wall ms
+    (host clock to a synchronise), medians over REPS rounds of the views,
+    and from torch.profiler over one round, the busy share of the wall and
+    the kernels by name.
 With --out, writes the same numbers as JSON to that file.
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -36,6 +41,23 @@ import chip_smoke  # noqa: E402  (the main path's config and views)
 REPS = 5  # timed rounds over the views, after one warm-up frame
 
 
+def replay_row(call, n: int) -> dict:
+    """The replayed call's row: call(v) for the views v < n, one warm-up
+    round (the first call captures), then device and wall ms per call
+    (medians over REPS rounds) and one profiled round's busy share and
+    kernels by name, per call."""
+    for v in range(n):
+        call(v)
+    timed = chip_smoke.timed_calls(lambda i: call(i % n), REPS * n)
+    prof = chip_smoke.profile_window(lambda: [call(v) for v in range(n)], 1)
+    return dict(device_ms=timed["device_ms"], wall_ms=timed["host_ms"],
+                calls=timed["n"], profiled_wall_ms=prof["wall_ms"] / n,
+                kernel_ms=prof["kernel_ms"] / n,
+                busy_share=prof["busy_share"],
+                kernels={k: dict(ms=v["ms"] / n, calls=v["calls"] / n)
+                         for k, v in prof["kernels"].items()})
+
+
 def main() -> int:
     import torch
 
@@ -48,7 +70,7 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from gsplat_tpu_torch import RenderConfig, random_scene, render
+    from gsplat_tpu_torch import RenderConfig, random_scene, render, render_jit
     from gsplat_tpu_torch.ops.cuda import _build
     from gsplat_tpu_torch.render.pipeline import STAGES
 
@@ -119,12 +141,20 @@ def main() -> int:
                   for name, v in kernels.items()), key=lambda t: -t[1])
     for name, ms, calls in top[:15]:
         print(f"  {ms:9.4f} ms  x{calls:<3d} {name[:90]}")
+    replay = replay_row(lambda v: render_jit(scene, cams[v], cfg), len(cams))
+    print(f"[replay] render_jit: device {replay['device_ms']} ms, wall "
+          f"{replay['wall_ms']} ms per frame; profiled wall "
+          f"{replay['profiled_wall_ms']} ms, kernels {replay['kernel_ms']} "
+          f"ms, busy share {replay['busy_share']}")
+    for name, v in list(replay["kernels"].items())[:15]:
+        print(f"  {v['ms']:9.4f} ms  x{v['calls']:<5g} {name[:90]}")
     out = dict(card=card, frames=len(totals), frame_ms_events=frame_ms,
                profile=dict(frames=n, wall_ms_per_frame=wall_ms,
                             kernel_ms_per_frame=busy_ms, stages=stages,
                             kernels={name: {"ms_per_frame": ms,
                                             "calls_per_frame": calls}
-                                     for name, ms, calls in top}))
+                                     for name, ms, calls in top}),
+               replay=replay)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(out, f, indent=1)

@@ -7,7 +7,8 @@
 Runs the training main path of chip_smoke.py (the exact-gradient step, L1 +
 0.2 DSSIM and Adam, on the 1M-Gaussian SH-3 random scene at 1920x1080, the
 bench config with the f32 stream, one of the four views per step) through
-`make_train_step` itself, after one warm-up round of the views. --scene
+the step's eager body (`make_eager_train_step`, whose spans the profile
+reads), after one warm-up round of the views. --scene
 realistic takes the 1M-Gaussian realistic scene with the jumbo ladder of
 bench.py:246-253 (chip_smoke.JUMBO) instead. It reports:
   - the step's time: device ms between CUDA events around the step, and
@@ -21,7 +22,11 @@ bench.py:246-253 (chip_smoke.JUMBO) instead. It reports:
     autograd's own thread, outside the spans the step opens, but inside the
     host window of train.backward;
   - the device time of every kernel by name, their sum, and the device's
-    busy share of the step's host wall time.
+    busy share of the step's host wall time;
+  - one row for the step replayed as a CUDA graph (`make_train_step`, the
+    port's one dispatch per step) on a second copy of the scene: device ms
+    and wall ms, medians over REPS rounds, and from one profiled round the
+    busy share and the kernels by name.
 With --out, writes the same numbers as JSON to that file.
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -39,6 +44,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
 import chip_smoke  # noqa: E402  (the main path's config, views and trainer)
+
+sys.path.insert(0, os.path.join(HERE, "scripts"))
+import profile_torch_render  # noqa: E402  (the replay row)
 
 REPS = 3  # timed rounds over the views, after one warm-up round
 
@@ -107,7 +115,8 @@ def main() -> int:
         generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     print(f"[config] the {args.scene} scene: {cfg}", flush=True)
     cams = chip_smoke.views(cfg.width, cfg.height, dev)
-    train, targets, step = chip_smoke.make_trainer(scene, cams, cfg, dev)
+    train, targets, step = chip_smoke.make_trainer(scene, cams, cfg, dev,
+                                                   eager=True)
 
     def one(v):
         return step(train, [cams[v]], targets[v : v + 1])
@@ -166,7 +175,18 @@ def main() -> int:
                   for name, v in kernels.items()), key=lambda t: -t[1])
     for name, ms, calls in top[:20]:
         print(f"  {ms:9.4f} ms  x{calls:<5g} {name[:90]}")
-    out = dict(card=card, steps=len(device_ms),
+    del train, step
+    torch.cuda.empty_cache()
+    graphed, _, gstep = chip_smoke.make_trainer(scene, cams, cfg, dev)
+    replay = profile_torch_render.replay_row(
+        lambda v: gstep(graphed, [cams[v]], targets[v:v + 1]), len(cams))
+    print(f"[replay] make_train_step: device {replay['device_ms']} ms, wall "
+          f"{replay['wall_ms']} ms per step; profiled wall "
+          f"{replay['profiled_wall_ms']} ms, kernels {replay['kernel_ms']} "
+          f"ms, busy share {replay['busy_share']}")
+    for name, v in list(replay["kernels"].items())[:20]:
+        print(f"  {v['ms']:9.4f} ms  x{v['calls']:<5g} {name[:90]}")
+    out = dict(card=card, steps=len(device_ms), replay=replay,
                step_ms_device=statistics.median(device_ms),
                step_ms_host=statistics.median(host_ms),
                profile=dict(steps=n, wall_ms_per_step=wall_ms,
