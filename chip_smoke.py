@@ -248,10 +248,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
      Then, as a reference and not a path, phase 10's `cli train` recipe on
      the eager step (`check_cli_train_eager`): its held-out PSNR at step
      180 equal to the captured run's (phase 10 also requires 1 + the
-     capacity rebuilds train-step captures). Eager against replayed ms per
+     capacity rebuilds train-step captures; this reference runs the
+     densify round eagerly too). Eager against replayed ms per
      frame and step (CUDA events and the host clock, medians), the replays'
      busy share from one profiled pass, and the peak memory of each kind's
      calls.
+ 20. the multi-device programs as CUDA graphs on NCCL
+     (`check_multi_device_jit`): first `check_nccl_share`, NCCL's refusal
+     of two ranks of one host on one card (quoted) and, with
+     `multihost.share_card_env`, all_reduce, all_gather and
+     all_to_all_single right eagerly and replayed from graphs captured in
+     each capture_error_mode; then JIT_RANKS NCCL ranks sharing cuda:0
+     (`rank_multi_device_jit`) at the capacities phases 13 and 15
+     measured, six paths, each counted on its captured calls alone and
+     summed over the ranks: tile_sharded_jit (`render_tile_sharded_jit`,
+     f32 and packed4, the four views twice, bit-identical to the eager
+     function and to the single-device `render`), gaussian_sharded_jit
+     (packed16 wire, bit-identical to the eager body), sharded_train_jit
+     (data 1 x tiles 2, bench default and --exact-grads) and
+     gaussian_train_jit (10 captured steps against 10 eager ones from a
+     second copy: losses, tap gradients, visibility and parameters
+     bit-identical, or named and within rtol 5e-3 / atol 1e-5),
+     fit_mesh_jit (`fit(mesh=...)` 60 steps with a densify round against
+     the same fit on the eager step and round: log rows and scenes
+     equal), densify_jit (the Gaussian-sharded densify program and
+     `densify_and_prune_jit`, bit-identical to their eager bodies). Each
+     program: one capture per key per rank, 0 synchronising calls per
+     replay, the profiler's records of a replay naming its kernels and one
+     NCCL kernel per collective as the graph counts them, eager against
+     replayed ms per rank, the busy share and the peak memory.
      Each phase prints its seconds.
 Then one JSON line of kernel numbers, each kernel with its launches on each
 main path (`launches_by_path`, and their sum as `launches`; K3's rank stage
@@ -1728,9 +1753,12 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def launch_ranks(fn, nprocs: int, *args, backend: str = "gloo") -> list:
+def launch_ranks(fn, nprocs: int, *args, backend: str = "gloo",
+                 share_card: bool = False,
+                 timeout_s: float = LAUNCH_TIMEOUT_S) -> list:
     """fn(rank, *args) on `nprocs` spawned ranks sharing cuda:0, rendezvous
-    on a free TCP port; every rank's result, or exit on any failure."""
+    on a free TCP port (share_card: NCCL ranks, `multihost.share_card_env`);
+    every rank's result, or exit on any failure."""
     from gsplat_tpu_torch.parallel import multihost
 
     out = os.path.join(HERE, "build", "chip_smoke", "ranks", fn.__name__)
@@ -1739,7 +1767,7 @@ def launch_ranks(fn, nprocs: int, *args, backend: str = "gloo") -> list:
         res = multihost.launch(
             fn, nprocs, args, backend=backend, out_dir=out,
             init_method=f"tcp://localhost:{free_port()}", device="cuda:0",
-            timeout_s=LAUNCH_TIMEOUT_S)
+            timeout_s=timeout_s, share_card=share_card)
     except RuntimeError as e:
         raise SystemExit(f"{fn.__name__}: {e}")
     log(f"[{fn.__name__}] {nprocs} ranks on cuda:0 over {backend}: "
@@ -2600,6 +2628,7 @@ def check_multi_device(card: str, by_path: dict) -> dict:
     multi["gaussian_sharded"] = [{k: r[k] for k in (
         "wire", "occupancy", "frame_ms", "step_ms", "fit_s", "step_vs_single",
         "vs_single", "tied_pairs", "witness") if k in r} for r in res]
+    multi["per_dest_capacity"] = res[0]["per_dest_capacity"]
     multi["sharded_bench"] = run_sharded_bench(
         card, cap, res[0]["per_dest_capacity"])
     res = launch_ranks(rank_nccl_world1, 1, backend="nccl")
@@ -3169,8 +3198,6 @@ def check_train_jit(scene, rscene, cams, dev, card, by_path) -> dict:
     calls per replayed step, one profiled pass of the four views naming K2
     and K4 (exact) or K5 (default), and the eager and replayed steps'
     times."""
-    import warnings
-
     import torch
 
     from gsplat_tpu_torch import RenderConfig
@@ -3233,29 +3260,15 @@ def check_train_jit(scene, rscene, cams, dev, card, by_path) -> dict:
                      visible=(c["visible"], e["visible"]),
                      **{f"param {f}": (c["params"][f], e["params"][f])
                         for f in e["params"]})
-        differ = {}
-        for name, (a, b) in pairs.items():
-            if torch.equal(a, b):
-                continue
-            a, b = a.double(), b.double()
-            differ[name] = dict(
-                max_abs=float((a - b).abs().max()),
-                within=bool(torch.allclose(a, b, rtol=5e-3, atol=1e-5)))
+        differ = differing(pairs)
         nondet = []
         if differ:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.use_deterministic_algorithms(True, warn_only=True)
-                try:
-                    train, targets, step = make_trainer(sc, cams, cfg, dev,
-                                                        eager=True)
-                    step(train, [cams[0]], targets[:1])
-                    torch.cuda.synchronize()
-                finally:
-                    torch.use_deterministic_algorithms(False)
-            nondet = sorted({str(w.message)[:160] for w in caught
-                             if "deterministic" in str(w.message)})
-            del train, targets, step
+            def one_step():
+                train, targets, step = make_trainer(sc, cams, cfg, dev,
+                                                    eager=True)
+                step(train, [cams[0]], targets[:1])
+
+            nondet = nondeterministic_ops(one_step)
         row = dict(
             bit_identical=not differ, differ=differ, nondeterministic=nondet,
             losses=c["losses"].tolist(), eager_ms=dict(
@@ -3371,22 +3384,27 @@ def check_loss_and_grad_jit(scene, cams, card, by_path) -> dict:
 
 
 def check_cli_train_eager(out_dir: str, captured: dict, card: str) -> dict:
-    """`cli train` (cli_train_argv) once more with the train step run
-    eagerly (`make_train_step` patched to `make_eager_train_step`): its
+    """`cli train` (cli_train_argv) once more with the train step and the
+    densify round run eagerly (`make_train_step` patched to
+    `make_eager_train_step`, `densify_and_prune_jit` to
+    `densify_and_prune`): its
     log rows' losses and held-out PSNRs against phase 10's run on the
     captured step, which must end at the same held-out PSNR."""
     import csv
 
-    from gsplat_tpu_torch.train import loop
+    from gsplat_tpu_torch.train import densify, loop
 
     os.makedirs(out_dir, exist_ok=True)
     captured_step = loop.make_train_step
+    captured_densify = densify.densify_and_prune_jit
     loop.make_train_step = loop.make_eager_train_step
+    densify.densify_and_prune_jit = densify.densify_and_prune
     t0 = time.perf_counter()
     try:
         cli_run(cli_train_argv(out_dir))
     finally:
         loop.make_train_step = captured_step
+        densify.densify_and_prune_jit = captured_densify
     wall = time.perf_counter() - t0
     with open(os.path.join(out_dir, "metrics.csv")) as f:
         rows = list(csv.DictReader(f))
@@ -3403,6 +3421,636 @@ def check_cli_train_eager(out_dir: str, captured: dict, card: str) -> dict:
                          f"{CLI_STEPS} {last[0]} on the eager step, "
                          f"{last[1]} on the captured one")
     return out
+
+
+# ---- phase 20: the multi-device programs as CUDA graphs on NCCL -------------
+# JIT_RANKS NCCL ranks share cuda:0, each taken by NCCL for a host of its
+# own (`multihost.share_card_env`): every collective crosses the loopback's
+# TCP through NCCL's socket transport, and the ranks time-share the card.
+# Their times are those of that setting, not of NVLink or of several cards.
+JIT_RANKS = 2
+# NCCL's kernels in the profiler's records (one per collective the port
+# issues: the `sharding.collectives` counter, which a replay adds per graph).
+NCCL_KERNEL = "ncclDevKernel"
+MESH_FIT_STEPS, MESH_FIT_DENSIFY_AT = 60, 30
+MESH_TIMED = 4       # calls timed per program, eager and replayed
+JIT_LAUNCH_TIMEOUT_S = 900
+
+
+def rank_nccl_collectives(rank: int) -> dict:
+    """NCCL ranks sharing cuda:0: all_reduce, all_gather and
+    all_to_all_single eagerly, then captured in a graph in each
+    capture_error_mode and replayed on new inputs, each against the values
+    it must give. Returns {"eager": ok, mode: ok or the error}."""
+    import torch
+
+    dist = torch.distributed
+    dev = torch.device("cuda", 0)
+    n = dist.get_world_size()
+    x = torch.full((4096,), float(rank + 1), device=dev)
+    blocks = torch.arange(4 * n, dtype=torch.float32, device=dev) + 100 * rank
+
+    def collectives():
+        total = x * 1
+        dist.all_reduce(total)
+        every = [torch.empty_like(x[:8]) for _ in range(n)]
+        dist.all_gather(every, x[:8].contiguous())
+        moved = torch.empty_like(blocks)
+        dist.all_to_all_single(moved, blocks * 1)
+        return total, every, moved
+
+    def ok(got, k):
+        total, every, moved = got
+        want = torch.cat([torch.arange(4 * rank, 4 * rank + 4, device=dev)
+                          + 100 * s for s in range(n)]).float()
+        return (bool((total == sum(range(1, n + 1)) + n * k).all())
+                and all(bool((e == s + 1 + k).all())
+                        for s, e in enumerate(every))
+                and bool(torch.equal(moved, want)))
+
+    out = {"eager": ok(collectives(), 0)}
+    # The step's gradient all_reduce (244 MB) and a Gaussian-sharded
+    # frame's exchange (115 MB per rank), eager, seconds each.
+    for name, nbytes in (("all_reduce_s", 244_000_000),
+                         ("all_to_all_s", 115_000_000)):
+        buf = torch.ones(nbytes // 4, device=dev)
+        got = torch.empty_like(buf)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "all_reduce_s":
+                dist.all_reduce(buf)
+            else:
+                dist.all_to_all_single(got, buf)
+            torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        del buf, got
+    for mode in ("thread_local", "global", "relaxed"):
+        x.fill_(float(rank + 1))
+        dist.all_reduce(torch.zeros(1, device=dev))  # an eager one just before
+        try:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode=mode):
+                got = collectives()
+            x.fill_(float(rank + 2))
+            graph.replay()
+            torch.cuda.synchronize()
+            out[mode] = ok(got, 1)
+        except RuntimeError as e:
+            out[mode] = str(e)[:300]
+    return out
+
+
+def rank_nccl_refused(rank: int) -> dict:
+    """One all_reduce on cuda:0 with NCCL's own host hash: NCCL's answer to
+    two ranks of one host on one card."""
+    import torch
+
+    torch.distributed.all_reduce(torch.zeros(1, device="cuda:0"))
+    torch.cuda.synchronize()
+    return {}
+
+
+def check_nccl_share(card: str) -> dict:
+    """Two NCCL ranks on cuda:0: without `multihost.share_card_env` (NCCL's
+    refusal, quoted), and with it (`rank_nccl_collectives`)."""
+    try:
+        launch_ranks(rank_nccl_refused, 2, backend="nccl", timeout_s=120)
+        refused = "no refusal"
+    except SystemExit as e:
+        text = str(e)
+        i = text.find("Duplicate GPU")
+        refused = text[i:text.find("\n", i)] if i >= 0 else text[-300:]
+    res = launch_ranks(rank_nccl_collectives, JIT_RANKS, backend="nccl",
+                       share_card=True, timeout_s=180)
+    out = dict(refused=refused, shared=res)
+    log(f"[nccl_share] {json.dumps(out)} on {card}")
+    if not all(v is True for r in res for k, v in r.items()
+               if not k.endswith("_s")):
+        raise SystemExit("nccl_share: a collective on NCCL ranks sharing "
+                         "the card gave a wrong value or failed to capture")
+    return out
+
+
+def rank_counted(fn) -> dict:
+    """fn() with this rank's launch counts set to 0 just before and read
+    just after, the collectives it issued beside them."""
+    from gsplat_tpu_torch.parallel import sharding
+
+    reset_launch_counts()
+    sharding.collectives = 0
+    fn()
+    return dict(launch_counts(), collectives=sharding.collectives)
+
+
+def replay_report(replay, eager, entry, needs, skip=()):
+    """A captured program's replays against its eager body, outside the
+    path's count: replay(i) and eager(i) are the i-th call of each (view i
+    mod 4). Synchronising calls per replay over four replays; eager and
+    replayed calls timed (CUDA events and the host clock, medians of
+    MESH_TIMED); one profiled pass of four replays: the busy share, the path
+    kernels' and NCCL's kernels per replay against the graph's counts.
+    Returns (row, off), off when a kernel in `needs` is missing or any
+    count differs."""
+    syncs, sites = count_syncs(lambda: [replay(i) for i in range(4)], 1)
+    eager_t = timed_calls(eager, MESH_TIMED)
+    replay_t = timed_calls(replay, MESH_TIMED)
+    prof = profile_window(lambda: [replay(i) for i in range(4)], 1, skip=skip)
+    kern = path_kernels(prof, entry.launches, 4)
+    nccl = dict(profiler=sum(v["calls"] for k, v in prof["kernels"].items()
+                             if NCCL_KERNEL in k) / 4,
+                counted=entry.launches.get("sharding.collectives", 0))
+    row = dict(syncs_per_replay=syncs / 4, sync_sites=sites, eager=eager_t,
+               replay=replay_t, busy_share=prof["busy_share"],
+               profiled_wall_ms=prof["wall_ms"] / 4,
+               kernel_ms=prof["kernel_ms"] / 4, path_kernels=kern, nccl=nccl,
+               capture_s=entry.capture_s,
+               top_kernels=dict(list(prof["kernels"].items())[:8]))
+    off = bool(syncs) or kernels_off(kern, needs) or (
+        nccl["profiler"] != nccl["counted"])
+    return row, off
+
+
+def differing(pairs: dict) -> dict:
+    """The pairs (name: (captured, eager)) that are not bit-identical, each
+    with its largest difference and whether it is within rtol 5e-3 / atol
+    1e-5."""
+    import torch
+
+    out = {}
+    for name, (a, b) in pairs.items():
+        if torch.equal(a, b):
+            continue
+        a, b = a.double(), b.double()
+        out[name] = dict(max_abs=float((a - b).abs().max()),
+                         within=bool(torch.allclose(a, b, rtol=5e-3,
+                                                    atol=1e-5)))
+    return out
+
+
+def nondeterministic_ops(fn) -> list:
+    """The warnings of torch's deterministic mode over fn() (one eager
+    step; every rank calls it where any rank asks, so that the ranks issue
+    the same collectives)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message)[:160] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def mesh_steps(step, train, bands, cams, on_step=None) -> dict:
+    """JIT_STEPS steps of a sharded `step` (one view a step, in turn; the
+    Gaussian-sharded contract (metrics, (tap, visible)) or the tile-sharded
+    one (loss, aux, (tap, visible))), each but the first timed: the losses,
+    the last tap gradients and visibility, the final parameters, the
+    medians, and whether the last step neither overflowed nor went
+    non-finite. on_step(tap, visible) sees every step's."""
+    import torch
+
+    losses, times = [], []
+    for i in range(JIT_STEPS):
+        v = i % len(cams)
+        res = []
+        t = timed_calls(lambda _: res.append(step(
+            train, [cams[v]], bands[v:v + 1])), 1)
+        if len(res[0]) == 2:
+            m, (tap, vis) = res[0]
+            loss, ok = m["loss"], ~m["overflow"]
+        else:
+            loss, aux, (tap, vis) = res[0]
+            ok = ~aux["overflow"] & aux["grads_finite"]
+        losses.append(loss)
+        if on_step is not None:
+            on_step(tap, vis)
+        if i:
+            times.append(t)
+    torch.cuda.synchronize()
+    return dict(losses=torch.stack(losses), tap=tap, visible=vis,
+                params=_snapshot(train), ok=bool(ok),
+                host_ms=statistics.median(x["host_ms"] for x in times),
+                device_ms=statistics.median(x["device_ms"] for x in times))
+
+
+def peak_of(fn) -> int:
+    """fn(), and the peak memory of it above what was allocated before."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def rank_multi_device_jit(rank: int, cap: int, per_dest: int) -> dict:
+    """Phase 20 on one of JIT_RANKS NCCL ranks sharing cuda:0: every
+    multi-device program of the port as a captured CUDA graph per rank,
+    each path counted on its captured calls alone (the first call, which
+    warms up and captures, and the replays), the eager references, the
+    syncs, the times and the profiled replays after:
+      - tile_sharded_jit: `render_tile_sharded_jit` (data 1 x tiles D) of
+        the 1M scene at the bench config, float32 and packed4, the four
+        views twice, each frame bit-identical to eager `render_tile_sharded`
+        on the same ranks and to the single-device `render`;
+      - gaussian_sharded_jit: `render_gaussian_sharded_jit` (gauss D,
+        packed16 wire, the scene padded to GAUSS_CAPACITY, per-dest
+        capacity `per_dest`), bit-identical to the eager body;
+      - sharded_train_jit: the tile-sharded step, bench default and
+        --exact-grads, JIT_STEPS captured steps from a noisy copy against
+        JIT_STEPS eager steps (`make_eager_sharded_train_step`) from a
+        second copy: losses, tap gradients, visibility and parameters
+        bit-identical, or named and within rtol 5e-3 / atol 1e-5;
+      - gaussian_train_jit: the Gaussian-sharded step the same way;
+      - fit_mesh_jit: `fit(mesh=...)` MESH_FIT_STEPS steps with a densify
+        round at MESH_FIT_DENSIFY_AT, against the same fit on the eager
+        step and the eager densify round: log rows and scenes equal;
+      - densify_jit: the Gaussian-sharded densify program and the
+        single-device `densify_and_prune_jit`, each twice on the trained
+        shard or scene and the steps' accumulator, against their eager
+        bodies bit for bit.
+    Each program: one capture per key on this rank, 0 synchronising calls
+    per replay, the profiler's records of a replay naming its kernels and
+    NCCL's as often as the graph counts them, eager and replayed ms, the
+    busy share and the peak memory of its captured calls."""
+    import contextlib as ctx
+    import io
+
+    import torch
+
+    from gsplat_tpu_torch import RenderConfig, render
+    from gsplat_tpu_torch.parallel import gaussian_sharded as gs
+    from gsplat_tpu_torch.parallel import gaussian_train as gt
+    from gsplat_tpu_torch.parallel import sharding as sh
+    from gsplat_tpu_torch.parallel import train_step as ts
+    from gsplat_tpu_torch.render.pipeline import STAGES
+    from gsplat_tpu_torch.train import densify
+    from gsplat_tpu_torch.train.loop import TRAIN_SPANS, fit, make_optimizer
+    from gsplat_tpu_torch.utils import graphs
+
+    dev = rank_setup()
+    d = torch.distributed.get_world_size()
+    grid = sh.make_mesh({"data": 1, "tiles": d}, dev)
+    gauss = sh.make_mesh({"gauss": d}, dev)
+    scene = bench_scene(dev)
+    cams = views(BENCH["width"], BENCH["height"], dev)
+    out = {"rank": rank, "backend": torch.distributed.get_backend(),
+           "counts": {}, "rows": {}, "bad": []}
+    skip = TRAIN_SPANS + STAGES + ("train.allreduce",)
+    t_start = time.perf_counter()
+
+    def progress(what):
+        log(f"[multi_device_jit rank {rank}] {what} at "
+            f"{time.perf_counter() - t_start:.1f} s")
+
+    def entry_of(cache):
+        return next(reversed(cache.entries.values()))
+
+    # The renders.
+    packed16 = RenderConfig(**dict(BENCH, **dict(
+        DEFAULT, stream_format="packed16", fragment_format="bf16")))
+    local = gs.shard_scene(scene.pad_to(GAUSS_CAPACITY), gauss)
+    renders = {
+        f"render tile {fmt}": (
+            "tile_sharded_jit", "render_tile_sharded", sh.TILE_SHARDED_GRAPHS,
+            lambda c, cfg=cfg: sh.render_tile_sharded_jit(scene, c, cfg, grid),
+            lambda c, cfg=cfg: sh.render_tile_sharded(scene, c, cfg, grid),
+            cfg, ("cull", "raster_fwd"))
+        for fmt, cfg in (
+            ("f32", RenderConfig(**dict(BENCH, max_intersections=cap))),
+            ("packed4", RenderConfig(**dict(BENCH, **DEFAULT,
+                                            max_intersections=cap))))}
+    renders["render gauss packed16"] = (
+        "gaussian_sharded_jit", "render_gaussian_sharded",
+        gs.GAUSSIAN_SHARDED_GRAPHS,
+        lambda c: gs.render_gaussian_sharded_jit(local, c, packed16, gauss,
+                                                 per_dest_capacity=per_dest),
+        lambda c: gs.render_gaussian_sharded(local, c, packed16, gauss,
+                                             per_dest_capacity=per_dest),
+        packed16, ("cull", "raster_fwd"))
+    got = {}
+    for path in ("tile_sharded_jit", "gaussian_sharded_jit"):
+        def run_path(path=path):
+            for tag, (p, kind, _, jit, _, _, _) in renders.items():
+                if p != path:
+                    continue
+                caps = graphs.captures[kind]
+                frames = []
+                peak = peak_of(lambda: frames.extend(
+                    jit(c) for _ in range(2) for c in cams))
+                got[tag] = (frames, peak, graphs.captures[kind] - caps)
+
+        out["counts"][path] = rank_counted(run_path)
+        progress(f"path {path}")
+    for tag, (_, kind, cache, jit, eager, cfg, needs) in renders.items():
+        frames, peak, captured = got.pop(tag)
+        entry = entry_of(cache)
+        caps = graphs.captures[kind]
+        differ, single = [], []
+        for k, frame in enumerate(frames):
+            with torch.no_grad():
+                want = eager(cams[k % 4])
+            differ += [(k, i) for i in range(3)
+                       if not torch.equal(frame[i], want[i])]
+            if tag.startswith("render tile") and k < 4:
+                with torch.no_grad():
+                    ref = render(scene, cams[k], dataclasses.replace(
+                        cfg, max_intersections=_bench.CARD[
+                            "max_intersections"]))
+                if not (torch.equal(frame[0], ref.image)
+                        and torch.equal(frame[1], ref.transmittance)):
+                    single.append(k)
+            if bool(frame[2]):
+                differ.append((k, "overflow"))
+        del frames, want
+        torch.cuda.empty_cache()
+
+        def replay(i, jit=jit):
+            return jit(cams[i % 4])
+
+        def eager_call(i, eager=eager):
+            with torch.no_grad():
+                return eager(cams[i % 4])
+
+        row, off = replay_report(replay, eager_call, entry, needs, skip)
+        row.update(differ=differ, single_differ=single, captures=captured,
+                   recaptured=graphs.captures[kind] - caps, peak_bytes=peak)
+        out["rows"][tag] = row
+        if differ or single or captured != 1 or row["recaptured"] or off:
+            out["bad"].append(tag)
+        progress(f"{tag} checked")
+    del local
+
+    # The steps.
+    trained = {}
+    steps = {}
+    for name, extra, seg in (("default", DEFAULT, "segsum_packed"),
+                             ("exact", EXACT, "segsum")):
+        full = RenderConfig(**dict(BENCH, **extra))
+        cfg = dataclasses.replace(full, max_intersections=cap)
+        with torch.no_grad():
+            targets = torch.stack([render(scene, c, full).image for c in cams])
+        padded = torch.nn.functional.pad(
+            targets, (0, 0, 0, cfg.padded_width - cfg.width, 0,
+                      cfg.padded_height - cfg.height))
+        _, bands = ts.shard_batch(cams, padded, grid)
+        steps[f"step tile {name}"] = (
+            "sharded_train_step",
+            lambda opt, cfg=cfg: ts.make_sharded_train_step(
+                cfg, grid, opt, SSIM_WEIGHT),
+            lambda opt, cfg=cfg: ts.make_eager_sharded_train_step(
+                cfg, grid, opt, SSIM_WEIGHT),
+            lambda: noisy_copy(scene, dev).pad_to(GAUSS_CAPACITY), bands,
+            grid, ("cull", "raster_fwd", "raster_bwd", seg))
+    with torch.no_grad():
+        targets = torch.stack([render(scene, c, packed16).image for c in cams])
+    lcfg = sh.local_tile_cfg(packed16, d)
+    bands = torch.nn.functional.pad(
+        targets, (0, 0, 0, packed16.padded_width - packed16.width, 0,
+                  packed16.padded_height - packed16.height))[
+        :, rank * lcfg.height:(rank + 1) * lcfg.height]
+
+    def gauss_init():
+        return gs.shard_scene(noisy_copy(scene, dev).pad_to(GAUSS_CAPACITY),
+                              gauss)
+
+    steps["step gauss packed16"] = (
+        "gaussian_sharded_train_step",
+        lambda opt: gt.make_gaussian_sharded_train_step(
+            packed16, gauss, opt, GAUSS_CAPACITY, ssim_weight=SSIM_WEIGHT,
+            per_dest_capacity=per_dest),
+        lambda opt: gt.make_eager_gaussian_sharded_train_step(
+            packed16, gauss, opt, GAUSS_CAPACITY, ssim_weight=SSIM_WEIGHT,
+            per_dest_capacity=per_dest),
+        gauss_init, bands, gauss,
+        ("cull", "raster_fwd", "raster_bwd", "segsum_packed"))
+    runs = {}
+    for path, tags in (("sharded_train_jit", ("step tile default",
+                                               "step tile exact")),
+                       ("gaussian_train_jit", ("step gauss packed16",))):
+        def run_path(tags=tags):
+            for tag in tags:
+                kind, make, _, init, bands, _, _ = steps[tag]
+                train = init()
+                step = make(make_optimizer(train, TRAIN_LR))
+                dstate = densify.init_densify_state(train.num_gaussians, dev)
+
+                def acc(tap, vis):
+                    nonlocal dstate
+                    dstate = densify.accumulate_grads(dstate, tap, vis)
+
+                caps = graphs.captures[kind]
+                res = {}
+                res["peak"] = peak_of(lambda: res.update(run=mesh_steps(
+                    step, train, bands, cams, acc)))
+                runs[tag] = dict(res, train=train, step=step, dstate=dstate,
+                                 captures=graphs.captures[kind] - caps)
+
+        out["counts"][path] = rank_counted(run_path)
+        progress(f"path {path}")
+    for tag, (kind, _, make_eager, init, bands, mesh, needs) in steps.items():
+        c = runs[tag]
+        train_e = init()
+        step_e = make_eager(make_optimizer(train_e, TRAIN_LR))
+        peak_e = peak_of(lambda: c.update(eager=mesh_steps(
+            step_e, train_e, bands, cams)))
+        cap_run, e = c["run"], c["eager"]
+        differ = differing(dict(
+            losses=(cap_run["losses"], e["losses"]),
+            tap_grads=(cap_run["tap"], e["tap"]),
+            visible=(cap_run["visible"], e["visible"]),
+            **{f"param {f}": (cap_run["params"][f], e["params"][f])
+               for f in e["params"]}))
+        nondet = []
+        if bool(sh.any_flag(torch.tensor(bool(differ), device=dev), mesh)):
+            nondet = nondeterministic_ops(
+                lambda: step_e(train_e, [cams[0]], bands[:1]))
+        caps = graphs.captures[kind]
+        step, train = c["step"], c["train"]
+        row, off = replay_report(
+            lambda i: step(train, [cams[i % 4]], bands[i % 4:i % 4 + 1]),
+            lambda i: step_e(train_e, [cams[i % 4]], bands[i % 4:i % 4 + 1]),
+            entry_of(step.graphs), needs, skip)
+        row.update(
+            bit_identical=not differ, differ=differ, nondeterministic=nondet,
+            losses=cap_run["losses"].tolist(), captures=c["captures"],
+            recaptured=graphs.captures[kind] - caps,
+            steps_ms=dict(eager=dict(host=e["host_ms"], device=e["device_ms"]),
+                          replay=dict(host=cap_run["host_ms"],
+                                      device=cap_run["device_ms"])),
+            peak_bytes=dict(captured=c["peak"], eager=peak_e))
+        out["rows"][tag] = row
+        if (not (cap_run["ok"] and e["ok"]) or c["captures"] != 1
+                or row["recaptured"] or off
+                or any(not x["within"] for x in differ.values())):
+            out["bad"].append(tag)
+        trained[tag] = (train, c["dstate"])
+        del c["run"], c["eager"], train_e, step_e
+        torch.cuda.empty_cache()
+        progress(f"{tag} checked")
+
+    # The densify programs: the Gaussian-sharded one on the trained shard,
+    # the single-device one on the trained tile-sharded (replicated) scene.
+    shard, dstate_g = trained.pop("step gauss packed16")
+    whole, dstate_w = trained.pop("step tile default")
+    trained.clear()
+    runs.clear()
+    densify_fn = gt.make_gaussian_sharded_densify(gauss)
+    densify_eager = gt.make_eager_gaussian_sharded_densify(gauss)
+    programs = {
+        "densify gauss": ("gaussian_sharded_densify",
+                          lambda: densify_fn(shard, dstate_g),
+                          lambda: densify_eager(shard, dstate_g),
+                          lambda: densify_fn.graphs),
+        "densify single": ("densify",
+                           lambda: densify.densify_and_prune_jit(whole,
+                                                                 dstate_w),
+                           lambda: densify.densify_and_prune(whole, dstate_w),
+                           lambda: densify.DENSIFY_GRAPHS)}
+    got = {}
+
+    def run_densify():
+        for tag, (kind, jit, _, _) in programs.items():
+            caps = graphs.captures[kind]
+            outs = []
+            peak = peak_of(lambda: outs.extend(jit() for _ in range(2)))
+            got[tag] = (outs, peak, graphs.captures[kind] - caps)
+
+    out["counts"]["densify_jit"] = rank_counted(run_densify)
+    progress("path densify_jit")
+    for tag, (kind, jit, eager, cache) in programs.items():
+        outs, peak, captured = got.pop(tag)
+        want = eager()
+        new, fresh, changed, stats = want
+        same = []
+        for o in outs:
+            pairs = {f"scene {f.name}": (getattr(o[0], f.name),
+                                         getattr(new, f.name))
+                     for f in dataclasses.fields(new)}
+            pairs.update({f"state {f.name}": (getattr(o[1], f.name),
+                                              getattr(fresh, f.name))
+                          for f in dataclasses.fields(fresh)})
+            pairs["changed"] = (o[2], changed)
+            pairs.update({f"stat {k}": (o[3][k], v) for k, v in stats.items()})
+            same.append(not differing(pairs))
+        caps = graphs.captures[kind]
+        row, off = replay_report(lambda i: jit(), lambda i: eager(),
+                                 entry_of(cache()), ())
+        row.update(bit_identical=same, captures=captured,
+                   recaptured=graphs.captures[kind] - caps, peak_bytes=peak,
+                   stats={k: int(v) for k, v in stats.items()})
+        out["rows"][tag] = row
+        if not all(same) or captured != 1 or row["recaptured"] or off:
+            out["bad"].append(tag)
+        del outs, want, new, fresh, changed
+    del shard, whole, dstate_g, dstate_w
+    torch.cuda.empty_cache()
+
+    # fit(mesh=...) on the captured programs, then on the eager ones.
+    cfg = RenderConfig(**dict(BENCH, **DEFAULT, max_intersections=cap))
+    with torch.no_grad():
+        targets = torch.stack([render(scene, c, dataclasses.replace(
+            cfg, max_intersections=_bench.CARD["max_intersections"])).image
+            for c in cams])
+    init = noisy_copy(scene, dev).pad_to(GAUSS_CAPACITY)
+    del scene
+    kw = dict(steps=MESH_FIT_STEPS, lr=TRAIN_LR, ssim_weight=SSIM_WEIGHT,
+              log_every=5, densify_every=MESH_FIT_DENSIFY_AT,
+              densify_from=MESH_FIT_DENSIFY_AT,
+              densify_until=MESH_FIT_DENSIFY_AT, overflow_policy="raise",
+              mesh=grid)
+    fits = {}
+
+    def run_fit(tag):
+        printed = io.StringIO()
+        caps = dict(graphs.captures)
+        t0 = time.perf_counter()
+        with ctx.redirect_stdout(printed):
+            trained_scene, rows = fit(init, cams, targets, cfg, **kw)
+        torch.cuda.synchronize()
+        fits[tag] = dict(
+            wall_s=time.perf_counter() - t0, digest=digest(trained_scene),
+            rows=[{k: v for k, v in r.items() if k != "it_per_s"}
+                  for r in rows], it_per_s=[r["it_per_s"] for r in rows],
+            printed=printed.getvalue(), captures={
+                k: graphs.captures[k] - caps.get(k, 0)
+                for k in ("sharded_train_step", "densify")})
+
+    progress("densify checked")
+    out["counts"]["fit_mesh_jit"] = rank_counted(lambda: run_fit("captured"))
+    progress("path fit_mesh_jit")
+    make_step, jit_densify = ts.make_sharded_train_step, \
+        densify.densify_and_prune_jit
+    ts.make_sharded_train_step = ts.make_eager_sharded_train_step
+    densify.densify_and_prune_jit = densify.densify_and_prune
+    try:
+        run_fit("eager")
+    finally:
+        ts.make_sharded_train_step = make_step
+        densify.densify_and_prune_jit = jit_densify
+    progress("eager fit")
+    fc, fe = fits["captured"], fits["eager"]
+    out["rows"]["fit"] = dict(
+        rows_equal=fc["rows"] == fe["rows"],
+        digests_equal=fc["digest"] == fe["digest"], rows=fc["rows"],
+        captures=fc["captures"], eager_captures=fe["captures"],
+        wall_s=dict(captured=fc["wall_s"], eager=fe["wall_s"]),
+        it_per_s=dict(captured=fc["it_per_s"], eager=fe["it_per_s"]),
+        densified=f"'densify_at': {MESH_FIT_DENSIFY_AT}" in fc["printed"]
+        if rank == 0 else None)
+    f = out["rows"]["fit"]
+    if not (f["rows_equal"] and f["digests_equal"]
+            and fc["captures"] == {"sharded_train_step": 1, "densify": 1}
+            and fe["captures"] == {"sharded_train_step": 0, "densify": 0}
+            and f["densified"] in (True, None)
+            and f["rows"][-1]["loss"] < f["rows"][0]["loss"]):
+        out["bad"].append("fit")
+    return out
+
+
+def check_multi_device_jit(card: str, by_path: dict, cap: int,
+                           per_dest: int) -> dict:
+    """Phase 20: `rank_multi_device_jit` on JIT_RANKS NCCL ranks sharing
+    cuda:0; each path's launches summed over the ranks into by_path, every
+    program's row per rank printed. Exits on any rank's failed check."""
+    share = check_nccl_share(card)
+    res = launch_ranks(rank_multi_device_jit, JIT_RANKS, cap, per_dest,
+                       backend="nccl", share_card=True,
+                       timeout_s=JIT_LAUNCH_TIMEOUT_S)
+    needs = {
+        "tile_sharded_jit": ("cull", "raster_fwd", "raster_fwd_packed"),
+        "gaussian_sharded_jit": ("cull", "raster_fwd_packed"),
+        "sharded_train_jit": ("cull", "raster_fwd", "raster_fwd_packed",
+                              "raster_bwd", "raster_bwd_packed", "segsum",
+                              "segsum_packed"),
+        "gaussian_train_jit": ("cull", "raster_fwd_packed",
+                               "raster_bwd_packed", "segsum_packed"),
+        "fit_mesh_jit": ("cull", "raster_fwd_packed", "raster_bwd_packed",
+                         "segsum_packed"),
+        "densify_jit": ()}
+    for path, kernels in needs.items():
+        counts = sum_counts([{path: r["counts"][path]} for r in res], path)
+        by_path[path] = check_counts(path, counts, kernels)
+    for r in res:
+        for tag, row in r["rows"].items():
+            log(f"[multi_device_jit rank {r['rank']} {tag}] "
+                f"{json.dumps(row, default=str)}")
+    log(f"[multi_device_jit] {JIT_RANKS} NCCL ranks ({res[0]['backend']}) "
+        f"sharing cuda:0 on {card}")
+    bad = {r["rank"]: r["bad"] for r in res if r["bad"]}
+    if bad:
+        raise SystemExit(f"multi_device_jit: failed checks per rank {bad}")
+    return dict(nccl_share=share, rows={r["rank"]: r["rows"] for r in res})
 
 
 def drive(path, needs, fn):
@@ -3944,7 +4592,7 @@ def run(dev) -> int:
 
     # 13-17. The multi-device paths.
     t0 = time.perf_counter()
-    check_multi_device(card, by_path)
+    multi = check_multi_device(card, by_path)
     log(f"[phases 13-17] {time.perf_counter() - t0:.1f} s")
 
     # 18. The ports of the root tools: the capacity report, the training
@@ -3973,6 +4621,13 @@ def run(dev) -> int:
     shutil.rmtree(out_dir, ignore_errors=True)
     torch.cuda.empty_cache()
     log(f"[phase 19] {time.perf_counter() - t0:.1f} s")
+
+    # 20. The multi-device programs as CUDA graphs on NCCL ranks sharing
+    # the card, at the capacities phases 13 and 15 measured.
+    t0 = time.perf_counter()
+    check_multi_device_jit(card, by_path, multi["shard_capacity"],
+                           multi["per_dest_capacity"])
+    log(f"[phase 20] {time.perf_counter() - t0:.1f} s")
 
     kernels["cull"]["rank_launches_by_path"] = {
         p: c["cull_rank"] for p, c in by_path.items()}

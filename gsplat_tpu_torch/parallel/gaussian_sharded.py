@@ -32,7 +32,9 @@ the bits of u32 keys; the port sorts them as int64, and packs the global
 grid's depth bits (the JAX package the band's), so that the merge keeps
 each source's order among tied depths.
 `per_dest_capacity` bounds each (source, destination) segment; a longer one
-sets the overflow flag.
+sets the overflow flag. `render_gaussian_sharded_jit` is the whole per-rank
+frame dispatched as one program (a CUDA graph on an NCCL mesh, the
+exchange inside; eager on gloo: `utils/graphs.py`).
 """
 
 from __future__ import annotations
@@ -76,6 +78,8 @@ from gsplat_tpu_torch.parallel.sharding import (
     gather_rows,
     local_tile_cfg,
 )
+from gsplat_tpu_torch.render.pipeline import scene_camera_inputs, split_inputs
+from gsplat_tpu_torch.utils.graphs import Captured
 
 _INVALID_KEY = 2**31 - 1
 
@@ -461,3 +465,41 @@ def render_gaussian_sharded(
     if background is not None:
         img = img + trans[..., None] * background
     return img, trans, ovf
+
+
+# The captured Gaussian-sharded frames, keyed by config, axis, capacity and
+# shapes.
+GAUSSIAN_SHARDED_GRAPHS = Captured("render_gaussian_sharded")
+
+
+def render_gaussian_sharded_jit(
+    scene: GaussianScene,
+    camera: Camera,
+    cfg: RenderConfig,
+    mesh: Mesh,
+    axis_name: str = "gauss",
+    per_dest_capacity: int | None = None,
+    background: torch.Tensor | None = None,
+):
+    """`render_gaussian_sharded` dispatched as one program per rank, as the
+    JAX bench jits it: projection and binning of the shard (K3), the
+    fragment exchange (`all_to_all_single`), the merge, the band's blend
+    (K1 at its tile offset), the overflow flag and the gather of the bands.
+    A CUDA graph on an NCCL mesh on the card, captured on the first call
+    for (cfg, axis, capacity, input shapes) and replayed after; the same
+    body eagerly on gloo and on the CPU (`utils/graphs.py`). Returns fresh
+    (image, transmittance, overflow), outside autograd."""
+    inputs = scene_camera_inputs(scene, camera)
+    if background is not None:
+        inputs.append(background)
+
+    def body(*flat):
+        s, c, rest = split_inputs(flat)
+        with torch.no_grad():
+            return render_gaussian_sharded(s, c, cfg, mesh, axis_name,
+                                           per_dest_capacity,
+                                           rest[0] if rest else None)
+
+    return GAUSSIAN_SHARDED_GRAPHS(
+        (cfg, axis_name, per_dest_capacity, background is not None), inputs,
+        body, mesh=mesh)

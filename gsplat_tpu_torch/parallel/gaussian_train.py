@@ -18,6 +18,11 @@ Layout on a ('gauss',) mesh of D ranks, one process each:
 Checkpoints are per shard (`save_sharded_checkpoint`): each rank writes its
 own rows to `shard_{k:05d}.npz`, the primary rank the step and the
 scalars to `meta.npz`; no rank ever gathers the whole state.
+
+The step and the densification round are each one CUDA graph per rank on
+an NCCL mesh, collectives inside (`make_gaussian_sharded_train_step`,
+`make_gaussian_sharded_densify`); the `make_eager_*` functions run the same
+bodies op by op.
 """
 
 from __future__ import annotations
@@ -47,13 +52,19 @@ from gsplat_tpu_torch.parallel.train_step import (
     check_band_height,
 )
 from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
-from gsplat_tpu_torch.train.densify import densify_and_prune
-from gsplat_tpu_torch.train.loop import make_optimizer
+from gsplat_tpu_torch.train.densify import DensifyState, densify_and_prune
+from gsplat_tpu_torch.train.loop import (
+    captured_step,
+    check_params,
+    make_optimizer,
+    zero_grads_,
+)
 from gsplat_tpu_torch.utils.checkpoint import (
     atomic_savez,
     checkpoint_arrays,
     restore_arrays,
 )
+from gsplat_tpu_torch.utils.graphs import Captured
 
 # The arrays of a checkpoint that are not per slot (held by meta.npz).
 _SCALAR_KEYS = ("adam.updates", "step") + tuple(
@@ -76,6 +87,78 @@ def shard_train_state(scene: GaussianScene, mesh: Mesh, axis_name="gauss",
     return local, opt
 
 
+def _gaussian_step_body(cfg: RenderConfig, mesh: Mesh, optimizer,
+                        capacity: int, ssim_weight: float, axis_name: str,
+                        per_dest_capacity: int | None):
+    """(body, params) of the Gaussian-sharded step: body(scene, cameras,
+    targets) -> (metrics, (tap_grads, visible)). The band's pixel mask and
+    the `tap` leaf are made once and the gradients zeroed and accumulated
+    in place, so that a capture reads them at fixed addresses."""
+    d = mesh.size_of(axis_name)
+    lcfg = local_tile_cfg(cfg, d)
+    if capacity % d != 0:
+        raise ValueError(f"capacity {capacity} not divisible by {d} shards")
+    cap = per_dest_capacity or max(cfg.max_intersections // d, 1)
+    src_cfg = _src_cfg_for(cfg)
+    align = cfg.stream_align or 1
+    check_band_height(lcfg, ssim_weight)
+    params = [group["params"][0] for group in optimizer.param_groups]
+    dev = params[0].device
+    mask = band_mask(cfg, lcfg, mesh.index(axis_name), dev)
+    tap = torch.zeros((params[0].shape[0], 2), device=dev,
+                      requires_grad=True)
+
+    def body(scene: GaussianScene, cameras, targets):
+        zero_grads_(optimizer, tap)
+        losses, overflow, visible = [], [], []
+        for camera, target_band in zip(cameras, targets):
+            img, _, ovf, vis = _shard_render(
+                scene, camera, cfg, src_cfg, lcfg, mesh, axis_name, cap,
+                align, uv_tap=tap)
+            losses.append(band_loss(img, target_band, mask, cfg, lcfg,
+                                    mesh, axis_name, ssim_weight))
+            overflow.append(ovf)
+            visible.append(vis)
+        loss = torch.stack(losses).mean()
+        loss.backward()
+        # The band partials sum to the whole image's loss; the gradients are
+        # complete on each shard already: metric-only collectives.
+        metrics = {
+            "loss": all_reduce(loss.detach(), mesh, axis_name),
+            "overflow": any_flag(torch.stack(overflow).any(), mesh,
+                                 axis_name),
+        }
+        optimizer.step()
+        return metrics, (tap.grad, torch.stack(visible).any(0))
+
+    body.tap = tap
+    return body, params
+
+
+def make_eager_gaussian_sharded_train_step(
+    cfg: RenderConfig,
+    mesh: Mesh,
+    optimizer,
+    capacity: int,
+    ssim_weight: float = 0.2,
+    axis_name: str = "gauss",
+    per_dest_capacity: int | None = None,
+):
+    """`make_gaussian_sharded_train_step`'s step run eagerly, op by op, on
+    every backend: the body the captured step captures, with the same
+    interface (the tap's gradient copied out of its fixed storage)."""
+    body, params = _gaussian_step_body(cfg, mesh, optimizer, capacity,
+                                       ssim_weight, axis_name,
+                                       per_dest_capacity)
+
+    def step(scene: GaussianScene, cameras, targets):
+        check_params(scene, params)
+        metrics, (tap_grads, visible) = body(scene, cameras, targets)
+        return metrics, (tap_grads.clone(), visible)
+
+    return step
+
+
 def make_gaussian_sharded_train_step(
     cfg: RenderConfig,
     mesh: Mesh,
@@ -93,65 +176,31 @@ def make_gaussian_sharded_train_step(
     (the batch mean, summed over the bands) and "overflow" (any rank);
     screen_grads and visible are this shard's (N/D, 2) and (N/D,), feeding
     its densification accumulator. The JAX function takes an example scene
-    for C; here C is given."""
-    d = mesh.size_of(axis_name)
-    lcfg = local_tile_cfg(cfg, d)
-    if capacity % d != 0:
-        raise ValueError(f"capacity {capacity} not divisible by {d} shards")
-    cap = per_dest_capacity or max(cfg.max_intersections // d, 1)
-    src_cfg = _src_cfg_for(cfg)
-    align = cfg.stream_align or 1
-    check_band_height(lcfg, ssim_weight)
-    band = mesh.index(axis_name)
-    params = [group["params"][0] for group in optimizer.param_groups]
-    masks = {}
+    for C; here C is given.
 
-    def step(scene: GaussianScene, cameras, targets):
-        if any(getattr(scene, f) is not p for f, p in zip(SCENE_FIELDS, params)):
-            raise ValueError("train step: the scene's tensors are not the "
-                             "optimizer's parameters")
-        dev = scene.means.device
-        if dev not in masks:
-            masks[dev] = band_mask(cfg, lcfg, band, dev)
-        optimizer.zero_grad(set_to_none=True)
-        tap = torch.zeros((scene.num_gaussians, 2), device=dev,
-                          requires_grad=True)
-        losses, overflow, visible = [], [], []
-        for camera, target_band in zip(cameras, targets):
-            img, _, ovf, vis = _shard_render(
-                scene, camera, cfg, src_cfg, lcfg, mesh, axis_name, cap,
-                align, uv_tap=tap)
-            losses.append(band_loss(img, target_band, masks[dev], cfg, lcfg,
-                                    mesh, axis_name, ssim_weight))
-            overflow.append(ovf)
-            visible.append(vis)
-        loss = torch.stack(losses).mean()
-        loss.backward()
-        # The band partials sum to the whole image's loss; the gradients are
-        # complete on each shard already: metric-only collectives.
-        metrics = {
-            "loss": all_reduce(loss.detach(), mesh, axis_name),
-            "overflow": any_flag(torch.stack(overflow).any(), mesh,
-                                 axis_name),
-        }
-        optimizer.step()
-        return metrics, (tap.grad, torch.stack(visible).any(0))
-
-    return step
+    Dispatched as one program per rank, as the JAX step is a `jax.jit` of a
+    `shard_map`: on an NCCL mesh on the card a CUDA graph with the fragment
+    exchange, the SSIM halo's all_gathers and their transposes and the
+    metrics' all_reduces inside, captured on the first call for (cfg, B,
+    capacity) and replayed after; on gloo and on the CPU the same body
+    eagerly (`utils/graphs.py`)."""
+    body, params = _gaussian_step_body(cfg, mesh, optimizer, capacity,
+                                       ssim_weight, axis_name,
+                                       per_dest_capacity)
+    return captured_step(
+        body, params, "gaussian_sharded_train_step",
+        (cfg, float(ssim_weight), axis_name, per_dest_capacity), mesh)
 
 
-def make_gaussian_sharded_densify(
+def make_eager_gaussian_sharded_densify(
     mesh: Mesh,
     axis_name: str = "gauss",
     grad_threshold: float = 2e-4,
     split_size: float = 0.01,
     min_opacity: float = 1.0 / 255.0,
 ):
-    """Per-shard adaptive density control on the static local capacity C/D.
-    Returns densify_fn(scene, dstate) -> (scene, fresh dstate, changed,
-    stats): children take their parent's shard's free slots only (no
-    migration between shards); the stats are summed over the shards,
-    `saturated` is any shard's."""
+    """`make_gaussian_sharded_densify`'s program run eagerly, op by op, on
+    every backend: the body its graph captures."""
 
     def run(scene: GaussianScene, dstate):
         new_scene, fresh, changed, stats = densify_and_prune(
@@ -165,6 +214,41 @@ def make_gaussian_sharded_densify(
         return new_scene, fresh, changed, out
 
     return run
+
+
+def make_gaussian_sharded_densify(
+    mesh: Mesh,
+    axis_name: str = "gauss",
+    grad_threshold: float = 2e-4,
+    split_size: float = 0.01,
+    min_opacity: float = 1.0 / 255.0,
+):
+    """Per-shard adaptive density control on the static local capacity C/D.
+    Returns densify_fn(scene, dstate) -> (scene, fresh dstate, changed,
+    stats): children take their parent's shard's free slots only (no
+    migration between shards); the stats are summed over the shards,
+    `saturated` is any shard's. One program per rank, as the JAX function
+    is jitted: on an NCCL mesh on the card a CUDA graph (per shard
+    `densify_and_prune` and its two stat reductions) captured on the first
+    call for the shard's shapes and replayed after, the scene and the state
+    copied into its buffers; on gloo and on the CPU the same body eagerly.
+    The outputs are fresh tensors; `densify_fn.graphs` is its cache."""
+    run = make_eager_gaussian_sharded_densify(
+        mesh, axis_name, grad_threshold, split_size, min_opacity)
+    graphs = Captured("gaussian_sharded_densify")
+    n = len(SCENE_FIELDS)
+
+    def densify_fn(scene: GaussianScene, dstate):
+        inputs = [getattr(scene, f) for f in SCENE_FIELDS] + [
+            dstate.grad_accum, dstate.count, dstate.visit_count]
+
+        def body(*flat):
+            return run(GaussianScene(*flat[:n]), DensifyState(*flat[n:]))
+
+        return graphs(axis_name, inputs, body, mesh=mesh)
+
+    densify_fn.graphs = graphs
+    return densify_fn
 
 
 def fit_gaussian_sharded(

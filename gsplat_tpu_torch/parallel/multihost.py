@@ -10,8 +10,22 @@ A multi-card run is one process per card, started by `torchrun`:
 MASTER_PORT) and brings up the process group on the backend the caller
 names; with no environment and no arguments it is a no-op, as the JAX
 function is in one process. The backend is never chosen here: NCCL for one
-card per rank, gloo on the CPU, or for several ranks sharing one card
-(NCCL refuses two ranks on one GPU).
+card per rank, gloo on the CPU; several ranks sharing one card run on
+either.
+
+Several NCCL ranks on one card: NCCL refuses two ranks of one host on one
+GPU ("Duplicate GPU detected"), the host being its hash of the host name.
+With `launch(..., share_card=True)` each rank sets, before the group comes
+up, NCCL_HOSTID=rank<k> (a host hash of its own, so NCCL takes the ranks
+for hosts of their own), NCCL_SOCKET_IFNAME=lo and NCCL_IB_DISABLE=1 (they
+talk over NCCL's socket transport on the loopback): `share_card_env`. On
+an H100 (NCCL 2.28.9) two such ranks came up ("nNodes 2 localRanks 1",
+channels "via NET/Socket"), ran all_reduce, all_gather and
+all_to_all_single eagerly, and replayed them from CUDA graphs captured in
+each of the `thread_local`, `global` and `relaxed` modes; their
+`destroy_process_group` did not return, so `launch` ends such ranks with
+`os._exit` once their results are written. The loopback's TCP carries
+every byte, so their times are not those of NVLink.
 
 `launch` starts `nprocs` ranks of a function with the spawn start method
 (never fork after CUDA) through `torch.multiprocessing`, joins them with a
@@ -24,6 +38,7 @@ from __future__ import annotations
 import datetime
 import os
 import pickle
+import sys
 import time
 
 import torch
@@ -32,6 +47,13 @@ from gsplat_tpu_torch.parallel.sharding import Mesh, make_mesh
 
 # Seconds a collective may wait before the process group gives up.
 DEFAULT_TIMEOUT_S = 600
+
+
+def share_card_env(rank: int) -> dict:
+    """The environment under which NCCL takes rank `rank` for a host of its
+    own, so that several ranks may share one card (the module docstring)."""
+    return {"NCCL_HOSTID": f"rank{rank}", "NCCL_SOCKET_IFNAME": "lo",
+            "NCCL_IB_DISABLE": "1"}
 
 
 def initialize(backend: str | None = None, init_method: str | None = None,
@@ -110,7 +132,9 @@ def is_primary() -> bool:
 
 
 def _rank_main(rank, nprocs, fn, args, backend, init_method, device,
-               timeout_s, out_dir):
+               timeout_s, out_dir, share_card):
+    if share_card:
+        os.environ.update(share_card_env(rank))
     initialize(backend, init_method, nprocs, rank, device, timeout_s)
     try:
         result = fn(rank, *args)
@@ -122,19 +146,27 @@ def _rank_main(rank, nprocs, fn, args, backend, init_method, device,
     with open(path + ".tmp", "wb") as f:
         pickle.dump(result, f)
     os.replace(path + ".tmp", path)
+    if share_card and backend == "nccl":
+        # The group's teardown does not return for NCCL ranks sharing a
+        # card; the result is written, so the process ends here.
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
     torch.distributed.destroy_process_group()
 
 
 def launch(fn, nprocs: int, args=(), *, backend: str, out_dir: str,
            init_method: str | None = None, device=None,
-           timeout_s: float = DEFAULT_TIMEOUT_S) -> list:
+           timeout_s: float = DEFAULT_TIMEOUT_S,
+           share_card: bool = False) -> list:
     """Run fn(rank, *args) in `nprocs` spawned processes, each a rank of one
     process group on `backend`, and return [rank 0's result, ...]. fn and
     args are pickled, so fn must be importable by name from a module that
     does not import what the children must not load. out_dir receives the
     results (and, without an init_method, the `file://` rendezvous store).
     Every rank is stopped, and RuntimeError raised, as soon as one fails
-    or when timeout_s passes."""
+    or when timeout_s passes. share_card: each rank sets
+    `share_card_env(rank)`, so that NCCL ranks may share one card."""
     os.makedirs(out_dir, exist_ok=True)
     paths = [os.path.join(out_dir, f"rank_{r:05d}.pkl") for r in range(nprocs)]
     if init_method is None:
@@ -146,7 +178,7 @@ def launch(fn, nprocs: int, args=(), *, backend: str, out_dir: str,
             os.unlink(p)
     ctx = torch.multiprocessing.start_processes(
         _rank_main, (nprocs, fn, args, backend, init_method, device,
-                     timeout_s, out_dir), nprocs, join=False,
+                     timeout_s, out_dir, share_card), nprocs, join=False,
         start_method="spawn")
     deadline = time.monotonic() + timeout_s
     try:

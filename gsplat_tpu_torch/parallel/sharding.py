@@ -18,6 +18,10 @@ one process per shard, each calling the same functions, and collectives of
     (`cfg.max_intersections` is then the per-shard capacity). The forward
     needs no collective but the flags'; `render_tile_sharded` gathers the
     bands into the whole image on every rank.
+  - `render_tile_sharded_jit` is the whole per-rank frame dispatched as one
+    program, as the JAX package jits the `shard_map`: on an NCCL mesh a CUDA
+    graph with its collectives inside (`utils/graphs.py`), on gloo the same
+    body eagerly.
 
 Every rank must issue the same collectives in the same order, or the run
 waits until the process group's timeout.
@@ -39,9 +43,12 @@ from gsplat_tpu_torch.ops.binning import (
     gather_features,
 )
 from gsplat_tpu_torch.ops.camera import Camera
+from gsplat_tpu_torch.ops.cuda import counters
 from gsplat_tpu_torch.ops.cuda.raster import rasterize_packed16, rasterize_tiles
 from gsplat_tpu_torch.ops.projection import project_gaussians
 from gsplat_tpu_torch.ops.stream16 import gather_packed, quant_params
+from gsplat_tpu_torch.render.pipeline import scene_camera_inputs, split_inputs
+from gsplat_tpu_torch.utils.graphs import Captured
 
 
 def _dist():
@@ -53,9 +60,11 @@ def _dist():
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """This rank's view of a mesh of processes: axis names and sizes, its
-    coordinate on each axis, its device, and per axis the process group of
+    coordinate on each axis, its device, per axis the process group of
     the ranks that differ only along that axis (None: the whole world, or
-    no process group at all in a one-process mesh)."""
+    no process group at all in a one-process mesh), and the process
+    group's backend ('nccl' or 'gloo'; None without a group), which decides
+    whether a program on the mesh is captured (`utils/graphs.py`)."""
 
     axis_names: tuple
     axis_sizes: tuple
@@ -63,6 +72,7 @@ class Mesh:
     groups: tuple
     device: torch.device
     distributed: bool
+    backend: str | None = None
 
     @property
     def shape(self) -> dict:
@@ -127,10 +137,16 @@ def make_mesh(axis_sizes: dict[str, int], device="cuda") -> Mesh:
                     mine = g
         groups.append(mine)
     return Mesh(names, sizes, coords, tuple(groups), torch.device(device),
-                dist is not None)
+                dist is not None, dist.get_backend() if dist else None)
 
 
 # ---- collectives ----------------------------------------------------------
+
+# Collectives issued to the process group by the helpers below (on NCCL one
+# kernel each); a replayed graph adds its own (`ops/cuda/counters.py`).
+collectives = 0
+counters.register(__name__, "collectives")
+
 
 
 def _local(mesh: Mesh, axis: str | None) -> bool:
@@ -140,16 +156,24 @@ def _local(mesh: Mesh, axis: str | None) -> bool:
                                     and axis not in mesh.axis_names)
 
 
+def all_reduce_(t: torch.Tensor, mesh: Mesh, axis: str | None = None,
+                op: str = "sum") -> torch.Tensor:
+    """t (contiguous) reduced ('sum' or 'max') over the axis (None: every
+    rank) in place; returns t."""
+    global collectives
+    if not _local(mesh, axis):
+        dist = torch.distributed
+        red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+        dist.all_reduce(t, op=red, group=mesh.group(axis))
+        collectives += 1
+    return t
+
+
 def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str | None = None,
                op: str = "sum") -> torch.Tensor:
     """t reduced ('sum' or 'max') over the axis (None: every rank), in a
     new tensor."""
-    out = t.detach().clone().contiguous()
-    if not _local(mesh, axis):
-        dist = torch.distributed
-        red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
-        dist.all_reduce(out, op=red, group=mesh.group(axis))
-    return out
+    return all_reduce_(t.detach().clone().contiguous(), mesh, axis, op)
 
 
 def any_flag(flag: torch.Tensor, mesh: Mesh, axis: str | None = None):
@@ -160,12 +184,14 @@ def any_flag(flag: torch.Tensor, mesh: Mesh, axis: str | None = None):
 
 def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> list:
     """[t of each rank along the axis], in the axis's order."""
+    global collectives
     if _local(mesh, axis):
         return [t]
     n = mesh.size_of(axis)
     t = t.contiguous()
     out = [torch.empty_like(t) for _ in range(n)]
     torch.distributed.all_gather(out, t, group=mesh.group(axis))
+    collectives += 1
     return out
 
 
@@ -173,11 +199,13 @@ def all_to_all(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The tiled all_to_all over dim 0: t is D equal blocks, block i goes to
     rank i of the axis, and block s of the result came from rank s. Its own
     transpose (an involution)."""
+    global collectives
     if _local(mesh, axis):
         return t
     t = t.contiguous()
     out = torch.empty_like(t)
     torch.distributed.all_to_all_single(out, t, group=mesh.group(axis))
+    collectives += 1
     return out
 
 
@@ -346,3 +374,38 @@ def render_tile_sharded(
     if background is not None:
         img = img + trans[..., None] * background
     return img, trans, ovf
+
+
+# The captured tile-sharded frames, keyed by config, axis and shapes.
+TILE_SHARDED_GRAPHS = Captured("render_tile_sharded")
+
+
+def render_tile_sharded_jit(
+    scene: GaussianScene,
+    camera: Camera,
+    cfg: RenderConfig,
+    mesh: Mesh,
+    axis_name: str = "tiles",
+    background: torch.Tensor | None = None,
+):
+    """`render_tile_sharded` dispatched as one program per rank, as the JAX
+    bench jits the `shard_map`: projection, binning (K3), the band's blend
+    (K1 at its tile offset), the overflow flag and the gather of the bands.
+    On an NCCL mesh on the card it is a CUDA graph, collectives inside,
+    captured on the first call for (cfg, axis, input shapes) and replayed
+    after; on gloo, and on the CPU, the same body runs eagerly
+    (`utils/graphs.py`). The scene and the camera are copied into the
+    graph's buffers. Returns fresh (image, transmittance, overflow),
+    outside autograd."""
+    inputs = scene_camera_inputs(scene, camera)
+    if background is not None:
+        inputs.append(background)
+
+    def body(*flat):
+        s, c, rest = split_inputs(flat)
+        with torch.no_grad():
+            return render_tile_sharded(s, c, cfg, mesh, axis_name,
+                                       rest[0] if rest else None)
+
+    return TILE_SHARDED_GRAPHS((cfg, axis_name, background is not None),
+                               inputs, body, mesh=mesh)

@@ -12,6 +12,10 @@ Layout on a ('data', 'tiles') mesh, one process per rank:
     one all_reduce of one flat buffer after the backward (the `psum` over
     'tiles' and `pmean` over 'data' of the JAX step), and the flags in one
     int32 MAX all_reduce.
+
+The step is one CUDA graph per rank on an NCCL mesh, collectives inside
+(`make_sharded_train_step`); `make_eager_sharded_train_step` runs the same
+body op by op.
 """
 
 from __future__ import annotations
@@ -27,11 +31,17 @@ from gsplat_tpu_torch.parallel.sharding import (
     Mesh,
     _render_local_tiles,
     all_reduce,
+    all_reduce_,
     halo_exchange_rows,
     local_tile_cfg,
 )
-from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
-from gsplat_tpu_torch.train.loop import sh_band_mask
+from gsplat_tpu_torch.train.loop import (
+    captured_step,
+    eager_step,
+    masked_step,
+    sh_mask_fn,
+    zero_grads_,
+)
 from gsplat_tpu_torch.train.losses import SSIM_HALO, ssim_map
 
 
@@ -71,53 +81,32 @@ def check_band_height(lcfg: RenderConfig, ssim_weight: float) -> None:
         )
 
 
-def make_sharded_train_step(
-    cfg: RenderConfig,
-    mesh: Mesh,
-    optimizer,
-    ssim_weight: float = 0.2,
-    data_axis: str = "data",
-    tile_axis: str = "tiles",
-):
-    """Returns step(scene, cameras, targets, active_sh_degree=None) ->
-    (loss, aux, (tap_grads, visible)): the contract of the single-device
-    `train.loop.make_train_step`, so that `fit(mesh=...)` drives it
-    unchanged. scene's tensors are the `SceneAdam`'s parameters, updated in
-    place, alike on every rank.
-
-    cameras: this rank's views (a sequence of its data shard's b views);
-    targets: (b, band_h, padded_W, 3), their rows of this rank's tile band
-    (`shard_batch`). loss is the batch mean, the same on every rank; aux:
-    "overflow" (any rank), "num_intersections" (the largest per-shard demand:
-    the capacity is per shard), "grads_finite(_leaves)" and an empty
-    "tier_members" (no pool re-sizing under sharding, as in the JAX fit);
-    tap_grads the all-reduced screen-space gradient and visible the OR over
-    views of "touched >= 1 tile" (global tile counts, alike on every tile
-    shard)."""
+def _sharded_step_body(cfg: RenderConfig, mesh: Mesh, optimizer,
+                       ssim_weight: float, data_axis: str, tile_axis: str):
+    """(body, band_mask, params) of the tile-sharded step, the contract of
+    `train.loop._train_step_body`: body(scene, cameras, targets, mask=None)
+    -> (loss, aux, (tap_grads, visible)). The state a capture reads at fixed
+    addresses is made once: the band's pixel mask, the `tap` leaf, the flat
+    all-reduce buffer (every field's gradient, the tap's, the loss); the
+    gradients are zeroed and accumulated in place and the all-reduced ones
+    copied back into them."""
     n_tiles = mesh.size_of(tile_axis)
     n_data = mesh.size_of(data_axis)
     lcfg = local_tile_cfg(cfg, n_tiles)
     check_band_height(lcfg, ssim_weight)
     params = [group["params"][0] for group in optimizer.param_groups]
+    dev = params[0].device
     band = mesh.index(tile_axis)
-    masks, band_masks = {}, {}
+    mask = band_mask(cfg, lcfg, band, dev)
+    n = params[0].shape[0]
+    tap = torch.zeros((n, 2), device=dev, requires_grad=True)
+    flat = torch.empty((sum(p.numel() for p in params) + 2 * n + 1,),
+                       device=dev)
 
-    def step(scene: GaussianScene, cameras, targets, active_sh_degree=None):
-        if any(getattr(scene, f) is not p for f, p in zip(SCENE_FIELDS, params)):
-            raise ValueError("train step: the scene's tensors are not the "
-                             "optimizer's parameters")
-        dev = scene.means.device
-        if dev not in masks:
-            masks[dev] = band_mask(cfg, lcfg, band, dev)
-        mask = masks[dev]
-        optimizer.zero_grad(set_to_none=True)
-        n = scene.num_gaussians
-        tap = torch.zeros((n, 2), device=dev, requires_grad=True)
-        if active_sh_degree is not None:
-            key = (scene.sh.shape[1], int(active_sh_degree), dev)
-            if key not in band_masks:
-                band_masks[key] = sh_band_mask(*key)
-            scene = dataclasses.replace(scene, sh=scene.sh * band_masks[key])
+    def body(scene: GaussianScene, cameras, targets, sh_mask=None):
+        zero_grads_(optimizer, tap)
+        if sh_mask is not None:
+            scene = dataclasses.replace(scene, sh=scene.sh * sh_mask)
         losses, overflow, n_int, visible = [], [], [], []
         for camera, target_band in zip(cameras, targets):
             with record_function("train.forward"):
@@ -138,15 +127,18 @@ def make_sharded_train_step(
             # summed over both axes, then averaged over the data shards.
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params]
-            flat = torch.cat([g.reshape(-1) for g in grads]
-                             + [tap.grad.reshape(-1), loss.detach()[None]])
-            flat = all_reduce(flat, mesh) / n_data
+            torch.cat([g.reshape(-1) for g in grads]
+                      + [tap.grad.reshape(-1), loss.detach()[None]], out=flat)
+            all_reduce_(flat, mesh).div_(n_data)
             i = 0
             for p, g in zip(params, grads):
-                p.grad = flat[i:i + g.numel()].view_as(p)
+                reduced = flat[i:i + g.numel()].view_as(p)
+                if p.grad is None:
+                    p.grad = reduced.clone()
+                else:
+                    p.grad.copy_(reduced)
                 i += g.numel()
             tap_grads = flat[i:i + 2 * n].view(n, 2)
-            loss = flat[-1]
             flags = torch.cat([
                 torch.stack(overflow).any().to(torch.int32)[None],
                 torch.stack(n_int).max().to(torch.int32)[None],
@@ -163,9 +155,63 @@ def make_sharded_train_step(
             "grads_finite_leaves": leaf_ok,
             "tier_members": torch.zeros((0,), dtype=torch.int32, device=dev),
         }
-        return loss, aux, (tap_grads, flags[2:] > 0)
+        return flat[-1].clone(), aux, (tap_grads, flags[2:] > 0)
 
-    return step
+    body.tap = tap
+    return body, sh_mask_fn(params), params
+
+
+def make_eager_sharded_train_step(
+    cfg: RenderConfig,
+    mesh: Mesh,
+    optimizer,
+    ssim_weight: float = 0.2,
+    data_axis: str = "data",
+    tile_axis: str = "tiles",
+):
+    """`make_sharded_train_step`'s step run eagerly, op by op, on every
+    backend: the body the captured step captures, with the same interface
+    (the reference `chip_smoke.py` holds the captured step to)."""
+    return eager_step(*_sharded_step_body(cfg, mesh, optimizer, ssim_weight,
+                                          data_axis, tile_axis))
+
+
+def make_sharded_train_step(
+    cfg: RenderConfig,
+    mesh: Mesh,
+    optimizer,
+    ssim_weight: float = 0.2,
+    data_axis: str = "data",
+    tile_axis: str = "tiles",
+):
+    """Returns step(scene, cameras, targets, active_sh_degree=None) ->
+    (loss, aux, (tap_grads, visible)): the contract of the single-device
+    `train.loop.make_train_step`, so that `fit(mesh=...)` drives it
+    unchanged. scene's tensors are the `SceneAdam`'s parameters, updated in
+    place, alike on every rank.
+
+    Dispatched as one program per rank, as the JAX step is a `jax.jit` of a
+    `shard_map`: on an NCCL mesh on the card a CUDA graph with the
+    collectives inside (the gradient all_reduce, the flags', the SSIM
+    halo's all_gathers and their transposes), captured on the first call
+    for (cfg, B, capacity, ssim_weight, SH masking on or off) and replayed
+    after; on gloo and on the CPU the same body eagerly
+    (`utils/graphs.py`).
+
+    cameras: this rank's views (a sequence of its data shard's b views);
+    targets: (b, band_h, padded_W, 3), their rows of this rank's tile band
+    (`shard_batch`). loss is the batch mean, the same on every rank; aux:
+    "overflow" (any rank), "num_intersections" (the largest per-shard demand:
+    the capacity is per shard), "grads_finite(_leaves)" and an empty
+    "tier_members" (no pool re-sizing under sharding, as in the JAX fit);
+    tap_grads the all-reduced screen-space gradient and visible the OR over
+    views of "touched >= 1 tile" (global tile counts, alike on every tile
+    shard)."""
+    body, band_mask, params = _sharded_step_body(
+        cfg, mesh, optimizer, ssim_weight, data_axis, tile_axis)
+    return masked_step(captured_step(
+        body, params, "sharded_train_step",
+        (cfg, float(ssim_weight), data_axis, tile_axis), mesh), band_mask)
 
 
 def shard_batch(cameras, targets, mesh: Mesh, data_axis: str = "data",

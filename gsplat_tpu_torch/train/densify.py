@@ -20,6 +20,10 @@ parameters. `mask_opt_moments` is the exception: it scales a `SceneAdam`'s
 moments in place. The scatters of the JAX module drop index C (`mode=
 "drop"`); here they write into one extra row that is sliced off, so the
 index is never clamped into slot C - 1.
+
+`densify_and_prune_jit` dispatches a round as one program, as the JAX fit
+jits `densify_and_prune`: a CUDA graph on the card (`utils/graphs.py`),
+the same body eagerly on the CPU.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from gsplat_tpu_torch.models.gaussians import GaussianScene
 from gsplat_tpu_torch.ops.projection import quat_to_rotmat
+from gsplat_tpu_torch.utils.graphs import Captured
 
 DEAD_OPACITY_LOGIT = -30.0
 DEAD_LOG_SCALE = -10.0
@@ -154,8 +159,10 @@ def densify_and_prune(
          scene.means - offset],
         dim=1,
     )
-    scale_down = torch.log(torch.tensor(split_scale_down, dtype=torch.float32,
-                                        device=dev))
+    # log of the float32 factor, in float32, computed on the host: a copy
+    # of it to the card would be a host copy inside a captured round.
+    scale_down = float(torch.log(torch.tensor(split_scale_down,
+                                              dtype=torch.float32)))
     child_ls = torch.where(
         split[:, None, None],
         scene.log_scales[:, None, :] - scale_down,
@@ -212,7 +219,7 @@ def densify_and_prune(
     # Slots whose content changed: killed, or written by a child. The Adam
     # moments of every other slot stay valid.
     received = _drop_scatter(torch.zeros((c,), dtype=torch.bool, device=dev),
-                             dest, True)
+                             dest, torch.ones_like(dest, dtype=torch.bool))
     changed = dead | received
 
     stats = dict(
@@ -223,6 +230,31 @@ def densify_and_prune(
         saturated=saturated,
     )
     return new_scene, init_densify_state(c, dev), changed, stats
+
+
+# The captured densification rounds, keyed by their settings and shapes.
+DENSIFY_GRAPHS = Captured("densify")
+
+
+def densify_and_prune_jit(scene: GaussianScene, state: DensifyState,
+                          **settings):
+    """`densify_and_prune(scene, state, **settings)` dispatched as one
+    program (the JAX fit's `jax.jit(densify_and_prune)`): on a CUDA device
+    a CUDA graph captured on the first call for (settings, shapes, the
+    scene's addresses) and replayed after; the scene is read where it lies
+    (`fit`'s parameters), the state copied into the graph's buffers. On the
+    CPU the same body eagerly. Returns fresh tensors."""
+    fields = [f.name for f in dataclasses.fields(scene)]
+    inputs = [getattr(scene, f) for f in fields] + [
+        state.grad_accum, state.count, state.visit_count]
+
+    def body(*flat):
+        return densify_and_prune(
+            GaussianScene(**dict(zip(fields, flat[:len(fields)]))),
+            DensifyState(*flat[len(fields):]), **settings)
+
+    return DENSIFY_GRAPHS(tuple(sorted(settings.items())), inputs, body,
+                          held=len(fields))
 
 
 @torch.no_grad()

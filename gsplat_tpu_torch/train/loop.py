@@ -166,31 +166,17 @@ def make_optimizer(
     return SceneAdam(groups, decay)
 
 
-def _check_params(scene: GaussianScene, params) -> None:
+def check_params(scene: GaussianScene, params) -> None:
     if any(getattr(scene, f) is not p for f, p in zip(SCENE_FIELDS, params)):
         raise ValueError("train step: the scene's tensors are not the "
                          "optimizer's parameters")
 
 
-def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
-                     ssim_weight: float):
-    """(body, band_mask, params) of the train step.
-
-    body(scene, cameras, targets, mask) -> (loss, aux, (tap_grads,
-    visible)), mask a (K, 1) SH band mask or None. Its `.grad`s (the
-    parameters' and the (N, 2) zero leaf `tap` of the densification
-    trigger, made once) are zeroed and accumulated in place, so each keeps
-    its storage from the first step on, as a captured step needs.
-    band_mask(active_sh_degree) is the degree's mask, built once on the
-    device (no copy from the host), or None for None."""
-    tier_klos = tuple(
-        k_lo for k_lo, _, budget in _normalize_tier_plan(
-            cfg.tier_spec, cfg.max_tiles_per_gaussian, 1)
-        if budget is not None
-    ) if cfg.binning == "tiered" else ()
-    params = [group["params"][0] for group in optimizer.param_groups]
+def sh_mask_fn(params):
+    """band_mask(active_sh_degree) of a step over the scene fields
+    `params`: the degree's (K, 1) SH band mask, built once per degree on
+    the parameters' device (no copy from the host), or None for None."""
     dev = params[0].device
-    tap = torch.zeros((params[0].shape[0], 2), device=dev, requires_grad=True)
     num_coeffs = params[SCENE_FIELDS.index("sh")].shape[1]
     masks = {}
 
@@ -202,10 +188,38 @@ def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
             masks[degree] = sh_band_mask(num_coeffs, degree, dev)
         return masks[degree]
 
-    def body(scene, cameras, targets, mask):
-        optimizer.zero_grad(set_to_none=False)
-        if tap.grad is not None:
-            tap.grad.zero_()
+    return band_mask
+
+
+def zero_grads_(optimizer, tap: torch.Tensor) -> None:
+    """Zero the parameters' and the tap's gradients where they lie (a
+    captured step reads and accumulates them at fixed addresses)."""
+    optimizer.zero_grad(set_to_none=False)
+    if tap.grad is not None:
+        tap.grad.zero_()
+
+
+def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
+                     ssim_weight: float):
+    """(body, band_mask, params) of the train step.
+
+    body(scene, cameras, targets, mask=None) -> (loss, aux, (tap_grads,
+    visible)), mask a (K, 1) SH band mask or None. Its `.grad`s (the
+    parameters' and the (N, 2) zero leaf `tap` of the densification
+    trigger, made once) are zeroed and accumulated in place, so each keeps
+    its storage from the first step on, as a captured step needs.
+    band_mask is `sh_mask_fn`'s."""
+    tier_klos = tuple(
+        k_lo for k_lo, _, budget in _normalize_tier_plan(
+            cfg.tier_spec, cfg.max_tiles_per_gaussian, 1)
+        if budget is not None
+    ) if cfg.binning == "tiered" else ()
+    params = [group["params"][0] for group in optimizer.param_groups]
+    dev = params[0].device
+    tap = torch.zeros((params[0].shape[0], 2), device=dev, requires_grad=True)
+
+    def body(scene, cameras, targets, mask=None):
+        zero_grads_(optimizer, tap)
         if mask is not None:
             scene = dataclasses.replace(scene, sh=scene.sh * mask)
         losses, overflow, n_int, visible, members = [], [], [], [], []
@@ -246,7 +260,66 @@ def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
         return (loss.detach(), aux,
                 (tap.grad, torch.stack(visible).any(0)))
 
-    return body, band_mask, params
+    return body, sh_mask_fn(params), params
+
+
+def eager_step(body, band_mask, params):
+    """step(scene, cameras, targets, active_sh_degree=None) -> (loss, aux,
+    (tap_grads, visible)) running `body` (a `_train_step_body`'s, or a
+    sharded step's of the same contract) op by op, the tap's gradient
+    copied out of its fixed storage."""
+
+    def step(scene: GaussianScene, cameras, targets, active_sh_degree=None):
+        check_params(scene, params)
+        loss, aux, (tap_grads, visible) = body(
+            scene, cameras, targets, band_mask(active_sh_degree))
+        return loss, aux, (tap_grads.clone(), visible)
+
+    return step
+
+
+def captured_step(body, params, kind: str, key, mesh=None):
+    """step(scene, cameras, targets, *extra) -> body(scene, cameras,
+    targets, *extra) dispatched as one program (`utils/graphs.py`): the
+    cameras, targets and extra tensors (an SH band mask) are the graph's
+    inputs, copied into its buffers; the scene (the optimizer's
+    parameters, `params`), their gradients and the optimizer's state are
+    read and written where they lie. A graph per (key, number of views,
+    capacity, number of extras), of the `Captured` of `kind` (its cache is
+    `step.graphs`); `mesh`: the mesh whose collectives the body issues."""
+    graphs = Captured(kind)
+    n_cam = len(CAMERA_FIELDS)
+
+    def step(scene: GaussianScene, cameras, targets, *extra):
+        check_params(scene, params)
+        inputs = [getattr(c, f) for c in cameras for f in CAMERA_FIELDS]
+        inputs += [targets, *extra]
+        b = len(cameras)
+
+        def run(*flat):
+            cams = [Camera(*flat[i * n_cam:(i + 1) * n_cam])
+                    for i in range(b)]
+            return body(scene, cams, *flat[b * n_cam:])
+
+        return graphs((key, b, scene.num_gaussians, len(extra)), inputs, run,
+                      mesh=mesh)
+
+    step.graphs = graphs
+    return step
+
+
+def masked_step(run, band_mask):
+    """step(scene, cameras, targets, active_sh_degree=None): a
+    `captured_step` given the degree's SH band mask as its extra input (JAX's
+    traced `active_sh`: one graph serves every degree)."""
+
+    def step(scene: GaussianScene, cameras, targets, active_sh_degree=None):
+        mask = band_mask(active_sh_degree)
+        return run(scene, cameras, targets,
+                   *(() if mask is None else (mask,)))
+
+    step.graphs = run.graphs
+    return step
 
 
 def make_eager_train_step(cfg: RenderConfig, optimizer: SceneAdam,
@@ -255,15 +328,7 @@ def make_eager_train_step(cfg: RenderConfig, optimizer: SceneAdam,
     captured step captures, with the same interface. The profile scripts
     (`scripts/profile_torch_train*.py`) read its spans, and `chip_smoke.py`
     holds the captured step to it."""
-    body, band_mask, params = _train_step_body(cfg, optimizer, ssim_weight)
-
-    def step(scene: GaussianScene, cameras, targets, active_sh_degree=None):
-        _check_params(scene, params)
-        loss, aux, (tap_grads, visible) = body(
-            scene, cameras, targets, band_mask(active_sh_degree))
-        return loss, aux, (tap_grads.clone(), visible)
-
-    return step
+    return eager_step(*_train_step_body(cfg, optimizer, ssim_weight))
 
 
 def make_train_step(cfg: RenderConfig, optimizer: SceneAdam,
@@ -295,30 +360,8 @@ def make_train_step(cfg: RenderConfig, optimizer: SceneAdam,
     parameters, their `.grad` and Adam's state keep their storage: code
     between steps changes them in place (`fit`'s `_assign`)."""
     body, band_mask, params = _train_step_body(cfg, optimizer, ssim_weight)
-    graphs = Captured("train_step")
-    n_cam = len(CAMERA_FIELDS)
-
-    def step(scene: GaussianScene, cameras, targets, active_sh_degree=None):
-        _check_params(scene, params)
-        mask = band_mask(active_sh_degree)
-        inputs = [getattr(c, f) for c in cameras for f in CAMERA_FIELDS]
-        inputs.append(targets)
-        if mask is not None:
-            inputs.append(mask)
-        b = len(cameras)
-
-        def captured(*flat):
-            cams = [Camera(*flat[i * n_cam:(i + 1) * n_cam])
-                    for i in range(b)]
-            return body(scene, cams, flat[b * n_cam],
-                        flat[b * n_cam + 1] if mask is not None else None)
-
-        key = (cfg, b, scene.num_gaussians, float(ssim_weight),
-               mask is not None)
-        return graphs(key, inputs, captured)
-
-    step.graphs = graphs
-    return step
+    return masked_step(captured_step(body, params, "train_step",
+                                     (cfg, float(ssim_weight))), band_mask)
 
 
 def _append_csv_row(path: str, row: dict):
@@ -461,7 +504,7 @@ def fit(
         raise ValueError(f"unknown overflow_policy {overflow_policy!r}")
     from gsplat_tpu_torch.train.densify import (
         accumulate_grads,
-        densify_and_prune,
+        densify_and_prune_jit,
         init_densify_state,
         mask_opt_moments,
         reset_opacity,
@@ -703,7 +746,7 @@ def fit(
                 (it + 1) % densify_every == 0
                 and densify_from <= it + 1 <= until
             ):
-                new_scene, dstate, changed, dstats = densify_and_prune(
+                new_scene, dstate, changed, dstats = densify_and_prune_jit(
                     scene, dstate, grad_threshold=densify_grad_threshold,
                     max_world_scale=densify_max_scale,
                 )

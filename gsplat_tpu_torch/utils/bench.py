@@ -263,16 +263,15 @@ def _timed_window(fn, iters: int, mesh, device):
 
 def _run_bench_sharded(scene, cam, cfg, mode, iters, n_tiles, n_data,
                        ssim_weight, target_its, impl, device):
-    """The tile-sharded (x data-parallel) bench body: the forward of one
-    band per rank (no collective on the image), or the sharded train step
-    on n_data views, with the bytes its collectives move."""
+    """The tile-sharded (x data-parallel) bench body: the frame of
+    `render_tile_sharded_jit` (one band per rank, the bands gathered on
+    every rank), or the sharded train step on n_data views, with the bytes
+    its collectives move."""
     import dataclasses
 
     from gsplat_tpu_torch.parallel.sharding import (
-        _render_local_tiles,
-        local_tile_cfg,
         make_mesh,
-        render_tile_sharded,
+        render_tile_sharded_jit,
     )
     from gsplat_tpu_torch.parallel.train_step import (
         make_sharded_train_step,
@@ -291,14 +290,13 @@ def _run_bench_sharded(scene, cam, cfg, mode, iters, n_tiles, n_data,
     halo_bytes = (2 * SSIM_HALO * cfg.padded_width * 3 * 4 * 2 * n_data
                   if ssim_weight > 0.0 else 0)
     if mode == "fwd":
-        lcfg = local_tile_cfg(cfg, n_tiles)
-        band = mesh.index("tiles")
-
         def fn():
-            with torch.no_grad():
-                return _render_local_tiles(scene, cam, cfg, lcfg, band)[0]
+            return render_tile_sharded_jit(scene, cam, cfg, mesh)[0]
 
-        comm = {"fwd_comm_bytes_per_frame": 0}
+        # The gather of the image and T bands (float32, the padded grid).
+        comm = {"fwd_comm_bytes_per_frame": (
+            cfg.padded_height * cfg.padded_width * 4 * 4
+            if n_tiles > 1 else 0)}
     else:
         train = type(scene)(**{f.name: getattr(scene, f.name).detach().clone()
                                for f in dataclasses.fields(scene)})
@@ -315,8 +313,7 @@ def _run_bench_sharded(scene, cam, cfg, mode, iters, n_tiles, n_data,
                 "ssim_halo_bytes_per_step": halo_bytes}
     compile_s, dt = _timed_window(fn, iters, mesh, device)
     its = 1.0 / dt
-    with torch.no_grad():
-        _, _, ovf = render_tile_sharded(scene, cam, cfg, mesh)
+    _, _, ovf = render_tile_sharded_jit(scene, cam, cfg, mesh)
     return {
         "metric": (f"{mode} it/s @ {w}x{h}, {scene.num_gaussians} gaussians "
                    f"(sharded data{n_data}xtiles{n_tiles}, {impl})"),
@@ -340,15 +337,15 @@ def _run_bench_sharded(scene, cam, cfg, mode, iters, n_tiles, n_data,
 def _run_bench_gaussian_sharded(scene, cam, cfg, mode, iters, d,
                                 per_dest_capacity, ssim_weight, target_its,
                                 impl, device):
-    """The Gaussian-sharded bench body: the forward of one shard per rank
-    (exchange, merge, its band's blend), or the sharded train step, with the
-    fragment exchange's bytes and the occupancy report against
+    """The Gaussian-sharded bench body: the frame of
+    `render_gaussian_sharded_jit` (per rank its shard's exchange, the
+    merge, its band's blend and the gather), or the sharded train step,
+    with the fragment exchange's bytes and the occupancy report against
     per_dest_capacity."""
     from gsplat_tpu_torch.parallel.gaussian_sharded import (
-        _shard_render,
-        _src_cfg_for,
         exchange_bytes,
         fragment_occupancy,
+        render_gaussian_sharded_jit,
         shard_scene,
     )
     from gsplat_tpu_torch.parallel.gaussian_train import (
@@ -366,12 +363,10 @@ def _run_bench_gaussian_sharded(scene, cam, cfg, mode, iters, d,
     lcfg = local_tile_cfg(cfg, d)
     if mode == "fwd":
         local = shard_scene(scene, mesh)
-        src_cfg = _src_cfg_for(cfg)
 
         def fn():
-            with torch.no_grad():
-                return _shard_render(local, cam, cfg, src_cfg, lcfg, mesh,
-                                     "gauss", cap, cfg.stream_align or 1)[0]
+            return render_gaussian_sharded_jit(local, cam, cfg, mesh,
+                                               per_dest_capacity=cap)[0]
 
         comm = {"a2a_bytes_per_frame": wire["fwd"]}
     else:

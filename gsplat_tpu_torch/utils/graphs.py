@@ -44,12 +44,44 @@ Launch counts: a replay runs no Python, so the kernel wrappers' counters
 counters' rise during the capture (taken back, since a capture launches
 nothing), and each replay adds it again: the counters stay the number of
 launches the card ran.
+
+On a mesh (`parallel/sharding.py`): a body may issue the port's
+collectives. The multi-device programs of the JAX package (a `jax.jit` of
+a `shard_map`) become one graph per rank, collectives inside, where the
+mesh's backend is NCCL, whose collectives are kernels on the card that a
+graph records. On gloo the same body runs eagerly on every call, chosen
+from the backend (`captures_on`) and not after a failure: gloo's
+collectives on CUDA tensors copy through host memory and wait for the
+stream, which no capture can hold. A capture or replay that fails on NCCL
+raises. The warm-up runs the collectives eagerly first, so that NCCL's
+communicators and connections exist before the capture, and the capture
+is made in `thread_local` mode wherever a process group is up: torch's
+NCCL watchdog thread queries the events of earlier collectives while the
+main thread captures, which a `global` capture may refuse (on an H100 with
+NCCL 2.28.9 captures in all three modes replayed; `thread_local` is the
+one that never depends on the watchdog's timing).
+
+Every rank must warm up, capture and replay the same program at the same
+call, or one rank's collectives wait for another's that never come. The
+rule that ensures it: on a mesh, hit, miss and eviction depend only on
+values the ranks share. The key is the static configuration, the mesh
+(an object every rank makes at the same call) and the inputs' shapes and
+dtypes, never an address; every input is
+copied into the entry's buffers (nothing is held, so a new scene at
+another address is the same entry, read anew); no entry is evicted by a
+weak reference (a collection runs when each process pleases), only by the
+LRU bound, in call order. Ranks that make the same calls (the collectives
+already require it) then hit, miss and evict alike. A miss on a mesh of
+several ranks is preceded by one host-side check that every rank misses on
+the same key (`check_ranks_agree`, an all_gather of its digest): ranks that
+disagree raise there, together, instead of capturing different programs.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import time
 import weakref
 from typing import Callable, Sequence
@@ -100,6 +132,40 @@ def _clone(out):
     return _tree_map(lambda t: t.clone(), out)
 
 
+def captures_on(device: torch.device, mesh=None) -> bool:
+    """Whether a body on `device` is captured: on a CUDA device, alone or
+    on a mesh of one process or whose backend is NCCL; never on the CPU,
+    and never on gloo (its collectives synchronise with the host)."""
+    if device.type != "cuda":
+        return False
+    return mesh is None or not mesh.distributed or mesh.backend == "nccl"
+
+
+def _capture_mode() -> str:
+    """`thread_local` where a process group (and its watchdog thread) is up,
+    else torch's default, `global`."""
+    dist = torch.distributed
+    return ("thread_local" if dist.is_available() and dist.is_initialized()
+            else "global")
+
+
+def check_ranks_agree(description: str, mesh) -> None:
+    """Raise on every rank of the mesh unless every rank passes the same
+    description: an all_gather of its digest over the whole mesh (a
+    collective, so every rank must call it at the same point)."""
+    digest = hashlib.sha256(description.encode()).digest()[:8]
+    mine = torch.frombuffer(bytearray(digest), dtype=torch.int64).to(
+        mesh.device)
+    seen = [torch.empty_like(mine) for _ in range(mesh.size)]
+    torch.distributed.all_gather(seen, mine)
+    seen = torch.cat(seen).tolist()
+    if len(set(seen)) != 1:
+        raise RuntimeError(
+            f"the ranks disagree on a captured program's key: rank "
+            f"{mesh.rank} has {description!r}; the digests of ranks "
+            f"0..{mesh.size - 1} are {seen}")
+
+
 @dataclasses.dataclass
 class Entry:
     """One key's buffers of the copied inputs and, on CUDA, its graph, the
@@ -116,31 +182,42 @@ class Entry:
 class Captured:
     """A body captured once per static key and replayed on later calls.
 
-    `__call__(key, inputs, body, held=0)`: `key` is the hashable static
-    configuration, `inputs` the tensors the body reads (all on one device;
-    the first `held` of them read where they lie), and `body(*tensors)`
-    computes the outputs (a nest of tensors) from the held inputs and the
-    buffers; it is called only to warm up and to capture."""
+    `__call__(key, inputs, body, held=0, mesh=None)`: `key` is the hashable
+    static configuration, `inputs` the tensors the body reads (all on one
+    device; the first `held` of them read where they lie), and
+    `body(*tensors)` computes the outputs (a nest of tensors) from the held
+    inputs and the buffers; it is called only to warm up and to capture,
+    or on every call where nothing is captured. `mesh`: the mesh whose
+    collectives the body issues; every input is then copied (`held` must
+    be 0), and the key holds no address (the module docstring's rule)."""
 
     def __init__(self, kind: str):
         self.kind = kind
         self.entries: collections.OrderedDict = collections.OrderedDict()
 
     def __call__(self, key, inputs: Sequence[torch.Tensor], body: Callable,
-                 held: int = 0):
+                 held: int = 0, mesh=None):
         devices = {t.device for t in inputs}
         if len(devices) != 1:
             raise ValueError(f"{self.kind}: the inputs lie on {devices}, "
                              "not on one device")
+        if mesh is not None and held:
+            raise ValueError(f"{self.kind}: on a mesh every input is copied "
+                             "(held must be 0)")
         (device,) = devices
-        full_key = (key, device,
-                    tuple((tuple(t.shape), t.dtype) for t in inputs),
+        shapes = tuple((tuple(t.shape), t.dtype) for t in inputs)
+        full_key = (key, device, shapes,
+                    mesh if mesh is not None else
                     tuple((t.data_ptr(), t.stride()) for t in inputs[:held]))
         entry = self.entries.get(full_key)
         if entry is None:
+            if mesh is not None and mesh.distributed:
+                check_ranks_agree(repr((self.kind, key, shapes, device.type,
+                                        mesh.axis_names, mesh.axis_sizes)),
+                                  mesh)
             entry = Entry(buffers=[t.detach().clone() for t in inputs[held:]])
             args = [t.detach() for t in inputs[:held]] + entry.buffers
-            if device.type == "cuda":
+            if captures_on(device, mesh):
                 out = self._warm_up(args, body, device)
                 self._capture(entry, args, body, device)
             else:
@@ -187,7 +264,8 @@ class Captured:
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             before = counters.snapshot()
-            with torch.cuda.graph(graph, pool=pool):
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode=_capture_mode()):
                 outputs = body(*args)
             _evicted_in_capture.clear()
             entry.launches = counters.rise(before, counters.snapshot())

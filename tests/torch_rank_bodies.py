@@ -1,9 +1,9 @@
 """Rank bodies of the port's multi-process tests (`test_torch_sharding.py`,
-`test_torch_gaussian_sharded.py`). They run in spawned processes, one per
-rank of a gloo process group on the CPU, so this module imports torch and
-the port only, never JAX. Each body runs every case of one world size and
-returns plain numpy results; the test modules hold them against the JAX
-package."""
+`test_torch_gaussian_sharded.py`, `test_torch_parallel_jit.py`). They run
+in spawned processes, one per rank of a gloo process group on the CPU, so
+this module imports torch and the port only, never JAX. Each body runs
+every case of one world size and returns plain numpy results; the test
+modules hold them against the JAX package."""
 
 from __future__ import annotations
 
@@ -315,4 +315,227 @@ def gaussian_world(rank, world, inp, out_dir):
         iters=1, tile_size=8, max_intersections=1 << 12, block_size=8,
         max_per_tile=256, binning="packed", gaussian_shards=4,
         fragment_format="bf16", device=CPU)
+    return out
+
+
+# ---- the captured multi-device programs (eager on gloo) --------------------
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal tensors, or nests or dataclasses of them, bit for bit."""
+    import dataclasses
+
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and bool(torch.equal(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_bits_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_bits_equal, a, b))
+    if dataclasses.is_dataclass(a):
+        return all(_bits_equal(getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    return a == b
+
+
+def _jit_frames(render_jit, render_eager, scene, cams, cfg, mesh, **kw):
+    """The cameras in turn, twice, through the *_jit render and the eager
+    one: the jit frames, whether each equals the eager one bit for bit, and
+    the cache's entries after."""
+    frames, same = [], []
+    for _ in range(2):
+        for cam in cams:
+            got = render_jit(scene, cam, cfg, mesh, **kw)
+            with torch.no_grad():
+                want = render_eager(scene, cam, cfg, mesh, **kw)
+            same.append(_bits_equal(got, want))
+            frames.append([t.numpy() for t in got])
+    return {"frames": frames[:len(cams)], "same": same}
+
+
+def _step_runs(make_step, make_eager, scene_np, shard, steps, degrees,
+               targets, cams):
+    """`steps` steps of the captured-entry step and of its eager body, each
+    from its own copy of the scene: their outputs bit for bit, every
+    gradient's and the tap's storage across the entry's steps, and the
+    first step's outputs (for JAX)."""
+    from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
+    from gsplat_tpu_torch.train.loop import make_optimizer
+
+    runs = {}
+    for name, make in (("entry", make_step), ("eager", make_eager)):
+        scene = shard(_scene(scene_np))
+        opt = make_optimizer(scene, 1e-2)
+        step = make(opt)
+        outs, ptrs = [], []
+        for i in range(steps):
+            args = (scene, cams, targets)
+            if degrees is not None:
+                args += (degrees[i],)
+            outs.append(step(*args))
+            ptrs.append([getattr(scene, f).grad.data_ptr()
+                         for f in SCENE_FIELDS])
+        runs[name] = (outs, scene_to_numpy(scene), ptrs, step)
+    (e_outs, e_scene, ptrs, step), (g_outs, g_scene, _, _) = (
+        runs["entry"], runs["eager"])
+    return {"same": [_bits_equal(a, b) for a, b in zip(e_outs, g_outs)],
+            "scene_same": all(np.array_equal(e_scene[f], g_scene[f])
+                              for f in e_scene),
+            "grad_ptrs_kept": all(p == ptrs[0] for p in ptrs),
+            "entries": len(step.graphs.entries),
+            "first": e_outs[0], "scene": e_scene}
+
+
+def _tile_steps(inp, mesh, cam):
+    from gsplat_tpu_torch.parallel.train_step import (
+        _sharded_step_body,
+        make_eager_sharded_train_step,
+        make_sharded_train_step,
+        shard_batch,
+    )
+    from gsplat_tpu_torch.train.loop import make_optimizer
+
+    cfg = _cfg(inp)
+    target = torch.nn.functional.pad(
+        torch.from_numpy(inp["target_step"]),
+        (0, 0, 0, cfg.padded_width - cfg.width, 0,
+         cfg.padded_height - cfg.height))[None]
+    cams, bands = shard_batch([cam], target, mesh)
+    out = _step_runs(
+        lambda opt: make_sharded_train_step(cfg, mesh, opt),
+        lambda opt: make_eager_sharded_train_step(cfg, mesh, opt),
+        inp["scene_step"], lambda s: s, 3, (0, 1, 1), bands, cams)
+    loss, aux, (tap, visible) = out.pop("first")
+    out["first"] = {"loss": float(loss), "tap": tap.numpy(),
+                    "visible": visible.numpy(),
+                    "overflow": bool(aux["overflow"])}
+    # The tap leaf's gradient keeps its storage too.
+    body, band_mask, params = _sharded_step_body(
+        cfg, mesh, make_optimizer(_scene(inp["scene_step"]), 1e-2), 0.2,
+        "data", "tiles")
+    scene = GaussianScene(*params)
+    tap_ptrs = []
+    for _ in range(2):
+        body(scene, cams, bands)
+        tap_ptrs.append(body.tap.grad.data_ptr())
+    out["tap_ptr_kept"] = tap_ptrs[0] == tap_ptrs[1]
+    return out
+
+
+def _gauss_steps(inp, mesh, cam):
+    from gsplat_tpu_torch.parallel.gaussian_sharded import shard_scene
+    from gsplat_tpu_torch.parallel.gaussian_train import (
+        _gaussian_step_body,
+        make_eager_gaussian_sharded_train_step,
+        make_gaussian_sharded_train_step,
+    )
+    from gsplat_tpu_torch.parallel.sharding import local_tile_cfg
+    from gsplat_tpu_torch.train.loop import make_optimizer
+
+    cfg = _cfg(inp)
+    cap = inp["scene_train"]["means"].shape[0]
+    lcfg = local_tile_cfg(cfg, mesh.size_of("gauss"))
+    k = mesh.index("gauss")
+    band = torch.from_numpy(inp["target_train"])[
+        None, k * lcfg.height:(k + 1) * lcfg.height]
+    out = _step_runs(
+        lambda opt: make_gaussian_sharded_train_step(cfg, mesh, opt, cap),
+        lambda opt: make_eager_gaussian_sharded_train_step(cfg, mesh, opt,
+                                                           cap),
+        inp["scene_train"], lambda s: shard_scene(s, mesh), 3, None, band,
+        [cam])
+    m, (tap, visible) = out.pop("first")
+    out["first"] = {"loss": float(m["loss"]), "tap": tap.numpy(),
+                    "visible": visible.numpy(),
+                    "overflow": bool(m["overflow"])}
+    local = shard_scene(_scene(inp["scene_train"]), mesh)
+    body, _ = _gaussian_step_body(cfg, mesh, make_optimizer(local, 1e-2),
+                                  cap, 0.2, "gauss", None)
+    tap_ptrs = []
+    for _ in range(2):
+        body(local, [cam], band)
+        tap_ptrs.append(body.tap.grad.data_ptr())
+    out["tap_ptr_kept"] = tap_ptrs[0] == tap_ptrs[1]
+    # The densify program against its eager body, on this shard after the
+    # steps, with an accumulator that triggers splits and clones.
+    from gsplat_tpu_torch.parallel.gaussian_train import (
+        make_eager_gaussian_sharded_densify,
+        make_gaussian_sharded_densify,
+    )
+    from gsplat_tpu_torch.train.densify import DensifyState
+
+    shard = shard_scene(_scene(inp["scene_train"]), mesh)
+    rows = shard.num_gaussians
+    g = torch.Generator().manual_seed(k)
+    dstate = DensifyState(
+        grad_accum=torch.rand((rows,), generator=g) * 1e-3,
+        count=torch.tensor(4, dtype=torch.int32),
+        visit_count=torch.randint(0, 5, (rows,), generator=g,
+                                  dtype=torch.int32))
+    kw = dict(grad_threshold=1e-4)
+    dens = make_gaussian_sharded_densify(mesh, **kw)
+    got = [dens(shard, dstate) for _ in range(2)]
+    want = make_eager_gaussian_sharded_densify(mesh, **kw)(shard, dstate)
+    out["densify_same"] = [_bits_equal(x, want) for x in got]
+    out["densify_entries"] = len(dens.graphs.entries)
+    out["densify_stats"] = {k2: int(v) for k2, v in want[3].items()}
+    return out
+
+
+def _agreement(mesh, rank):
+    """The rank-agreement rule: a miss on the same key passes the check; a
+    key that differs between the ranks raises on every rank, before any
+    warm-up."""
+    from gsplat_tpu_torch.utils.graphs import Captured, check_ranks_agree
+
+    out = {}
+    check_ranks_agree("same", mesh)
+    cache = Captured("agreement")
+    x = torch.ones(3)
+    out["agreed"] = cache("k", [x], lambda t: t * 2, mesh=mesh).tolist()
+    ran = []
+    try:
+        cache(("k", rank), [x], lambda t: ran.append(1) or t, mesh=mesh)
+        out["disagreed"] = "no error"
+    except RuntimeError as e:
+        out["disagreed"] = str(e)
+    out["body_ran"] = bool(ran)
+    return out
+
+
+def parallel_jit_world(rank, world, inp, out_dir):
+    """The *_jit renders, the steps and the densify program on a gloo mesh
+    (their eager route) against the eager functions, and the rank-agreement
+    rule."""
+    from gsplat_tpu_torch.parallel.gaussian_sharded import (
+        render_gaussian_sharded,
+        render_gaussian_sharded_jit,
+        shard_scene,
+    )
+    from gsplat_tpu_torch.parallel.sharding import (
+        render_tile_sharded,
+        render_tile_sharded_jit,
+    )
+
+    torch.set_num_threads(1)
+    cams = [camera_from_numpy(**c, device=CPU) for c in inp["cams"]]
+    tiles = make_mesh({"tiles": world}, CPU)
+    gauss = make_mesh({"gauss": world}, CPU)
+    scene = _scene(inp["scene_render"])
+    out = {"agreement": _agreement(tiles, rank)}
+    out["tile_f32"] = _jit_frames(render_tile_sharded_jit,
+                                  render_tile_sharded, scene, cams,
+                                  _cfg(inp), tiles)
+    out["tile_p16"] = _jit_frames(
+        render_tile_sharded_jit, render_tile_sharded, scene, cams,
+        _cfg(inp, binning="tiered", stream_format="packed16"), tiles)
+    local = shard_scene(scene, gauss)
+    out["gauss_f32"] = _jit_frames(render_gaussian_sharded_jit,
+                                   render_gaussian_sharded, local, cams,
+                                   _cfg(inp), gauss)
+    out["gauss_p16"] = _jit_frames(
+        render_gaussian_sharded_jit, render_gaussian_sharded, local, cams,
+        _cfg(inp, stream_format="packed16", fragment_format="bf16"), gauss,
+        per_dest_capacity=2048)
+    out["tile_steps"] = _tile_steps(inp, tiles, cams[0])
+    out["gauss_steps"] = _gauss_steps(inp, gauss, cams[0])
     return out
