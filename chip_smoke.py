@@ -277,6 +277,43 @@ Phases, each fatal on failure (non-zero exit, no result line):
      replay, the profiler's records of a replay naming its kernels and one
      NCCL kernel per collective as the graph counts them, eager against
      replayed ms per rank, the busy share and the peak memory.
+ 21. BASELINE config 5 at its own size (`check_config5`): the config of
+     scripts/probe_config5_memory.py (3840x2048, tile 32, packed binning
+     at K_max 64, 8.8M slots, packed16, bf16 pairs) on
+     `config5_memory.config5_scene` (random_scene seeded 0, its log-scales
+     moved by -ln 2, a cut of the workload, so that no rect passes K_max
+     at 4K), four main paths, each counted on its captured calls alone:
+     - config5_proxy: `config5_memory.proxy_run`, the captured step at
+       one of 16 shards' shapes (375k Gaussians, the whole 4K target) for
+       4 steps, then the eager body from a second copy, bit-identical, no
+       overflow, a finite loss; the memory fields (argument, output, peak,
+       temp, reserved) of both;
+     - config5_single: `render_jit` of the 6M scene for the four views
+       scaled to 4K at 1.15x their largest intersections, the reference
+       of config5_ranks (view 0's tied (tile, depth) pairs printed); the
+       ranks' capacities measured shard by shard
+       (`config5_memory.measure_capacities`);
+     - config5_ranks: 2 NCCL ranks sharing cuda:0, 3M Gaussians each:
+       `render_gaussian_sharded_jit` of the four views against the
+       reference (>= GAUSS_RENDER_WITHIN of pixels within rtol 1e-3 / atol
+       1e-4, PSNR >= 60 dB), 3 captured steps, then 3 eager ones from
+       the same state, bit-identical, finite, no overflow; one capture per key
+       per rank, 0 syncs per replay; per rank the peak memory, replay and
+       eager ms; the exchange's bytes per step; K3's mask stage (each
+       rank), K1 and K2 on the heaviest tile row of rank 0's merged
+       packed16 stream and K5 on rank 0's own inputs against their plain
+       versions, the tolerances of phases 3-6;
+     - fourk: 2M random Gaussians at 3840x2160, the bench default with the
+       jumbo tiers to 256 tiles, the tier and jumbo budgets sized by
+       `scene_report` at that shape and the capacity by the render's
+       intersections: `render_jit` of view 0, then 5 captured steps
+       against 5 eager ones, bit-identical, no overflow, the loss finite
+       and falling; K3's compact and rank stages and K5 on the path's own
+       inputs, K1 and K2 on its heaviest tile row.
+     Then, not a main path, (d): the proxy and the 2 ranks on the
+     script's own draw (shift 0), capacities measured at that draw:
+     memory per rank, exchange bytes, ms; replays bit-identical to eager
+     and losses finite; overflow (rects past K_max 64) reported.
      Each phase prints its seconds.
 Then one JSON line of kernel numbers, each kernel with its launches on each
 main path (`launches_by_path`, and their sum as `launches`; K3's rank stage
@@ -290,6 +327,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import shutil
 import statistics
@@ -349,6 +387,7 @@ SPLIT_OPS_PER_ELEMENT = {"default": 0, "high": 1, "highest": 2}
 # jumbo ladder.
 sys.path.insert(0, HERE)
 from gsplat_tpu_torch import bench as _bench  # noqa: E402
+from gsplat_tpu_torch import config5_memory as c5  # noqa: E402
 
 NUM_GAUSSIANS = _bench.CARD["num_gaussians"]
 BENCH = dict({k: v for k, v in _bench.CARD.items()
@@ -1553,6 +1592,8 @@ def check_path_inputs(path: str, inputs: dict, expect: tuple) -> None:
         params, kmax, ts = args
         got = getattr(cull, name)(params, kmax, ts)
         want = getattr(cull, f"cull_{stage}_plain")(params, kmax, ts)
+        if stage == "mask":
+            got, want = (got,), (want,)
         differ = [int((g != w).sum()) for g, w in zip(got, want)]
         log(f"[{path} K3 {stage}] {params.shape[1]} rows x K {kmax}: "
             f"{int(got[-1].sum())} lanes kept; {differ} entries differ from "
@@ -3151,37 +3192,6 @@ def check_render_jit(scene, rscene, cams, card, by_path) -> dict:
     return out
 
 
-def _snapshot(scene):
-    return {f.name: getattr(scene, f.name).detach().clone()
-            for f in dataclasses.fields(scene)}
-
-
-def train_steps(train, targets, step, cams) -> dict:
-    """JIT_STEPS steps of `step` (one view a step, in turn), each timed
-    (the first not): the losses, the last step's tap gradients and
-    visibility, the final parameters, the times' medians and whether the
-    last step neither overflowed nor went non-finite."""
-    import torch
-
-    losses, times = [], []
-    for i in range(JIT_STEPS):
-        v = i % len(cams)
-        res = []
-        t = timed_calls(lambda _: res.append(step(
-            train, [cams[v]], targets[v:v + 1])), 1)
-        loss, aux, (tap, vis) = res[0]
-        losses.append(loss)
-        if i:
-            times.append(t)
-    torch.cuda.synchronize()
-    return dict(
-        losses=torch.stack(losses), tap=tap, visible=vis,
-        params=_snapshot(train),
-        ok=not bool(aux["overflow"]) and bool(aux["grads_finite"]),
-        host_ms=statistics.median(x["host_ms"] for x in times),
-        device_ms=statistics.median(x["device_ms"] for x in times))
-
-
 def check_train_jit(scene, rscene, cams, dev, card, by_path) -> dict:
     """The captured train step (`make_train_step`) at the exact and the
     bench-default configurations on both scenes. The path (counted in
@@ -3219,14 +3229,13 @@ def check_train_jit(scene, rscene, cams, dev, card, by_path) -> dict:
 
     def path():
         for tag, _, _, _ in cases:
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
             caps = graphs.captures["train_step"]
-            captured[tag] = train_steps(*trainers[tag], cams)
-            captured[tag].update(
-                captures=graphs.captures["train_step"] - caps,
-                peak_bytes=torch.cuda.max_memory_allocated() - base)
+            train, targets, step = trainers[tag]
+            run = {}
+            peak = peak_of(lambda: run.update(c5.run_steps(
+                step, train, cams, targets, JIT_STEPS)))
+            captured[tag] = dict(run, peak_bytes=peak,
+                                 captures=graphs.captures["train_step"] - caps)
 
     by_path["train_jit"] = drive(
         "train_jit", ("cull", "raster_fwd", "raster_fwd_packed",
@@ -3249,18 +3258,12 @@ def check_train_jit(scene, rscene, cams, dev, card, by_path) -> dict:
         del train, targets, step
         torch.cuda.empty_cache()
         torch.cuda.synchronize()
-        trainer = make_trainer(sc, cams, cfg, dev, eager=True)
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        e = train_steps(*trainer, cams)
-        e["peak_bytes"] = torch.cuda.max_memory_allocated() - base
-        del trainer
-        pairs = dict(losses=(c["losses"], e["losses"]),
-                     tap_grads=(c["tap"], e["tap"]),
-                     visible=(c["visible"], e["visible"]),
-                     **{f"param {f}": (c["params"][f], e["params"][f])
-                        for f in e["params"]})
-        differ = differing(pairs)
+        train, targets, step = make_trainer(sc, cams, cfg, dev, eager=True)
+        e = {}
+        e["peak_bytes"] = peak_of(lambda: e.update(c5.run_steps(
+            step, train, cams, targets, JIT_STEPS)))
+        del train, targets, step
+        differ = c5.differing(c5.run_pairs(c, e))
         nondet = []
         if differ:
             def one_step():
@@ -3286,7 +3289,8 @@ def check_train_jit(scene, rscene, cams, dev, card, by_path) -> dict:
         log(f"[train_jit {tag}] {json.dumps(row, default=str)}")
         out[tag] = row
         needs = ("cull", "raster_fwd", "raster_bwd", seg)
-        if (not (e["ok"] and c["ok"]) or c["captures"] != 1 or recaptured
+        if (any(r["overflow"] or not r["finite"] for r in (c, e))
+                or c["captures"] != 1 or recaptured
                 or syncs
                 or any(not d["within"] for d in differ.values())
                 or kernels_off(kern, needs)):
@@ -3296,7 +3300,7 @@ def check_train_jit(scene, rscene, cams, dev, card, by_path) -> dict:
                              "atol 1e-5 of the eager steps, or the "
                              f"profiler's records of {needs} missing or off "
                              "the graph's launches")
-        del c, e, pairs
+        del c, e
         torch.cuda.empty_cache()
     log(f"[train_jit] on {card}")
     return out
@@ -3571,23 +3575,6 @@ def replay_report(replay, eager, entry, needs, skip=()):
     return row, off
 
 
-def differing(pairs: dict) -> dict:
-    """The pairs (name: (captured, eager)) that are not bit-identical, each
-    with its largest difference and whether it is within rtol 5e-3 / atol
-    1e-5."""
-    import torch
-
-    out = {}
-    for name, (a, b) in pairs.items():
-        if torch.equal(a, b):
-            continue
-        a, b = a.double(), b.double()
-        out[name] = dict(max_abs=float((a - b).abs().max()),
-                         within=bool(torch.allclose(a, b, rtol=5e-3,
-                                                    atol=1e-5)))
-    return out
-
-
 def nondeterministic_ops(fn) -> list:
     """The warnings of torch's deterministic mode over fn() (one eager
     step; every rank calls it where any rank asks, so that the ranks issue
@@ -3606,39 +3593,6 @@ def nondeterministic_ops(fn) -> list:
             torch.use_deterministic_algorithms(False)
     return sorted({str(w.message)[:160] for w in caught
                    if "deterministic" in str(w.message)})
-
-
-def mesh_steps(step, train, bands, cams, on_step=None) -> dict:
-    """JIT_STEPS steps of a sharded `step` (one view a step, in turn; the
-    Gaussian-sharded contract (metrics, (tap, visible)) or the tile-sharded
-    one (loss, aux, (tap, visible))), each but the first timed: the losses,
-    the last tap gradients and visibility, the final parameters, the
-    medians, and whether the last step neither overflowed nor went
-    non-finite. on_step(tap, visible) sees every step's."""
-    import torch
-
-    losses, times = [], []
-    for i in range(JIT_STEPS):
-        v = i % len(cams)
-        res = []
-        t = timed_calls(lambda _: res.append(step(
-            train, [cams[v]], bands[v:v + 1])), 1)
-        if len(res[0]) == 2:
-            m, (tap, vis) = res[0]
-            loss, ok = m["loss"], ~m["overflow"]
-        else:
-            loss, aux, (tap, vis) = res[0]
-            ok = ~aux["overflow"] & aux["grads_finite"]
-        losses.append(loss)
-        if on_step is not None:
-            on_step(tap, vis)
-        if i:
-            times.append(t)
-    torch.cuda.synchronize()
-    return dict(losses=torch.stack(losses), tap=tap, visible=vis,
-                params=_snapshot(train), ok=bool(ok),
-                host_ms=statistics.median(x["host_ms"] for x in times),
-                device_ms=statistics.median(x["device_ms"] for x in times))
 
 
 def peak_of(fn) -> int:
@@ -3851,8 +3805,8 @@ def rank_multi_device_jit(rank: int, cap: int, per_dest: int) -> dict:
 
                 caps = graphs.captures[kind]
                 res = {}
-                res["peak"] = peak_of(lambda: res.update(run=mesh_steps(
-                    step, train, bands, cams, acc)))
+                res["peak"] = peak_of(lambda: res.update(run=c5.run_steps(
+                    step, train, cams, bands, JIT_STEPS, acc)))
                 runs[tag] = dict(res, train=train, step=step, dstate=dstate,
                                  captures=graphs.captures[kind] - caps)
 
@@ -3862,15 +3816,10 @@ def rank_multi_device_jit(rank: int, cap: int, per_dest: int) -> dict:
         c = runs[tag]
         train_e = init()
         step_e = make_eager(make_optimizer(train_e, TRAIN_LR))
-        peak_e = peak_of(lambda: c.update(eager=mesh_steps(
-            step_e, train_e, bands, cams)))
+        peak_e = peak_of(lambda: c.update(eager=c5.run_steps(
+            step_e, train_e, cams, bands, JIT_STEPS)))
         cap_run, e = c["run"], c["eager"]
-        differ = differing(dict(
-            losses=(cap_run["losses"], e["losses"]),
-            tap_grads=(cap_run["tap"], e["tap"]),
-            visible=(cap_run["visible"], e["visible"]),
-            **{f"param {f}": (cap_run["params"][f], e["params"][f])
-               for f in e["params"]}))
+        differ = c5.differing(c5.run_pairs(cap_run, e))
         nondet = []
         if bool(sh.any_flag(torch.tensor(bool(differ), device=dev), mesh)):
             nondet = nondeterministic_ops(
@@ -3890,7 +3839,8 @@ def rank_multi_device_jit(rank: int, cap: int, per_dest: int) -> dict:
                                       device=cap_run["device_ms"])),
             peak_bytes=dict(captured=c["peak"], eager=peak_e))
         out["rows"][tag] = row
-        if (not (cap_run["ok"] and e["ok"]) or c["captures"] != 1
+        if (any(r["overflow"] or not r["finite"] for r in (cap_run, e))
+                or c["captures"] != 1
                 or row["recaptured"] or off
                 or any(not x["within"] for x in differ.values())):
             out["bad"].append(tag)
@@ -3942,7 +3892,7 @@ def rank_multi_device_jit(rank: int, cap: int, per_dest: int) -> dict:
                           for f in dataclasses.fields(fresh)})
             pairs["changed"] = (o[2], changed)
             pairs.update({f"stat {k}": (o[3][k], v) for k, v in stats.items()})
-            same.append(not differing(pairs))
+            same.append(not c5.differing(pairs))
         caps = graphs.captures[kind]
         row, off = replay_report(lambda i: jit(), lambda i: eager(),
                                  entry_of(cache()), ())
@@ -4051,6 +4001,515 @@ def check_multi_device_jit(card: str, by_path: dict, cap: int,
     if bad:
         raise SystemExit(f"multi_device_jit: failed checks per rank {bad}")
     return dict(nccl_share=share, rows={r["rank"]: r["rows"] for r in res})
+
+
+# ---- phase 21: BASELINE config 5 at its own size ----------------------------
+# The config of scripts/probe_config5_memory.py (`config5_memory.CONFIG5`:
+# 3840x2048, tile 32, packed binning at K_max 64, packed16, bf16 pairs) on
+# `config5_memory.config5_scene`: random_scene seeded 0 with its log-scales
+# moved by `LOG_SCALE_SHIFT`, a cut of the workload (each splat half as
+# wide, so that no rect passes K_max 64 at 4K and no step overflows). (b)'s
+# scene: 6M Gaussians on CONFIG5_RANKS NCCL ranks sharing the card, 3M
+# each (N is not cut: a run of `config5_memory --mode ranks` at this size
+# peaked at 15.7 GB per rank on an NVIDIA H100 80GB HBM3, 700.00 W, with
+# the scales cut or not); its steps, captured and eager. (c): FOURK_N
+# random Gaussians at 3840x2160, the bench default with the jumbo tiers to
+# FOURK_JUMBO tiles (at 4K random_scene's largest rects pass K_max 64),
+# budgets sized by scene_report. (d): the script's own draw (shift 0), not
+# a main path: the proxy and the ranks measured, overflow reported.
+CONFIG5_N = 6_000_000
+CONFIG5_RANKS = 2
+CONFIG5_STEPS = 3
+CONFIG5_LAUNCH_TIMEOUT_S = 600
+FOURK = dict(width=3840, height=2160)
+FOURK_N = 2_000_000
+FOURK_STEPS = 5
+FOURK_JUMBO = 256
+
+
+def heaviest_tile_row(ranges, tiles_x: int) -> tuple[int, int]:
+    """(t0, t1): the tiles of the tile row of `ranges`' grid that holds
+    the most intersections."""
+    r = ranges.long()
+    starts = r[0:-1:tiles_x]
+    ends = r[tiles_x::tiles_x]
+    k = int((ends - starts[:ends.shape[0]]).argmax())
+    return k * tiles_x, (k + 1) * tiles_x
+
+
+def check_blend_band(tag: str, inputs: dict) -> dict:
+    """K1 and K2 on the heaviest tile row of the inputs a path gave
+    `raster_tiles_cuda` and `raster_bwd_cuda` (kept by `first_inputs`), at
+    that row's tile offset, against the plain walk and re-walk with the
+    tolerances of phases 4 and 5 (`check_k1`, `check_k2_inputs`): the plain
+    walk is serial, so one row and not the frame. The row's config is the
+    one-row band of `local_tile_cfg` (the kernels take the tile count from
+    it; the packed streams' quant ranges stay the frame's). Returns the max
+    abs errors."""
+    from gsplat_tpu_torch.parallel.sharding import local_tile_cfg
+
+    missing = [n for n in ("raster_tiles_cuda", "raster_bwd_cuda")
+               if n not in inputs]
+    if missing:
+        raise SystemExit(f"{tag}: no inputs kept for {missing}")
+    stream, ranges, c, offset = inputs.pop("raster_tiles_cuda")
+    t0, t1 = heaviest_tile_row(ranges, c.tiles_x)
+    lo, hi = int(ranges[t0]), int(ranges[t1])
+    err1 = check_k1(f"{tag} {c.stream_format} tile row {t0 // c.tiles_x}",
+                    stream[:, lo:hi].contiguous(),
+                    (ranges[t0:t1 + 1] - lo).contiguous(),
+                    local_tile_cfg(c, c.tiles_y), offset + t0)[5]
+    del stream
+    stream, ranges, g_col, b_total, c, offset, pack = inputs.pop(
+        "raster_bwd_cuda")
+    t0, t1 = heaviest_tile_row(ranges, c.tiles_x)
+    lo, hi = int(ranges[t0]), int(ranges[t1])
+    err2 = check_k2_inputs(f"{tag} {c.stream_format} tile row "
+                           f"{t0 // c.tiles_x}", (
+        stream[:, lo:hi].contiguous(), (ranges[t0:t1 + 1] - lo).contiguous(),
+        g_col[t0:t1].contiguous(), b_total[t0:t1].contiguous(),
+        local_tile_cfg(c, c.tiles_y), offset + t0, pack))
+    return {"k1_max_abs_err": err1, "k2_max_abs_err": err2}
+
+
+def check_config5_proxy(dev, card: str, by_path: dict) -> dict:
+    """(a): `config5_memory`'s proxy at the script's constants (N_SHARD
+    Gaussians, 3840x2048, the whole stream capacity of 8.8M). The path,
+    counted: the captured step's STEPS + 1 steps (`proxy_run`); after it,
+    as many steps of the eager body from a second copy. No overflow, a
+    finite loss, the captured step's losses, tap gradients, visibility and
+    parameters bit-identical to the eager body's; the memory fields
+    printed."""
+    cfg = c5.config5_cfg()
+    inputs = c5.proxy_inputs(c5.N_SHARD, cfg, dev)
+    runs = {}
+    by_path["config5_proxy"] = drive(
+        "config5_proxy", ("cull", "raster_fwd_packed", "raster_bwd_packed",
+                          "segsum_packed"),
+        lambda: runs.update(captured=c5.proxy_run(inputs, cfg, True)))
+    eager = c5.proxy_run(inputs, cfg, False)
+    res = {"memory": runs["captured"]["memory"],
+           "eager_memory": eager["memory"],
+           "steps": c5.compare_runs(eager, runs["captured"]),
+           "kmax_pressure": c5.kmax_pressure(*inputs[:2], cfg),
+           "a2a_wire_bytes_analytic": c5.a2a_wire_bytes_analytic()}
+    del inputs, runs, eager
+    log(f"[config5 proxy] {c5.N_SHARD} Gaussians at {cfg.width}x"
+        f"{cfg.height}, capacity {cfg.max_intersections}: "
+        f"{json.dumps(res)} on {card}")
+    s = res["steps"]
+    if not (s["bit_identical"] and s["finite"]) or s["overflow"]:
+        raise SystemExit("config5 proxy: overflow, a non-finite loss, or the "
+                         f"replays differ from the eager body: {s}")
+    return res
+
+
+def check_config5_script_scene(dev, card: str) -> dict:
+    """(d): the script's own draw of the scene (`config5_scene` at shift
+    0), measured and not a main path: `config5_memory.proxy` at N_SHARD
+    and `config5_memory.ranks` at CONFIG5_N on CONFIG5_RANKS NCCL ranks
+    sharing the card (capacities measured at this draw). Rects past K_max
+    64 are truncated and flag overflow: reported with the K_max pressure,
+    not gated. Fails on a rank's failure, a non-finite loss, replays
+    unlike the eager body, or a measured demand past its capacity."""
+    import torch
+
+    cfg = c5.config5_cfg()
+    out = {"proxy": c5.proxy(c5.N_SHARD, cfg, dev, 0.0)}
+    torch.cuda.empty_cache()
+    out["ranks"] = c5.ranks(CONFIG5_N, CONFIG5_RANKS, cfg, dev, 0.0)
+    caps = out["ranks"]["capacity"]
+    log(f"[config5 script scene] shift 0: proxy {json.dumps(out['proxy'])}; "
+        f"{CONFIG5_N} Gaussians on {CONFIG5_RANKS} NCCL ranks sharing "
+        f"cuda:0: {json.dumps(out['ranks'])} on {card}")
+    steps = [out["proxy"]["steps"]] + out["ranks"]["steps"]
+    if (not all(s["bit_identical"] and s["finite"] for s in steps)
+            or max(max(r) for r in caps["demand"]) > caps["max_intersections"]
+            or max(o["max_segment"] for o in caps["occupancy"])
+            > caps["per_dest_capacity"]):
+        raise SystemExit("config5 script scene: a non-finite loss, replays "
+                         "unlike the eager body, or a demand past its "
+                         f"capacity: {steps}")
+    return out
+
+
+def config5_reference(dev, card: str, by_path: dict, out_dir: str) -> dict:
+    """(b)'s single-device reference, in this process: the CONFIG5_N scene
+    at 3840x2048, each of the four views binned at the script's config for
+    its intersections; `render_jit` of the four views at 1.15x the largest,
+    as a main path; the images saved to out_dir for the ranks; the tied
+    (tile, depth) pairs of view 0's stream; the ranks' capacities
+    (`config5_memory.measure_capacities`, shard by shard). Frees the card
+    before it returns."""
+    import torch
+
+    from gsplat_tpu_torch.ops.binning import depth_bits_for
+    from gsplat_tpu_torch.render.pipeline import RENDER_GRAPHS, render_jit
+
+    cfg = c5.config5_cfg()
+    scene = c5.config5_scene(CONFIG5_N, dev)
+    cams = views(cfg.width, cfg.height, dev)
+    caps = c5.measure_capacities(scene, cams, cfg, CONFIG5_RANKS)
+    single = [sum(row) for row in caps["demand"]]
+    cap = int(max(single) * c5.HEADROOM)
+    cap += (-cap) % c5.CAP_ALIGN
+    rcfg = dataclasses.replace(cfg, max_intersections=cap)
+    frames = []
+    peak = {}
+
+    def path():
+        peak["render"] = peak_of(lambda: frames.extend(
+            render_jit(scene, c, rcfg) for c in cams))
+
+    by_path["config5_single"] = drive("config5_single",
+                                      ("cull", "raster_fwd_packed"), path)
+    ms = timed_calls(lambda i: render_jit(scene, cams[i % 4], rcfg), 4)
+    os.makedirs(out_dir, exist_ok=True)
+    for i, f in enumerate(frames):
+        if bool(f.overflow) or not bool(torch.isfinite(f.image).all()):
+            raise SystemExit(f"config5 reference view {i}: overflow or "
+                             "non-finite")
+        np.save(os.path.join(out_dir, f"ref_{i}.npy"), f.image.cpu().numpy())
+    del frames
+    RENDER_GRAPHS.entries.clear()
+    torch.cuda.empty_cache()
+    tied = tied_pairs(scene, cams[0], rcfg)
+    out = dict(single_intersections=single, capacity=cap, ms=ms,
+               peak_bytes=peak["render"], tied_pairs_view0=tied,
+               intersections_view0=single[0], ranks=caps)
+    log(f"[config5 reference] {CONFIG5_N} Gaussians at {cfg.width}x"
+        f"{cfg.height}, one device: intersections per view {single}, "
+        f"render_jit at capacity {cap}: {ms} ms, peak {peak['render']} B; "
+        f"view 0: {tied} of its adjacent fragment pairs of one tile tie "
+        f"at {depth_bits_for(cfg.num_tiles)} depth bits; the ranks' "
+        f"per-source capacity "
+        f"{caps['max_intersections']}, per-destination "
+        f"{caps['per_dest_capacity']} (demand {caps['demand']}, largest "
+        f"segments {[o['max_segment'] for o in caps['occupancy']]}) on "
+        f"{card}")
+    del scene
+    torch.cuda.empty_cache()
+    return out
+
+
+def rank_config5(rank: int, caps: dict, ref_dir: str) -> dict:
+    """(b) on one of CONFIG5_RANKS NCCL ranks sharing cuda:0: this rank's
+    3M rows of the CONFIG5_N scene. The path, counted: the four views
+    through `render_gaussian_sharded_jit` (one capture), then CONFIG5_STEPS
+    steps of the captured `make_gaussian_sharded_train_step`
+    (`config5_memory.sharded_run`, a noisy-DC copy against view 0's
+    reference render, ssim_weight 0). After: as many steps of the eager
+    body from a second copy, bit-identical; 0 syncs per replay of the frame
+    and the step; the kernels on the path's own inputs (every rank's
+    first K3 mask stage; rank 0's, whose band holds most of the fragments,
+    first K1 and K2 on one tile row of the merged packed16 stream and its
+    first K5), and on rank 0 the frames against the single-device
+    reference (>= GAUSS_RENDER_WITHIN of pixels within rtol 1e-3 / atol
+    1e-4, PSNR >= 60 dB)."""
+    import torch
+
+    from gsplat_tpu_torch.ops.cuda import cull, raster, segsum
+    from gsplat_tpu_torch.parallel import gaussian_sharded as gs
+    from gsplat_tpu_torch.parallel.sharding import local_tile_cfg, make_mesh
+    from gsplat_tpu_torch.utils import graphs
+
+    dev = rank_setup()
+    d = torch.distributed.get_world_size()
+    mesh = make_mesh({"gauss": d}, dev)
+    cfg = c5.config5_cfg(max_intersections=caps["max_intersections"])
+    per_dest = caps["per_dest_capacity"]
+    lcfg = local_tile_cfg(cfg, d)
+    offset = rank * lcfg.num_tiles
+    whole = c5.config5_scene(CONFIG5_N, dev)
+    local = gs.shard_scene(whole, mesh)
+    init = gs.shard_scene(noisy_copy(whole, dev), mesh)
+    del whole
+    torch.cuda.empty_cache()
+    cams = views(cfg.width, cfg.height, dev)
+    ref0 = torch.from_numpy(np.load(os.path.join(ref_dir, "ref_0.npy"))).to(
+        dev)
+    band = torch.nn.functional.pad(
+        ref0, (0, 0, 0, cfg.padded_width - cfg.width, 0,
+               cfg.padded_height - cfg.height))[
+        rank * lcfg.height:(rank + 1) * lcfg.height][None].contiguous()
+    del ref0
+    out = {"rank": rank, "tile_offset": offset, "bad": []}
+    frames, res, inputs = [], {}, {}
+    caps0 = dict(graphs.captures)
+
+    @contextlib.contextmanager
+    def keep_inputs():
+        with contextlib.ExitStack() as keep:
+            keep.enter_context(first_inputs(inputs, cull, "cull_mask_cuda"))
+            if rank == 0:
+                keep.enter_context(first_inputs(
+                    inputs, raster, "raster_tiles_cuda",
+                    want=lambda *a: a[3] == offset))
+                keep.enter_context(first_inputs(
+                    inputs, raster, "raster_bwd_cuda",
+                    want=lambda *a: a[5] == offset))
+                keep.enter_context(first_inputs(
+                    inputs, segsum, "segmented_suffix_sum_packed_cuda"))
+            yield
+
+    def render(cam):
+        return gs.render_gaussian_sharded_jit(local, cam, cfg, mesh,
+                                              per_dest_capacity=per_dest)
+
+    def renders():
+        with keep_inputs():
+            res["render_peak_bytes"] = peak_of(lambda: frames.extend(
+                render(c) for c in cams))
+
+    def steps():
+        with keep_inputs():
+            res["captured"] = c5.sharded_run(cfg, mesh, init, cams[:1], band,
+                                             per_dest, CONFIG5_STEPS, True)
+
+    # The path in two counted windows, each around its captured calls
+    # alone: the frames' replays for the timing and the sync count run
+    # between them, and the frame's graph (its pool) is dropped before the
+    # steps.
+    counts = rank_counted(renders)
+    out["render_ms"] = timed_calls(lambda i: render(cams[i % 4]), 2)
+    out["render_syncs"] = count_syncs(lambda: render(cams[0]), 1)
+    gs.GAUSSIAN_SHARDED_GRAPHS.entries.clear()
+    torch.cuda.empty_cache()
+    counts2 = rank_counted(steps)
+    out["counts"] = {k: counts[k] + counts2[k] for k in counts}
+    out["captures"] = {k: graphs.captures[k] - caps0.get(k, 0)
+                       for k in ("render_gaussian_sharded",
+                                 "gaussian_sharded_train_step")}
+    out["render_peak_bytes"] = res["render_peak_bytes"]
+    out["overflow"] = [bool(f[2]) for f in frames]
+    out["finite"] = all(bool(torch.isfinite(f[0]).all()) for f in frames)
+    captured = res.pop("captured")
+    step, train = captured.pop("step"), captured.pop("train")
+    out["step_syncs"] = count_syncs(lambda: step(train, cams[:1], band), 1)
+    out["wire"] = gs.exchange_bytes(cfg, d, per_dest)
+    del res, step, train
+    torch.cuda.empty_cache()
+    eager = c5.sharded_run(cfg, mesh, init, cams[:1], band, per_dest,
+                           CONFIG5_STEPS, False)
+    del eager["step"], eager["train"]
+    out["steps"] = {"memory": captured["memory"],
+                    "eager_memory": eager["memory"],
+                    "steps": c5.compare_runs(eager, captured)}
+    del captured, eager
+    torch.cuda.empty_cache()
+
+    tag = f"config5 rank {rank}"
+    check_path_inputs(tag, inputs, ("cull_mask_cuda",) + (
+        ("segmented_suffix_sum_packed_cuda",) if rank == 0 else ()))
+    if rank == 0:
+        out["blend_band"] = check_blend_band(tag + " merged", inputs)
+        out["vs_single"] = []
+        for i, (img, _, _) in enumerate(frames):
+            want = torch.from_numpy(np.load(os.path.join(
+                ref_dir, f"ref_{i}.npy"))).to(dev)
+            c_img = close_share(img, want, 1e-3, 1e-4)
+            db = psnr(img, want)
+            out["vs_single"].append(dict(image=c_img, psnr=db))
+            if not (c_img["within"] >= GAUSS_RENDER_WITHIN and db >= 60.0):
+                out["bad"].append(f"view {i}'s render")
+    s = out["steps"]["steps"]
+    if (any(out["overflow"]) or not out["finite"] or s["overflow"]
+            or not (s["finite"] and s["bit_identical"])
+            or out["captures"] != {"render_gaussian_sharded": 1,
+                                   "gaussian_sharded_train_step": 1}
+            or out["render_syncs"][0] or out["step_syncs"][0]):
+        out["bad"].append("the path's gates")
+    return out
+
+
+def check_config5_ranks(card: str, by_path: dict, ref: dict,
+                        ref_dir: str) -> list:
+    """(b)'s ranks: `rank_config5` on CONFIG5_RANKS NCCL ranks sharing
+    cuda:0, the path's launches summed over the ranks; each rank's row
+    printed (peak memory, replay and eager ms, the wire's bytes, the
+    frames against the reference beside view 0's tied pairs). Exits on a
+    rank's failed check."""
+    res = launch_ranks(rank_config5, CONFIG5_RANKS, ref["ranks"], ref_dir,
+                       backend="nccl", share_card=True,
+                       timeout_s=CONFIG5_LAUNCH_TIMEOUT_S)
+    counts = sum_counts([{"c": r["counts"]} for r in res], "c")
+    by_path["config5_ranks"] = check_counts(
+        "config5_ranks", {k: v for k, v in counts.items()
+                          if k != "collectives"},
+        ("cull", "raster_fwd_packed", "raster_bwd_packed", "segsum_packed"))
+    for r in res:
+        row = {k: v for k, v in r.items() if k not in ("counts", "bad")}
+        log(f"[config5 rank {r['rank']}] {json.dumps(row, default=str)}")
+    log(f"[config5] {CONFIG5_N} Gaussians at 3840x2048 on {CONFIG5_RANKS} "
+        f"NCCL ranks sharing cuda:0 ({counts['collectives']} collectives): "
+        f"per rank peak (captured / eager) "
+        f"{[(r['steps']['memory']['peak_memory_in_bytes'], r['steps']['eager_memory']['peak_memory_in_bytes']) for r in res]}"
+        f" B, step replay / eager ms "
+        f"{[(r['steps']['steps']['replay_ms'], r['steps']['steps']['eager_ms']) for r in res]}"
+        f", frame replay ms {[r['render_ms'] for r in res]}; exchange "
+        f"bytes per step over the ranks {res[0]['wire']}; view 0's "
+        f"single-device stream has {ref['tied_pairs_view0']} tied adjacent "
+        f"pairs of {ref['intersections_view0']} fragments; on {card}")
+    bad = {r["rank"]: r["bad"] for r in res if r["bad"]}
+    if bad:
+        raise SystemExit(f"config5 ranks: failed checks per rank {bad}")
+    return res
+
+
+def fourk_cfg(report: dict, n: int, max_intersections: int):
+    """(c)'s config: the bench default at FOURK with the jumbo tiers to
+    FOURK_JUMBO, each pool tier's divisor and each jumbo budget sized from
+    scene_report's members (HEADROOM x, rounded up)."""
+    from gsplat_tpu_torch import RenderConfig
+
+    tiers = []
+    for (k_hi, div), row in zip(BENCH["tier_spec"], report["tiers"]):
+        need = math.ceil(row["members"] * c5.HEADROOM)
+        tiers.append((k_hi, 0 if div == 0 else max(n // max(need, 1), 1)))
+    jumbo = tuple((t["k_hi"], max(math.ceil(t["members_upper"]
+                                            * c5.HEADROOM), 1))
+                  for t in report["jumbo"]["tiers"])
+    return RenderConfig(**dict(BENCH, **DEFAULT, **FOURK,
+                               max_intersections=max_intersections,
+                               tier_spec=tuple(tiers),
+                               max_tiles_jumbo=FOURK_JUMBO,
+                               jumbo_tier_spec=jumbo))
+
+
+def check_fourk(dev, card: str, by_path: dict) -> dict:
+    """(c): the README's single-card claim, FOURK_N random Gaussians at
+    3840x2160 on one device. `scene_report` at that shape with the bench's
+    ladder and generous jumbo budgets sizes the tiers (`fourk_cfg`); its
+    total counts the base ladder alone (the JAX report's rule: the jumbo
+    splats' share is the render's), so the stream capacity is 1.15x the
+    render's intersections at a generous capacity. The path: `render_jit`
+    of view 0 (one capture, then a replay), then FOURK_STEPS steps of the
+    captured `make_train_step` (L1 + 0.2 DSSIM) from a noisy-DC copy
+    against that render; after, the same steps of the eager body from a
+    second copy, bit-identical, and the kernels on the path's own inputs
+    (K3's compact and rank stages, K5; K1 and K2 on one tile row). No
+    overflow, a finite and falling loss."""
+    import io
+
+    import torch
+
+    from gsplat_tpu_torch import Camera, random_scene, render, scene_report
+    from gsplat_tpu_torch.ops.cuda import cull, raster, segsum
+    from gsplat_tpu_torch.render.pipeline import RENDER_GRAPHS, render_jit
+    from gsplat_tpu_torch.train.loop import make_eager_train_step, make_train_step
+
+    n = FOURK_N
+    ladder = ",".join(f"{k}:{v}" for k, v in BENCH["tier_spec"])
+    argv = ["--scene", "random", "--n", str(n), "--width",
+            str(FOURK["width"]), "--height", str(FOURK["height"]),
+            "--tile-size", str(BENCH["tile_size"]), "--orbit", "1",
+            "--tier-spec", ladder, "--max-tiles-jumbo", str(FOURK_JUMBO),
+            "--jumbo-tier-spec", f"128:{n // 16},{FOURK_JUMBO}:{n // 16}",
+            "--device", str(dev)]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed), \
+            contextlib.redirect_stderr(io.StringIO()):
+        scene_report.main(argv)
+    report = json.loads(printed.getvalue())
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    scene = random_scene(n, sh_degree=3, generator=gen, device=dev)
+    cam = Camera.default(FOURK["width"], FOURK["height"], device=dev)
+    probe = fourk_cfg(report, n, 2 * report["suggested_max_intersections"])
+    with torch.no_grad():
+        total = int(render(scene, cam, probe).num_intersections)
+    cap = int(total * c5.HEADROOM)
+    cap += (-cap) % c5.CAP_ALIGN
+    cfg = fourk_cfg(report, n, cap)
+    log(f"[fourk] scene_report {' '.join(argv)}: tiers "
+        f"{[(t['k_lo'], t['k_hi'], t['members']) for t in report['tiers']]}"
+        f", base-ladder intersections {report['num_intersections']}, jumbo "
+        f"{report['jumbo']}; the render's intersections {total}; sized "
+        f"tier_spec {cfg.tier_spec}, jumbo {cfg.jumbo_tier_spec}, capacity "
+        f"{cap}")
+    res, inputs = {}, {}
+    init = noisy_copy(scene, dev)
+    target = torch.empty(0)
+
+    def path():
+        nonlocal target
+        with contextlib.ExitStack() as keep:
+            for name in ("cull_compact_cuda", "cull_rank_cuda"):
+                keep.enter_context(first_inputs(inputs, cull, name))
+            keep.enter_context(first_inputs(inputs, raster,
+                                            "raster_tiles_cuda"))
+            keep.enter_context(first_inputs(inputs, raster, "raster_bwd_cuda"))
+            keep.enter_context(first_inputs(
+                inputs, segsum, "segmented_suffix_sum_packed_cuda"))
+            frames = []
+            res["render_peak_bytes"] = peak_of(lambda: frames.extend(
+                render_jit(scene, cam, cfg) for _ in range(2)))
+            res["frames_equal"] = bool(torch.equal(frames[0].image,
+                                                   frames[1].image))
+            res["render_overflow"] = any(bool(f.overflow) for f in frames)
+            target = frames[0].image[None].contiguous()
+            res["captured"] = c5.fresh_run(
+                lambda opt: make_train_step(cfg, opt, SSIM_WEIGHT), init,
+                [cam], target, FOURK_STEPS)
+
+    by_path["fourk"] = drive(
+        "fourk", ("cull", "cull_rank", "raster_fwd_packed",
+                  "raster_bwd_packed", "segsum_packed"), path)
+    res["render_ms"] = timed_calls(lambda i: render_jit(scene, cam, cfg), 4)
+    cap_run = res.pop("captured")
+    del cap_run["step"], cap_run["train"]
+    RENDER_GRAPHS.entries.clear()
+    torch.cuda.empty_cache()
+    eager = c5.fresh_run(lambda opt: make_eager_train_step(cfg, opt,
+                                                           SSIM_WEIGHT),
+                         init, [cam], target, FOURK_STEPS)
+    del eager["step"], eager["train"]
+    res["steps"] = c5.compare_runs(eager, cap_run)
+    res["memory"], res["eager_memory"] = cap_run["memory"], eager["memory"]
+    check_path_inputs("fourk", inputs, (
+        "cull_compact_cuda", "cull_rank_cuda",
+        "segmented_suffix_sum_packed_cuda"))
+    res["blend_band"] = check_blend_band("fourk", inputs)
+    log(f"[fourk] {n} Gaussians at {FOURK['width']}x{FOURK['height']}, one "
+        f"device: {json.dumps(res)} on {card}")
+    s = res["steps"]
+    losses = s["losses"]
+    del scene, init, target, cap_run, eager
+    torch.cuda.empty_cache()
+    if (res["render_overflow"] or not res["frames_equal"] or s["overflow"]
+            or not (s["finite"] and s["bit_identical"])
+            or not losses[-1] < losses[0]):
+        raise SystemExit(f"fourk: overflow, a replay unlike its eager body, "
+                         f"or a loss not finite and falling: {s}")
+    return res
+
+
+def check_config5(dev, card: str, by_path: dict, kernels: dict) -> dict:
+    """Phase 21: (a) the proxy, (b) the CONFIG5_N scene on one device and
+    on CONFIG5_RANKS NCCL ranks, (c) FOURK_N Gaussians at 3840x2160 on one
+    device; each a main path. Then (d), the script's own draw of the scene
+    measured. The kernels' largest errors on the main paths' own inputs go
+    to the JSON line's kernels."""
+    import torch
+
+    torch.cuda.empty_cache()
+    out = {"proxy": check_config5_proxy(dev, card, by_path)}
+    ref_dir = os.path.join(HERE, "build", "chip_smoke", "config5")
+    out["reference"] = ref = config5_reference(dev, card, by_path, ref_dir)
+    try:
+        out["ranks"] = check_config5_ranks(card, by_path, ref, ref_dir)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    out["fourk"] = check_fourk(dev, card, by_path)
+    out["script_scene"] = check_config5_script_scene(dev, card)
+    band = next(r["blend_band"] for r in out["ranks"] if "blend_band" in r)
+    kernels["raster_fwd_packed"].update(
+        config5_max_abs_err=band["k1_max_abs_err"],
+        fourk_max_abs_err=out["fourk"]["blend_band"]["k1_max_abs_err"])
+    kernels["raster_bwd_packed"].update(
+        config5_max_abs_err=band["k2_max_abs_err"],
+        fourk_max_abs_err=out["fourk"]["blend_band"]["k2_max_abs_err"])
+    return out
 
 
 def drive(path, needs, fn):
@@ -4628,6 +5087,14 @@ def run(dev) -> int:
     check_multi_device_jit(card, by_path, multi["shard_capacity"],
                            multi["per_dest_capacity"])
     log(f"[phase 20] {time.perf_counter() - t0:.1f} s")
+
+    # 21. BASELINE config 5 at its own size: the proxy of
+    # scripts/probe_config5_memory.py, the 6M-Gaussian 4K scene on one
+    # device and Gaussian-sharded on NCCL ranks, and 2M Gaussians at
+    # 3840x2160 on one device.
+    t0 = time.perf_counter()
+    check_config5(dev, card, by_path, kernels)
+    log(f"[phase 21] {time.perf_counter() - t0:.1f} s")
 
     kernels["cull"]["rank_launches_by_path"] = {
         p: c["cull_rank"] for p, c in by_path.items()}

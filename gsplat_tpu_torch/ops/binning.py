@@ -82,6 +82,19 @@ def kmax_eff(cfg: RenderConfig) -> int:
     return cfg.max_tiles_jumbo or cfg.max_tiles_per_gaussian
 
 
+# The stream's slot ids, ranges and counts are int32, as the JAX package's:
+# a stream holds at most this many slots.
+MAX_STREAM_SLOTS = (1 << 31) - 1
+
+
+def check_stream_slots(n: int, what: str) -> None:
+    """Refuse a stream of n slots, before anything is allocated, where int32
+    cannot hold its positions."""
+    if n > MAX_STREAM_SLOTS:
+        raise ValueError(f"{what}: {n} slots; the stream's ranges and slot "
+                         f"ids are int32 (at most {MAX_STREAM_SLOTS})")
+
+
 def _kbits(kmax: int) -> int:
     """k-field width of the gidk packing for a given effective K."""
     return max(KBITS, (kmax - 1).bit_length())
@@ -475,6 +488,7 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig,
     if (tile_start is None) != (num_local_tiles is None):
         raise ValueError("bin_gaussians: tile_start and num_local_tiles go "
                          "together")
+    check_stream_slots(max_i, "max_intersections")
     if cfg.binning == "scatter":
         return _bin_scatter(proj, cfg, n_tiles, tile_start)
     n_cap = min((1 << 24) - 1, 1 << (31 - kb))

@@ -53,6 +53,7 @@ from gsplat_tpu_torch.ops.binning import (
     _align_stream,
     _tile_ranges,
     bin_gaussians,
+    check_stream_slots,
     depth_bits_for,
     features_f32,
     gather_features,
@@ -315,6 +316,7 @@ def _shard_render(scene, camera, cfg: RenderConfig, src_cfg: RenderConfig,
     overflow of this rank, visible (N_local,) bool)."""
     d = mesh.size_of(axis)
     td = lcfg.num_tiles
+    check_stream_slots(d * cap, "the merged stream (D x per_dest_capacity)")
     if cfg.stream_format == "packed4":
         raise ValueError(
             "the Gaussian-sharded fragment-exchange wire format is the "
