@@ -219,7 +219,9 @@ def cmd_info(args) -> int:
 def cmd_bench(args) -> int:
     """A reproducible bench (utils/bench.py), and with --profile DIR a
     `torch.profiler` trace of it, written to DIR/trace.json (Chrome trace
-    format: chrome://tracing or Perfetto). With --sharded-tiles every rank
+    format: chrome://tracing or Perfetto), with the program's record of
+    the replays inside it as rows of their own (`add_record_rows`): a
+    replay shows its stages, not one cudaGraphLaunch. With --sharded-tiles every rank
     started by torchrun runs it, on the backend --dist-backend names, and
     rank 0 prints the line."""
     import os
@@ -238,13 +240,63 @@ def cmd_bench(args) -> int:
     acts = [ProfilerActivity.CPU]
     if torch.device(args.device).type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    from gsplat_tpu_torch.utils import trace
+
+    trace.drain()
     with profile(activities=acts) as prof:
         result = _run_bench_args(args, run_bench)
     os.makedirs(args.profile, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    path = os.path.join(args.profile, "trace.json")
+    prof.export_chrome_trace(path)
+    add_record_rows(path, trace.drain())
     if is_primary():
         print(json.dumps(result))
     return 0
+
+
+# The process and threads of the record's rows in a Chrome trace.
+RECORD_PID = 1 << 30
+RECORD_TRACKS = ("stages", "gaps")
+
+
+def add_record_rows(path: str, rec: dict) -> int:
+    """Add the program's record of the profiled replays
+    (`utils/trace.py::timeline`: each stage from its mark to the next, the
+    copies, the card's gaps split by the host spans they overlap) to the
+    Chrome trace at `path`, as rows of a process of their own on the
+    profiler's timeline, placed by the replays' launch spans, which both
+    hold. Returns the rows added (none without replays to place)."""
+    import statistics
+
+    from gsplat_tpu_torch.utils import trace
+
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc["traceEvents"]
+    # The host's spans only: the trace also draws a span's device side
+    # ("gpu_user_annotation") under the same name.
+    launch_ts = sorted(e["ts"] for e in events if e.get("ph") == "X"
+                       and e.get("cat") != "gpu_user_annotation"
+                       and e.get("name", "").startswith("graphs.")
+                       and e["name"].endswith(".launch"))
+    launch_ns = sorted(c["spans"]["launch"][0] for c in rec["calls"]
+                       if "launch" in c["spans"])
+    rows = trace.timeline(rec)
+    if not rows or len(launch_ts) != len(launch_ns):
+        return 0
+    # The trace's clock (us) minus the host's monotonic clock (ns).
+    shift = statistics.median(float(ts) * 1e3 - ns
+                              for ts, ns in zip(launch_ts, launch_ns))
+    events.append(dict(ph="M", name="process_name", pid=RECORD_PID,
+                       args=dict(name="gsplat_tpu_torch record of replays")))
+    events += [dict(ph="M", name="thread_name", pid=RECORD_PID, tid=i,
+                    args=dict(name=t)) for i, t in enumerate(RECORD_TRACKS)]
+    events += [dict(ph="X", name=name, cat="trace", pid=RECORD_PID,
+                    tid=RECORD_TRACKS.index(track), ts=(a + shift) / 1e3,
+                    dur=(b - a) / 1e3) for track, name, a, b in rows]
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return len(rows)
 
 
 def _run_bench_args(args, run_bench):

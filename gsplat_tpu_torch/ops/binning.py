@@ -117,6 +117,8 @@ class BinnedGaussians:
     #                                   #   gauss_counts: where each
     #                                   #   Gaussian's run starts in the
     #                                   #   gid-major order of the backward
+    keys_sorted: int = 0  # the key sort's length: the keys it orders, of
+    #                     #   which num_intersections are candidates
 
 
 def _rect_divmod(k: torch.Tensor, w: torch.Tensor):
@@ -520,6 +522,7 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig,
         order = torch.sort(depth, stable=True).indices
         order = order[torch.sort(tile[order], stable=True).indices][:max_i]
         s_tile = tile[order]
+        keys_sorted = depth.numel()
     else:
         if cfg.binning == "packed":
             key = pack_tile_depth_key(
@@ -527,6 +530,7 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig,
             )
             key = torch.where(valid, key, SENTINEL_KEY).reshape(-1)
         order = torch.sort(key, stable=True).indices[:max_i]
+        keys_sorted = key.numel()
         s_tile = torch.clamp_max(
             key[order] >> depth_bits_for(cfg.num_tiles), n_tiles
         ).to(torch.int32)
@@ -553,6 +557,7 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig,
         sorted_gidk=s_gidk,
         gauss_counts=gcounts,
         gauss_offsets=(torch.cumsum(gcounts, 0) - gcounts).to(torch.int32),
+        keys_sorted=keys_sorted,
     )
 
 
@@ -606,6 +611,7 @@ def _bin_scatter(proj: ProjectedGaussians, cfg: RenderConfig, n_tiles: int,
         sorted_gidk=None,
         gauss_counts=None,
         gauss_offsets=None,
+        keys_sorted=depth_buf.numel(),
     )
 
 
@@ -731,7 +737,12 @@ def gather_features(proj: ProjectedGaussians, binned: BinnedGaussians,
     the backward is `_GatherSlots`'s sort and segmented suffix sum, not a
     scatter-add; with 'scatter' binning (no gidk stream) it is the plain
     gather, whose backward is a scatter-add."""
-    feats = features_f32(proj, cfg)
+    return gather_stream(features_f32(proj, cfg), binned, cfg)
+
+
+def gather_stream(feats: torch.Tensor, binned: BinnedGaussians,
+                  cfg: RenderConfig) -> torch.Tensor:
+    """`gather_features` from the feature table `features_f32` made."""
     if binned.sorted_gidk is None:
         n = feats.shape[1]
         feats_pad = torch.cat([feats, feats.new_zeros((feats.shape[0], 1))], 1)

@@ -23,7 +23,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from gsplat_tpu_torch.config import RenderConfig
 from gsplat_tpu_torch.models.gaussians import GaussianScene
@@ -43,6 +42,7 @@ from gsplat_tpu_torch.train.loop import (
     zero_grads_,
 )
 from gsplat_tpu_torch.train.losses import SSIM_HALO, ssim_map
+from gsplat_tpu_torch.utils.trace import stage
 
 
 def band_mask(cfg: RenderConfig, lcfg: RenderConfig, band: int,
@@ -109,20 +109,20 @@ def _sharded_step_body(cfg: RenderConfig, mesh: Mesh, optimizer,
             scene = dataclasses.replace(scene, sh=scene.sh * sh_mask)
         losses, overflow, n_int, visible = [], [], [], []
         for camera, target_band in zip(cameras, targets):
-            with record_function("train.forward"):
+            with stage("train.forward"):
                 img, _, ovf, ni, proj = _render_local_tiles(
                     scene, camera, cfg, lcfg, band, uv_tap=tap)
-            with record_function("train.loss"):
+            with stage("train.loss"):
                 losses.append(band_loss(img, target_band, mask, cfg, lcfg,
                                         mesh, tile_axis, ssim_weight))
             overflow.append(ovf)
             n_int.append(ni)
             visible.append(proj.counts > 0)
-        with record_function("train.loss"):
+        with stage("train.loss"):
             loss = torch.stack(losses).mean()
-        with record_function("train.backward"):
+        with stage("train.backward"):
             loss.backward()
-        with record_function("train.allreduce"):
+        with stage("train.allreduce"):
             # One flat buffer: every field's gradient, the tap's, the loss;
             # summed over both axes, then averaged over the data shards.
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
@@ -144,7 +144,7 @@ def _sharded_step_body(cfg: RenderConfig, mesh: Mesh, optimizer,
                 torch.stack(n_int).max().to(torch.int32)[None],
                 torch.stack(visible).any(0).to(torch.int32)])
             flags = all_reduce(flags, mesh, op="max")
-        with record_function("train.optimizer"):
+        with stage("train.optimizer"):
             leaf_ok = torch.stack([torch.isfinite(p.grad).all()
                                    for p in params])
             optimizer.step()

@@ -20,9 +20,14 @@ stay device tensors, so a frame can be captured whole. `render_jit` and
 functions: on a CUDA device each replays a CUDA graph captured once per
 config and input shapes (`utils/graphs.py`); `render` itself stays eager,
 as JAX's `render` is the function `render_jit` jits. Each stage runs inside a
-`torch.profiler.record_function` span named in `STAGES`, so a profiler sees
-the stages as they are (`scripts/profile_torch_render.py` reads them);
-outside a profiler a span costs a few microseconds.
+`utils/trace.py::stage` named in `STAGES`: a `torch.profiler.record_function`
+span where the body runs eagerly, and a mark on the card where it is
+captured, so a replay's record holds the stages too (the bin stage's mark
+carries its intersections and the keys its sort ordered). Gradient hooks
+mark the backward's boundaries: "render.blend.backward" begins when the
+image's gradient is ready (the loss's backward ends; K2 and the gather's
+backward follow), "render.project.backward" when the features' gradient is
+(the SH and projection backward follow).
 """
 
 from __future__ import annotations
@@ -30,14 +35,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from gsplat_tpu_torch.config import RenderConfig
 from gsplat_tpu_torch.models.gaussians import GaussianScene
 from gsplat_tpu_torch.ops.binning import (
     bin_gaussians,
     features_f32,
-    gather_features,
+    gather_stream,
 )
 from gsplat_tpu_torch.ops.camera import Camera
 from gsplat_tpu_torch.ops.cuda.raster import rasterize_packed16, rasterize_tiles
@@ -45,8 +49,9 @@ from gsplat_tpu_torch.ops.projection import ProjectedGaussians, project_gaussian
 from gsplat_tpu_torch.ops.stream16 import gather_packed
 from gsplat_tpu_torch.train.losses import l1
 from gsplat_tpu_torch.utils.graphs import Captured
+from gsplat_tpu_torch.utils.trace import on_grad, stage
 
-# The profiler spans of `render`, in the order the stages run.
+# The stages of `render`, in the order they run.
 STAGES = ("render.project", "render.bin", "render.gather", "render.blend")
 
 
@@ -68,24 +73,27 @@ def render_with_projection(
 ) -> tuple[RenderOutput, ProjectedGaussians]:
     """`render`, and the projection it rendered from (the train step reads
     its tile counts for visibility instead of projecting a second time)."""
-    with record_function("render.project"):
+    with stage("render.project"):
         proj = project_gaussians(scene, camera, cfg, uv_tap=uv_tap)
-    with record_function("render.bin"), torch.no_grad():
+    with stage("render.bin") as bin_stage, torch.no_grad():
         binned = bin_gaussians(proj, cfg)
-    if cfg.stream_format == "f32":
-        with record_function("render.gather"):
-            features = gather_features(proj, binned, cfg)
-        with record_function("render.blend"):
-            image, trans = rasterize_tiles(features, binned.ranges, cfg)
-    else:
-        with record_function("render.gather"):
-            feats = features_f32(proj, cfg)
+        bin_stage.payload(binned.num_intersections, binned.keys_sorted)
+    with stage("render.gather"):
+        feats = features_f32(proj, cfg)
+        on_grad(feats, "render.project.backward")
+        if cfg.stream_format == "f32":
+            features = gather_stream(feats, binned, cfg)
+        else:
             with torch.no_grad():
                 slots = gather_packed(feats, binned.sorted_gid, cfg)
-        with record_function("render.blend"):
+    with stage("render.blend"):
+        if cfg.stream_format == "f32":
+            image, trans = rasterize_tiles(features, binned.ranges, cfg)
+        else:
             image, trans = rasterize_packed16(feats, slots, binned, cfg)
-    if background is not None:
-        image = image + trans[..., None] * background
+        if background is not None:
+            image = image + trans[..., None] * background
+    on_grad(image, "render.blend.backward")
     out = RenderOutput(
         image=image,
         transmittance=trans,

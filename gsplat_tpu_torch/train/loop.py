@@ -11,8 +11,12 @@ updates the scene's tensors in place: they are the optimizer's parameters
 (leaf tensors with requires_grad), as torch optimizers hold them. On a CUDA
 device the step is a CUDA graph, as the JAX step is one jitted program
 (`make_train_step`); `make_eager_train_step` runs the same body op by op.
-Each phase runs inside a `torch.profiler.record_function` span named in
-`TRAIN_SPANS` (`scripts/profile_torch_train.py` reads them).
+Each phase runs inside a `utils/trace.py::stage` named in `TRAIN_SPANS`: a
+`torch.profiler.record_function` span where the body runs eagerly, and a
+mark where it is captured. The backward's own boundaries are the render's
+gradient marks ("render.blend.backward" ends the loss's backward,
+"render.project.backward" the blend's); the profile scripts
+(`scripts/profile_torch_train*.py`) read the record of replays.
 """
 
 from __future__ import annotations
@@ -24,7 +28,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gsplat_tpu_torch.config import RenderConfig
 from gsplat_tpu_torch.models.gaussians import GaussianScene
@@ -37,9 +40,10 @@ from gsplat_tpu_torch.render.pipeline import (
 )
 from gsplat_tpu_torch.train.losses import rgb_loss
 from gsplat_tpu_torch.utils.graphs import Captured
+from gsplat_tpu_torch.utils.trace import stage
 
-# The profiler spans of a train step (a view's forward and loss spans
-# repeat once per view).
+# The stages of a train step (a view's forward and loss stages repeat once
+# per view).
 TRAIN_SPANS = ("train.forward", "train.loss", "train.backward",
                "train.optimizer")
 
@@ -224,10 +228,10 @@ def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
             scene = dataclasses.replace(scene, sh=scene.sh * mask)
         losses, overflow, n_int, visible, members = [], [], [], [], []
         for camera, target in zip(cameras, targets):
-            with record_function("train.forward"):
+            with stage("train.forward"):
                 out, proj = render_with_projection(scene, camera, cfg,
                                                    uv_tap=tap)
-            with record_function("train.loss"):
+            with stage("train.loss"):
                 losses.append(rgb_loss(out.image, target, ssim_weight))
             overflow.append(out.overflow)
             n_int.append(out.num_intersections)
@@ -236,11 +240,11 @@ def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
                 [(out.gauss_counts > k).sum(dtype=torch.int32)
                  for k in tier_klos]) if tier_klos
                 else torch.zeros((0,), dtype=torch.int32, device=dev))
-        with record_function("train.loss"):
+        with stage("train.loss"):
             loss = torch.stack(losses).mean()
-        with record_function("train.backward"):
+        with stage("train.backward"):
             loss.backward()
-        with record_function("train.optimizer"):
+        with stage("train.optimizer"):
             # One non-finite gradient lane spreads through Adam into the
             # whole scene within a few steps; the flags let the caller stop
             # and name the field.

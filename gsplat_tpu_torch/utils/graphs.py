@@ -43,7 +43,15 @@ Launch counts: a replay runs no Python, so the kernel wrappers' counters
 (`ops/cuda/counters.py`) would see the warm-up alone. A capture records the
 counters' rise during the capture (taken back, since a capture launches
 nothing), and each replay adds it again: the counters stay the number of
-launches the card ran.
+launches the card ran. The captured graph's nodes are counted by type once
+(`Entry.nodes`): the launches of one replay, those no wrapper counts too.
+
+Stages inside a replay (`utils/trace.py`): the body's `trace.stage`s
+enqueue marks while it is captured, between the graph's first and last
+mark. While recording is on (a `torch.profiler` session, or
+`trace.recording()`), a call keeps its host spans: the copy in
+(`graphs.<kind>.copy_in`), the replay's launch (`.launch`) and the copy of
+the outputs (`.copy_out`), or the eager body's (`.body`).
 
 On a mesh (`parallel/sharding.py`): a body may issue the port's
 collectives. The multi-device programs of the JAX package (a `jax.jit` of
@@ -89,6 +97,7 @@ from typing import Callable, Sequence
 import torch
 
 from gsplat_tpu_torch.ops.cuda import counters
+from gsplat_tpu_torch.utils import trace
 
 # Graphs one `Captured` keeps, the least recently used dropped first.
 MAX_ENTRIES = 4
@@ -169,13 +178,14 @@ def check_ranks_agree(description: str, mesh) -> None:
 @dataclasses.dataclass
 class Entry:
     """One key's buffers of the copied inputs and, on CUDA, its graph, the
-    graph's static outputs and the kernel launches one replay makes
-    (`counters.rise`)."""
+    graph's static outputs, the kernel launches one replay makes
+    (`counters.rise`) and the graph's nodes by type (`trace.graph_nodes`)."""
 
     buffers: list
     graph: object = None
     outputs: object = None
     launches: dict = dataclasses.field(default_factory=dict)
+    nodes: dict = dataclasses.field(default_factory=dict)
     capture_s: float = 0.0
 
 
@@ -221,7 +231,8 @@ class Captured:
                 out = self._warm_up(args, body, device)
                 self._capture(entry, args, body, device)
             else:
-                out = _clone(body(*args))
+                with trace.call(self.kind, device, False).span("body"):
+                    out = _clone(body(*args))
             self.entries[full_key] = entry
             for t in inputs[:held]:
                 weakref.finalize(t.untyped_storage(), _evict, self.entries,
@@ -230,16 +241,28 @@ class Captured:
                 self.entries.popitem(last=False)
             return out
         self.entries.move_to_end(full_key)
+        if entry.graph is None:
+            with trace.call(self.kind, device, False).span("body"):
+                self._copy_in(entry, inputs[held:])
+                return _clone(body(*[t.detach() for t in inputs[:held]],
+                                   *entry.buffers))
+        call = trace.call(self.kind, device, True, entry.nodes)
+        with call.span(trace.COPY_IN):
+            self._copy_in(entry, inputs[held:])
+        with call.span("launch"):
+            entry.graph.replay()
+        counters.add(entry.launches)
+        with call.span(trace.COPY_OUT):
+            return _clone(entry.outputs)
+
+    @staticmethod
+    def _copy_in(entry: Entry, inputs) -> None:
+        """The copied inputs into the entry's buffers, where they do not lie
+        in them already."""
         with torch.no_grad():
-            for buf, t in zip(entry.buffers, inputs[held:]):
+            for buf, t in zip(entry.buffers, inputs):
                 if t.data_ptr() != buf.data_ptr() or t.stride() != buf.stride():
                     buf.copy_(t)
-        if entry.graph is None:
-            return _clone(body(*[t.detach() for t in inputs[:held]],
-                               *entry.buffers))
-        entry.graph.replay()
-        counters.add(entry.launches)
-        return _clone(entry.outputs)
 
     def _warm_up(self, args: list, body: Callable, device):
         """The body run eagerly on a side stream: the call's outputs."""
@@ -261,15 +284,19 @@ class Captured:
             if pool is None:
                 pool = _pools[(self.kind, device)] = \
                     torch.cuda.graph_pool_handle()
-            graph = torch.cuda.CUDAGraph()
+            trace.prepare(device)
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
             t0 = time.perf_counter()
             before = counters.snapshot()
             with torch.cuda.graph(graph, pool=pool,
                                   capture_error_mode=_capture_mode()):
-                outputs = body(*args)
+                with trace.capturing(device):
+                    outputs = body(*args)
             _evicted_in_capture.clear()
             entry.launches = counters.rise(before, counters.snapshot())
             counters.add(entry.launches, -1)
+            entry.nodes = trace.graph_nodes(graph)
+            graph.instantiate()
             entry.capture_s = time.perf_counter() - t0
         entry.graph, entry.outputs = graph, outputs
         captures[self.kind] += 1

@@ -3,10 +3,10 @@
 
     python3 scripts/profile_torch_train_default.py [--scene random|realistic] [--out F]
 
-`scripts/profile_torch_train.py`'s profile (the step's device and host ms,
-per-span device ms, the kernels by name and the busy share), run on the
-training path of bench.py with no flags: the packed4 stream and bf16-pair
-gradients through K5 (chip_smoke.DEFAULT). --scene realistic profiles the
+`scripts/profile_torch_train.py`'s profile (the replayed step's device and
+wall ms, the kernels by name, the busy share and the record's per-stage
+ms), run on the training path of bench.py with no flags: the packed4
+stream and bf16-pair gradients through K5 (chip_smoke.DEFAULT). --scene realistic profiles the
 1M-Gaussian realistic scene with the jumbo ladder of bench.py:246-253
 (chip_smoke.JUMBO) instead of the random scene. Needs a CUDA card; imports
 nothing of JAX.

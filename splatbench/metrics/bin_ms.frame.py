@@ -1,0 +1,9 @@
+"""Device ms per frame in the binning (the candidate keys, their sort, the
+ranges): the intervals of its stages' marks in the program's record of
+the traced window."""
+
+from splatbench import stages
+
+
+def read(trace: dict):
+    return stages.layer_ms(trace, "bin")

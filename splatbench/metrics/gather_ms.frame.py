@@ -1,0 +1,9 @@
+"""Device ms per frame in the feature table and its gather into the sorted
+stream: the intervals of its stages' marks in the program's record of
+the traced window."""
+
+from splatbench import stages
+
+
+def read(trace: dict):
+    return stages.layer_ms(trace, "gather")

@@ -1,0 +1,8 @@
+"""Device ms per frame in the projection and SH: the intervals of its
+stages' marks in the program's record of the traced window."""
+
+from splatbench import stages
+
+
+def read(trace: dict):
+    return stages.layer_ms(trace, "project")

@@ -25,6 +25,10 @@ import pytest  # noqa: E402
 from gsplat_tpu import Camera, RenderConfig, random_scene  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card")
+
+
 @pytest.fixture(scope="session")
 def small_cfg():
     return RenderConfig(

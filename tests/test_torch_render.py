@@ -264,7 +264,7 @@ def test_kernels_build_on_first_use_only(monkeypatch):
     assert sorted(p.name for p in _build._sources()) == [
         "cull.cu", "probe_coldma.cu", "probe_gather.cu", "probe_transc.cu",
         "probe_tricumsum.cu", "raster_bwd.cu", "raster_fwd.cu", "segsum.cu",
-        "segsum_packed.cu"]
+        "segsum_packed.cu", "trace_mark.cu"]
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setattr(_build, "DEFAULT_NVCC", "/nonexistent/nvcc")
     with pytest.raises(RuntimeError, match="nvcc"):
