@@ -13,8 +13,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      differing entries allowed; the kernel, the plain version and the route
      it replaced (the mask stage, where, row sort, sum) timed with CUDA
      events; then hand-made rows with a NaN in each parameter (count > 0
-     where the NaN is elsewhere) through all three stages, 0 differing
-     entries;
+     where the NaN is elsewhere) through the mask, compact, rank and count
+     stages, 0 differing entries; then the 'packed' route's count and
+     emit stages (`check_packed_stages`) on the same rows at a 4.1M-slot
+     stream, whole frame, without the cull and on a band of half the tile
+     rows: 0 differing entries, their times beside their bounds, the mask
+     stage's and the plain versions', and their launch counts;
   4. K1 blend at the bench shape on the port's own binned stream, float32
      and packed4: kernel against the plain tiled walk (of the unpacked
      stream) on the card, PSNR >= 60 dB and >= 99.99% of pixels within 1e-4
@@ -290,7 +294,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
        temp, reserved) of both;
      - config5_single: `render_jit` of the 6M scene for the four views
        scaled to 4K at 1.15x their largest intersections, the reference
-       of config5_ranks (view 0's tied (tile, depth) pairs printed); the
+       of config5_ranks (view 0's tied (tile, depth) pairs printed; K3's
+       count and emit stages on view 0's 6M x 64 lanes as in phase 3); the
        ranks' capacities measured shard by shard
        (`config5_memory.measure_capacities`);
      - config5_ranks: 2 NCCL ranks sharing cuda:0, 3M Gaussians each:
@@ -299,8 +304,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
        1e-4, PSNR >= 60 dB), 3 captured steps, then 3 eager ones from
        the same state, bit-identical, finite, no overflow; one capture per key
        per rank, 0 syncs per replay; per rank the peak memory, replay and
-       eager ms; the exchange's bytes per step; K3's mask stage (each
-       rank), K1 and K2 on the heaviest tile row of rank 0's merged
+       eager ms; the exchange's bytes per step; K3's count and emit stages
+       (each rank), K1 and K2 on the heaviest tile row of rank 0's merged
        packed16 stream and K5 on rank 0's own inputs against their plain
        versions, the tolerances of phases 3-6;
      - fourk: 2M random Gaussians at 3840x2160, the bench default with the
@@ -317,7 +322,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      Each phase prints its seconds.
 Then one JSON line of kernel numbers, each kernel with its launches on each
 main path (`launches_by_path`, and their sum as `launches`; K3's rank stage
-on the jumbo grid also alone, `rank_launches_by_path`), and as the last
+on the jumbo grid, its count and emit stages on the 'packed' paths also
+alone, `{rank,count,emit}_launches_by_path`), and as the last
 line {"ok": true, "device": {...}}. Needs one CUDA card; exits non-zero
 without.
 """
@@ -352,7 +358,13 @@ FP32_OPS_PER_S = 67e12
 # rank stage 5 kmax + 4 (mask, krank, counts).
 CULL_OPS_PER_LANE = 70
 CULL_OPS_PER_ROW = 5
-CULL_OUT_BYTES = {"mask": (1, 0), "compact": (4, 4), "rank": (5, 4)}
+CULL_OUT_BYTES = {"mask": (1, 0), "compact": (4, 4), "rank": (5, 4),
+                  "count": (1 / 8, 4)}
+# K3's emit stage: bytes written per kept slot (int64 key, int32 gidk) and
+# read per row (x0, y0, w, the offset, the depth key; the ballot words on
+# top, 4 bytes per 32 lanes).
+EMIT_SLOT_BYTES = 12
+EMIT_ROW_BYTES = 24
 # K1: FP32 operations per (pixel, Gaussian) pair a pixel walks: 12 for the
 # offset, the quadratic and its test on every walked pair, about 15 more
 # (one exp) for the pairs that pass it -- about 20 on average.
@@ -751,6 +763,86 @@ def cull_bound(stage: str, rows: int, kmax: int) -> tuple[float, str]:
                  + rows * CULL_OPS_PER_ROW)
 
 
+def emit_bound(rows: int, kmax: int, kept: int) -> tuple[float, str]:
+    """K3's emit stage's bound: bytes only (it runs no cull)."""
+    return bound(rows * (EMIT_ROW_BYTES + 4 * ((kmax + 31) // 32))
+                 + kept * EMIT_SLOT_BYTES, 0)
+
+
+def check_packed_stages(proj, cfg, tag: str) -> dict:
+    """K3's count and emit stages (the 'packed' binning's compaction) on
+    proj's rows at cfg's K_max, tile grid and max_intersections, against
+    their plain versions, entry for entry: the whole frame with the cull,
+    without it, and the lower half of the tile rows as a band. Then the
+    kernels' times beside their bounds and the mask stage's (the cull's
+    whole walk: what the emit would cost again without the count stage's
+    ballots), the plain versions' times, and the launches counted. Exits
+    if any entry differs."""
+    import torch
+
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.ops.cuda import cull
+
+    kmax, ts, tiles_x = cfg.max_tiles_per_gaussian, cfg.tile_size, cfg.tiles_x
+    n_tiles, max_slots = cfg.num_tiles, cfg.max_intersections
+    depth_bits = binning.depth_bits_for(n_tiles)
+    kb = binning._kbits(binning.kmax_eff(cfg))
+    with torch.no_grad():
+        params = cull.cull_params(proj, cfg)
+        depth_q = binning._depth_q(proj.depth, depth_bits)
+    rows = params.shape[1]
+    half = (cfg.tiles_y // 2) * tiles_x
+    before = (cull.count_launches, cull.emit_launches)
+    out = {"rows": rows, "kmax": kmax, "max_slots": max_slots}
+    for name, cull_on, lo, hi in (("frame", True, 0, n_tiles),
+                                  ("no_cull", False, 0, n_tiles),
+                                  ("band", True, half, n_tiles)):
+        count_args = (kmax, ts, cull_on, tiles_x, lo, hi)
+        got = cull.cull_count_cuda(params, *count_args)
+        want, count_plain_ms = timed_once(
+            lambda: cull.cull_count_plain(params, *count_args))
+        offsets = (torch.cumsum(got[1], 0) - got[1]).to(torch.int32)
+        emit_args = (got[0], offsets, depth_q, kmax, tiles_x, lo, depth_bits,
+                     kb, max_slots, binning.SENTINEL_KEY)
+        egot = cull.cull_emit_cuda(params, *emit_args)
+        ewant, emit_plain_ms = timed_once(
+            lambda: cull.cull_emit_plain(params, *emit_args))
+        row = dict(kept=int(got[1].sum()),
+                   count_differ=[int((g != w).sum())
+                                 for g, w in zip(got, want)],
+                   emit_differ=[int((g != w).sum())
+                                for g, w in zip(egot, ewant)],
+                   count_plain_ms=count_plain_ms,
+                   emit_plain_ms=emit_plain_ms)
+        out[name] = row
+        del want, ewant
+        if name == "frame":
+            out["count_ms"] = cuda_ms(
+                lambda: cull.cull_count_cuda(params, *count_args), 20)
+            out["emit_ms"] = cuda_ms(
+                lambda: cull.cull_emit_cuda(params, *emit_args), 20)
+            out["mask_ms"] = cuda_ms(
+                lambda: cull.cull_mask_cuda(params, kmax, ts), 20)
+            out["count_bound_ms"], out["count_bound_by"] = cull_bound(
+                "count", rows, kmax)
+            out["emit_bound_ms"], out["emit_bound_by"] = emit_bound(
+                rows, kmax, min(row["kept"], max_slots))
+        del got, egot
+    # 2 calls of each stage per variant, 21 more of the frame's count and
+    # emit (cuda_ms warms up once).
+    out["launches"] = dict(count=cull.count_launches - before[0],
+                           emit=cull.emit_launches - before[1])
+    log(f"[K3 count/emit {tag}] {json.dumps(out)}")
+    if any(any(out[v]["count_differ"]) or any(out[v]["emit_differ"])
+           for v in ("frame", "no_cull", "band")):
+        raise SystemExit(f"K3 count/emit {tag}: kernel differs from the "
+                         "plain version")
+    if out["launches"] != {"count": 3 + 21, "emit": 3 + 21}:
+        raise SystemExit(f"K3 count/emit {tag}: launches {out['launches']}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def cull_nan_rows(params, rows_per_field: int = 64):
     """Hand-made K3 rows: the first rows of `params` whose walk bound is
     positive, each of the 10 parameters NaN in its own group of
@@ -978,8 +1070,9 @@ def check_segsum_layouts(dev) -> None:
 
 
 def launch_counts() -> dict:
-    """Each kernel's launch count, and K3's rank stage (the jumbo grid)
-    alone as "cull_rank"."""
+    """Each kernel's launch count, and K3's rank stage (the jumbo grid),
+    count and emit stages (the 'packed' binning) alone as "cull_rank",
+    "cull_count" and "cull_emit"."""
     from gsplat_tpu_torch.ops.cuda import cull, probes, raster, segsum
 
     mods = {"cull": cull, "raster": raster, "segsum": segsum, "probes": probes}
@@ -988,6 +1081,8 @@ def launch_counts() -> dict:
         mod, var = attr.split(".")
         out[name] = getattr(mods[mod], var)
     out["cull_rank"] = cull.rank_launches
+    out["cull_count"] = cull.count_launches
+    out["cull_emit"] = cull.emit_launches
     return out
 
 
@@ -995,6 +1090,7 @@ def reset_launch_counts() -> None:
     from gsplat_tpu_torch.ops.cuda import cull, probes, raster, segsum
 
     cull.launches = cull.rank_launches = 0
+    cull.count_launches = cull.emit_launches = 0
     raster.launches = raster.packed_launches = 0
     raster.bwd_launches = raster.bwd_packed_launches = 0
     segsum.launches = segsum.packed_launches = 0
@@ -1572,7 +1668,7 @@ def first_inputs(store: dict, module, name: str, want=None):
 
 def check_path_inputs(path: str, inputs: dict, expect: tuple) -> None:
     """The inputs that `path` gave the wrappers named in `expect` (K3's
-    compact and rank stages, K4, K5; kept by `first_inputs`) through the
+    stages, K4, K5; kept by `first_inputs`) through the
     kernels again and through the plain versions: K3 0 differing entries in
     every output; K4 and K5 `check_segsum`'s tolerances and a relaunch
     bit-identical.
@@ -1589,15 +1685,15 @@ def check_path_inputs(path: str, inputs: dict, expect: tuple) -> None:
             check_segsum(f"{path} kmax {kmax}", x, rows, kmax, time_it=False)
             continue
         stage = name[len("cull_"):-len("_cuda")]
-        params, kmax, ts = args
-        got = getattr(cull, name)(params, kmax, ts)
-        want = getattr(cull, f"cull_{stage}_plain")(params, kmax, ts)
+        got = getattr(cull, name)(*args)
+        want = getattr(cull, f"cull_{stage}_plain")(*args)
         if stage == "mask":
             got, want = (got,), (want,)
         differ = [int((g != w).sum()) for g, w in zip(got, want)]
-        log(f"[{path} K3 {stage}] {params.shape[1]} rows x K {kmax}: "
-            f"{int(got[-1].sum())} lanes kept; {differ} entries differ from "
-            "the plain version")
+        kept = int((got[1] >= 0).sum() if stage == "emit" else got[-1].sum())
+        log(f"[{path} K3 {stage}] {args[0].shape[1]} rows: {kept} "
+            f"{'slots written' if stage == 'emit' else 'lanes kept'}; "
+            f"{differ} entries differ from the plain version")
         if any(differ):
             raise SystemExit(f"{path}: K3's {stage} stage differs from the "
                              "plain version on the path's own inputs")
@@ -4144,6 +4240,7 @@ def config5_reference(dev, card: str, by_path: dict, out_dir: str) -> dict:
     import torch
 
     from gsplat_tpu_torch.ops.binning import depth_bits_for
+    from gsplat_tpu_torch.ops.projection import project_gaussians
     from gsplat_tpu_torch.render.pipeline import RENDER_GRAPHS, render_jit
 
     cfg = c5.config5_cfg()
@@ -4161,8 +4258,9 @@ def config5_reference(dev, card: str, by_path: dict, out_dir: str) -> dict:
         peak["render"] = peak_of(lambda: frames.extend(
             render_jit(scene, c, rcfg) for c in cams))
 
-    by_path["config5_single"] = drive("config5_single",
-                                      ("cull", "raster_fwd_packed"), path)
+    by_path["config5_single"] = drive(
+        "config5_single", ("cull", "cull_count", "cull_emit",
+                           "raster_fwd_packed"), path)
     ms = timed_calls(lambda i: render_jit(scene, cams[i % 4], rcfg), 4)
     os.makedirs(out_dir, exist_ok=True)
     for i, f in enumerate(frames):
@@ -4174,9 +4272,15 @@ def config5_reference(dev, card: str, by_path: dict, out_dir: str) -> dict:
     RENDER_GRAPHS.entries.clear()
     torch.cuda.empty_cache()
     tied = tied_pairs(scene, cams[0], rcfg)
+    # K3's count and emit stages at the scene's own size (N x K_max lanes).
+    with torch.no_grad():
+        proj = project_gaussians(scene, cams[0], rcfg)
+    stages = check_packed_stages(proj, rcfg, "config5 view 0")
+    del proj
     out = dict(single_intersections=single, capacity=cap, ms=ms,
                peak_bytes=peak["render"], tied_pairs_view0=tied,
-               intersections_view0=single[0], ranks=caps)
+               intersections_view0=single[0], ranks=caps,
+               packed_stages=stages)
     log(f"[config5 reference] {CONFIG5_N} Gaussians at {cfg.width}x"
         f"{cfg.height}, one device: intersections per view {single}, "
         f"render_jit at capacity {cap}: {ms} ms, peak {peak['render']} B; "
@@ -4201,8 +4305,8 @@ def rank_config5(rank: int, caps: dict, ref_dir: str) -> dict:
     reference render, ssim_weight 0). After: as many steps of the eager
     body from a second copy, bit-identical; 0 syncs per replay of the frame
     and the step; the kernels on the path's own inputs (every rank's
-    first K3 mask stage; rank 0's, whose band holds most of the fragments,
-    first K1 and K2 on one tile row of the merged packed16 stream and its
+    first K3 count and emit stages; rank 0's, whose band holds most of the
+    fragments, first K1 and K2 on one tile row of the merged packed16 stream and its
     first K5), and on rank 0 the frames against the single-device
     reference (>= GAUSS_RENDER_WITHIN of pixels within rtol 1e-3 / atol
     1e-4, PSNR >= 60 dB)."""
@@ -4240,7 +4344,8 @@ def rank_config5(rank: int, caps: dict, ref_dir: str) -> dict:
     @contextlib.contextmanager
     def keep_inputs():
         with contextlib.ExitStack() as keep:
-            keep.enter_context(first_inputs(inputs, cull, "cull_mask_cuda"))
+            for stage in ("cull_count_cuda", "cull_emit_cuda"):
+                keep.enter_context(first_inputs(inputs, cull, stage))
             if rank == 0:
                 keep.enter_context(first_inputs(
                     inputs, raster, "raster_tiles_cuda",
@@ -4299,7 +4404,7 @@ def rank_config5(rank: int, caps: dict, ref_dir: str) -> dict:
     torch.cuda.empty_cache()
 
     tag = f"config5 rank {rank}"
-    check_path_inputs(tag, inputs, ("cull_mask_cuda",) + (
+    check_path_inputs(tag, inputs, ("cull_count_cuda", "cull_emit_cuda") + (
         ("segmented_suffix_sum_packed_cuda",) if rank == 0 else ()))
     if rank == 0:
         out["blend_band"] = check_blend_band(tag + " merged", inputs)
@@ -4336,7 +4441,8 @@ def check_config5_ranks(card: str, by_path: dict, ref: dict,
     by_path["config5_ranks"] = check_counts(
         "config5_ranks", {k: v for k, v in counts.items()
                           if k != "collectives"},
-        ("cull", "raster_fwd_packed", "raster_bwd_packed", "segsum_packed"))
+        ("cull", "cull_count", "cull_emit", "raster_fwd_packed",
+         "raster_bwd_packed", "segsum_packed"))
     for r in res:
         row = {k: v for k, v in r.items() if k not in ("counts", "bad")}
         log(f"[config5 rank {r['rank']}] {json.dumps(row, default=str)}")
@@ -4635,7 +4741,11 @@ def run(dev) -> int:
     for stage, kernel, plain in (
             ("mask", cull.cull_mask_cuda, cull.cull_mask_plain),
             ("compact", cull.cull_compact_cuda, cull.cull_compact_plain),
-            ("rank", cull.cull_rank_cuda, cull.cull_rank_plain)):
+            ("rank", cull.cull_rank_cuda, cull.cull_rank_plain),
+            ("count", lambda *a: cull.cull_count_cuda(
+                *a, True, cfg.tiles_x, 0, cfg.num_tiles),
+             lambda *a: cull.cull_count_plain(
+                 *a, True, cfg.tiles_x, 0, cfg.num_tiles))):
         got, want = kernel(nan_rows, kmax, ts), plain(nan_rows, kmax, ts)
         if stage == "mask":
             got, want = (got,), (want,)
@@ -4649,6 +4759,9 @@ def run(dev) -> int:
     if any(any(d) for d in nan_differ.values()):
         raise SystemExit("K3 NaN rows: kernel differs from the plain version")
     del nan_rows
+    # K3's count and emit stages (the 'packed' binning) on the same rows.
+    kernels["cull"].update(packed_bench=check_packed_stages(proj, cfg,
+                                                            "bench"))
 
     # 4. K1 blend at the bench shape on the port's own binned stream: the
     # float32 stream and the packed4 stream of the same binning. The walk
@@ -5096,8 +5209,9 @@ def run(dev) -> int:
     check_config5(dev, card, by_path, kernels)
     log(f"[phase 21] {time.perf_counter() - t0:.1f} s")
 
-    kernels["cull"]["rank_launches_by_path"] = {
-        p: c["cull_rank"] for p, c in by_path.items()}
+    for stage in ("rank", "count", "emit"):
+        kernels["cull"][f"{stage}_launches_by_path"] = {
+            p: c[f"cull_{stage}"] for p, c in by_path.items()}
     for name in kernels:
         kernels[name]["launches_by_path"] = {p: c[name]
                                              for p, c in by_path.items()}

@@ -10,11 +10,27 @@
 // centre is inside, else the minimum over the 4 edges of the clamped 1-D
 // minimiser), and keeps the lane iff qmin <= tau and k < count. One row walk
 // serves three output stages (`Stage`):
-//   mask     the (N, kmax) bool mask (the 'packed' and 'sort' oracles);
+//   mask     the (N, kmax) bool mask (the 'sort' oracle);
 //   compact  compact_k (N, kmax) int32, each row's kept k ascending padded
 //            with kmax, and counts (N,) int32 (the base tiers);
 //   rank     the mask, krank (N, kmax) int32 = cumsum(mask, 1) - 1, and
 //            counts (the jumbo grid).
+// A copy of the walk in its own kernel, `cull_kernel_count`, is the count
+// stage: each row's kept lanes as ballot words, ballots (N, ceil(kmax / 32))
+// uint32 (bit k % 32 of word k / 32), and counts (N,) int32, the first half
+// of the 'packed' route; optionally without the cull (k < count alone, for
+// tile_culling=False), and keeping only the lanes whose tile id y * tiles_x
+// + x lies in [tile_lo, tile_hi) (a band of the sharded paths; the whole
+// grid else). Its own kernel leaves the three stages' code, and so their
+// instructions, as they were.
+// A second kernel, `cull_kernel_emit` (named under K3's prefix, as the
+// profiler's readers find K3), is the route's second half: it reads the
+// count stage's ballots, not the cull, and writes each kept lane at rank j
+// of row g into slot offsets[g] + j of a max_slots stream, if that is below
+// max_slots: key = (tile - tile_lo) << depth_bits | depth_q[g] (int64) and
+// gidk = g << kb | k (int32). The caller fills the stream first (with the
+// sentinel key, -1) and sorts it after; in lane order (Gaussian-major, k
+// ascending) the stable sort gives the ties of a stable sort of every lane.
 //
 // What bounds it on an H100: the bytes it writes. At the bench shape (N =
 // 1M, kmax = 64) the compact stage writes 256 MB of compact_k and 4 MB of
@@ -23,7 +39,16 @@
 // 2, pixel-rect offsets 8, inside test 4, four edges of 11, min and tests
 // 7; 5 per row: -b/a, -b/c, 2b). The mask stage writes kmax bytes a row,
 // the rank stage kmax bytes and 4 kmax bytes a row (152 MB on the jumbo
-// grid of 14,848 x 2048).
+// grid of 14,848 x 2048). The count stage writes only 4 + kmax / 8 bytes a
+// row, so the operations bound it: at bicycle's 6M x 64 = 384M lanes, 27
+// GFLOP, 0.40 ms at 67 TFLOP/s, against 288 MB (0.086 ms); it takes 0.92
+// ms, the mask stage's walk of the same lanes 0.67. The emit stage runs no
+// cull; the bytes bound it: 12 B a kept slot and 24 B a row of parameters,
+// offset and depth key read, 8 B of ballots (0.12 ms at bicycle's 17.1M
+// slots); 0.55 ms with the caller's fill. Keeping the ballots (48 MB at
+// bicycle) spares the emit a second walk of the cull, which alone costs
+// more than the whole emit (PERF.md, K3 count and emit; an H100 80GB HBM3
+// at 700 W).
 //
 // Design: a warp walks rows one after another, in chunks of 32 lanes
 // (consecutive k). The warp's lanes first load up to 32 rows' parameters
@@ -35,16 +60,22 @@
 // count of the earlier chunks plus the popcount of the ballot below it, so
 // the compact stage stores each kept k once at its place and fills the rest
 // of the row with kmax: the row sort, the where and the sum that read the
-// mask before are gone. Rows per warp: 32 at kmax 64 (the parameter loads
-// of a row are shared by 32 rows' walks), down to 1 at kmax 2048 (so the
-// jumbo grid still has a warp per row).
+// mask before are gone; the count stage stores the ballot itself (one word
+// a chunk, from lane 0), held to 64 registers as the mask stage is. Rows
+// per warp: 32 at kmax 64 (the parameter loads of a row are shared by 32
+// rows' walks), down to 1 at kmax 2048 (so the jumbo grid still has a warp
+// per row). The emit is a thread a row instead, walking its stored words'
+// set bits in k order: a row keeps about 3 of its 64 lanes at bicycle, and
+// a warp that shuffled each row's terms to 32 lanes to write them took
+// 0.84 ms where a thread a row takes 0.55.
 //
 // Exactness: every product, sum and quotient goes through __fmul_rn,
 // __fadd_rn, __fsub_rn and __fdiv_rn, which nvcc never contracts into FMAs,
 // in the operation order of the plain PyTorch version
 // (gsplat_tpu_torch/ops/cuda/cull.py::cull_mask_plain), so the kept lanes
-// equal the plain ones bit for bit; the compaction and the ranks are
-// integer counts. k div w is the plain version's floor((k + 0.5) / w); where
+// equal the plain ones bit for bit; the compaction, the ranks and the slots
+// are integer counts, and a tile id is y * tiles_x + x of the walk's
+// integral x and y. k div w is the plain version's floor((k + 0.5) / w); where
 // w is an integer in [1, 4096] and kmax <= 4096 it is the same integer by a
 // multiply with ceil(2^24 / w) (exact since k w < 2^24; both are pinned by
 // tests/test_torch_binning.py), else the f32 division itself. Minima and
@@ -225,6 +256,120 @@ __global__ void cull_kernel(const float* __restrict__ params, int64_t n,
   }
 }
 
+
+// The tile (tx, ty) of rect-walk index k of row q: the first steps of keep.
+__device__ __forceinline__ void walk_tile(const Row& q, int k, float& tx,
+                                          float& ty) {
+  const float kf = (float)k;
+  const float ky = q.magic
+      ? (float)__umulhi((uint32_t)k << 8, q.magic)
+      : floorf(__fdiv_rn(add(kf, 0.5f), q.w));
+  const float kx = sub(kf, mul(ky, q.w));
+  tx = add(q.x0, kx);
+  ty = add(q.y0, ky);
+}
+
+// The tile id y * tiles_x + x of a walk tile (integers, exact in float).
+__device__ __forceinline__ int tile_id(float tx, float ty, int tiles_x) {
+  return __float2int_rz(ty) * tiles_x + __float2int_rz(tx);
+}
+
+// The count stage: cull_kernel's row walk, without the cull on request,
+// keeping the lanes of the band's tiles and each chunk's ballot. Held to 64
+// registers (4 blocks of 256 threads an SM, as the mask stage gets).
+__global__ void __launch_bounds__(256, 4)
+    cull_kernel_count(const float* __restrict__ params, int64_t n, int kmax,
+                      float ts, int rows_per_warp, int cull, int tiles_x,
+                      int tile_lo, int tile_hi,
+                      uint32_t* __restrict__ ballots,
+                      int32_t* __restrict__ counts) {
+  const int lane = threadIdx.x & 31;
+  const int64_t r0 =
+      (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * rows_per_warp;
+  if (r0 >= n) return;  // the whole warp
+  const int rows = (int)(n - r0 < rows_per_warp ? n - r0 : rows_per_warp);
+  Row mine = {};
+  if (lane < rows) mine = load_row(params, n, r0 + lane, kmax);
+  const float ts1 = sub(ts, 1.0f);
+  const int chunks = (kmax + 31) >> 5;
+
+  for (int j = 0; j < rows; ++j) {
+    const Row q = shfl_row(mine, j);
+    int carry = 0;  // kept lanes of the row
+    for (int c = 0; c < chunks; ++c) {
+      const int k = (c << 5) + lane;
+      bool kept = (float)(c << 5) < q.count && k < kmax &&
+                  (cull ? keep(q, k, ts, ts1) : (float)k < q.count);
+      if (kept) {
+        float tx, ty;
+        walk_tile(q, k, tx, ty);
+        const int t = tile_id(tx, ty, tiles_x);
+        kept = t >= tile_lo && t < tile_hi;
+      }
+      const unsigned ballot = __ballot_sync(kFull, kept);
+      if (lane == 0) ballots[(r0 + j) * chunks + c] = ballot;
+      carry += __popc(ballot);
+    }
+    if (lane == 0) counts[r0 + j] = carry;
+  }
+}
+
+// The 'packed' route's emit: a thread a row, which walks the set bits of
+// its ballot words in k order; its slot starts at the row's offset and
+// steps by one a kept lane. No shuffles: every row is its own thread.
+__global__ void cull_kernel_emit(const float* __restrict__ params,
+                                 const uint32_t* __restrict__ ballots,
+                                 const int32_t* __restrict__ offsets,
+                                 const int64_t* __restrict__ depth_q,
+                                 int64_t n, int kmax, int tiles_x,
+                                 int tile_lo, int depth_bits, int kb,
+                                 int64_t max_slots,
+                                 int64_t* __restrict__ keys,
+                                 int32_t* __restrict__ gidk) {
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= n) return;
+  const int chunks = (kmax + 31) >> 5;
+  Row q;
+  q.x0 = params[R_X0 * n + g];
+  q.y0 = params[R_Y0 * n + g];
+  q.w = params[R_W * n + g];
+  // ceil(2^24 / w) for an integral w, as load_row computes it.
+  const bool int_w = q.w >= 1.f && q.w <= (float)kMagicLimit &&
+                     q.w == floorf(q.w) && kmax <= kMagicLimit;
+  const uint32_t w = int_w ? (uint32_t)q.w : 1u;
+  q.magic = int_w ? ((1u << 24) + w - 1u) / w : 0u;
+  const int64_t dq = depth_q[g];
+  int64_t slot = offsets[g];
+  for (int c = 0; c < chunks; ++c) {
+    uint32_t ballot = ballots[g * chunks + c];
+    for (; ballot != 0u && slot < max_slots; ++slot) {
+      const int k = (c << 5) + __ffs(ballot) - 1;
+      ballot &= ballot - 1u;
+      float tx, ty;
+      walk_tile(q, k, tx, ty);
+      const int64_t t = tile_id(tx, ty, tiles_x) - tile_lo;
+      keys[slot] = (t << depth_bits) | dq;
+      gidk[slot] = (int32_t)((g << kb) | k);
+    }
+  }
+}
+
+// Warps of the row walk: rows per warp 32 at kmax 64 (the parameter loads
+// of a row are shared by 32 rows' walks), down to 1 at kmax 2048 (so the
+// jumbo grid still has a warp per row); 256 threads a block.
+constexpr int kThreads = 256;
+
+__host__ int walk_rows_per_warp(int kmax) {
+  const int chunks = (kmax + 31) / 32;
+  const int r = 64 / chunks;
+  return r < 1 ? 1 : r > 32 ? 32 : r;
+}
+
+__host__ unsigned walk_blocks(int64_t n, int rows_per_warp) {
+  const int64_t warps = (n + rows_per_warp - 1) / rows_per_warp;
+  return (unsigned)((warps * 32 + kThreads - 1) / kThreads);
+}
+
 }  // namespace
 
 extern "C" int gsplat_cull(const float* params, int64_t n, int kmax,
@@ -232,22 +377,46 @@ extern "C" int gsplat_cull(const float* params, int64_t n, int kmax,
                            int32_t* idx, int32_t* counts, void* stream) {
   if (stage < kMask || stage > kRank) return (int)cudaErrorInvalidValue;
   if (n > 0 && kmax > 0) {
-    const int chunks = (kmax + 31) / 32;
-    int rows_per_warp = 64 / chunks;
-    rows_per_warp = rows_per_warp < 1 ? 1 : rows_per_warp > 32 ? 32 : rows_per_warp;
-    const int threads = 256;
-    const int64_t warps = (n + rows_per_warp - 1) / rows_per_warp;
-    const int64_t blocks = (warps * 32 + threads - 1) / threads;
+    const int rows_per_warp = walk_rows_per_warp(kmax);
+    const unsigned blocks = walk_blocks(n, rows_per_warp);
     cudaStream_t s = (cudaStream_t)stream;
     if (stage == kMask)
-      cull_kernel<kMask><<<(unsigned)blocks, threads, 0, s>>>(
+      cull_kernel<kMask><<<blocks, kThreads, 0, s>>>(
           params, n, kmax, tile_size, rows_per_warp, mask, idx, counts);
     else if (stage == kCompact)
-      cull_kernel<kCompact><<<(unsigned)blocks, threads, 0, s>>>(
+      cull_kernel<kCompact><<<blocks, kThreads, 0, s>>>(
           params, n, kmax, tile_size, rows_per_warp, mask, idx, counts);
     else
-      cull_kernel<kRank><<<(unsigned)blocks, threads, 0, s>>>(
+      cull_kernel<kRank><<<blocks, kThreads, 0, s>>>(
           params, n, kmax, tile_size, rows_per_warp, mask, idx, counts);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gsplat_cull_count(const float* params, int64_t n, int kmax,
+                                 float tile_size, int cull, int tiles_x,
+                                 int tile_lo, int tile_hi, uint32_t* ballots,
+                                 int32_t* counts, void* stream) {
+  if (n > 0 && kmax > 0) {
+    const int rows_per_warp = walk_rows_per_warp(kmax);
+    cull_kernel_count<<<walk_blocks(n, rows_per_warp), kThreads, 0,
+                        (cudaStream_t)stream>>>(
+        params, n, kmax, tile_size, rows_per_warp, cull, tiles_x, tile_lo,
+        tile_hi, ballots, counts);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gsplat_cull_emit(const float* params, const uint32_t* ballots,
+                                const int32_t* offsets, const int64_t* depth_q,
+                                int64_t n, int kmax, int tiles_x, int tile_lo,
+                                int depth_bits, int kb, int64_t max_slots,
+                                int64_t* keys, int32_t* gidk, void* stream) {
+  if (n > 0 && kmax > 0 && max_slots > 0) {
+    cull_kernel_emit<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads,
+                       0, (cudaStream_t)stream>>>(
+        params, ballots, offsets, depth_q, n, kmax, tiles_x, tile_lo,
+        depth_bits, kb, max_slots, keys, gidk);
   }
   return (int)cudaGetLastError();
 }

@@ -18,6 +18,16 @@ from the JAX package:
   - Sorts are `torch.sort` and ranges `torch.searchsorted`: plain XLA ops
     in the JAX package, library calls here. The key sort is stable, so that
     ties keep the candidates' order.
+  - `'packed'` compacts before it sorts: K3's count stage counts each
+    Gaussian's surviving candidates, an exclusive scan gives their offsets,
+    and its emit stage writes the (key, gidk) pairs in candidate order
+    (Gaussian-major, k ascending) into the max_intersections slots, so the
+    stable sort orders max_intersections keys where the JAX package sorts
+    the whole (N, K_max) lane grid. Without capacity overflow the stream is
+    the JAX package's, tie for tie. On overflow the flag and the total are
+    the same, but the slots kept are the first max_intersections
+    candidates in Gaussian order, where the JAX package keeps the lowest
+    keys.
   - The gather backward's strategies 'variadic', 'permute' and 'c64' are
     one code path here (see `_GatherSlots`), and so are its segment sums
     'doubling' and 'pallas' (see `gather_slots_bwd`).
@@ -52,6 +62,8 @@ from gsplat_tpu_torch.config import RenderConfig
 from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs
 from gsplat_tpu_torch.ops.cuda.cull import (
     cull_compact_from_params,
+    cull_count_from_params,
+    cull_emit_from_params,
     cull_params,
     cull_rank_from_params,
     rank_from_mask,
@@ -396,6 +408,34 @@ def _jumbo_candidates(proj: ProjectedGaussians, cfg: RenderConfig, rect_w,
     return key_l, gidk_l, total, overflow, counts
 
 
+def _packed_candidates(proj: ProjectedGaussians, cfg: RenderConfig,
+                       n_local: int, tile_start: int | None = None):
+    """binning='packed': the surviving candidates, compacted before the
+    sort. K3's count stage counts each Gaussian's candidates (the exact cull
+    when enabled, else k < counts; with tile_start only the tiles
+    [tile_start, tile_start + n_local)), an exclusive scan gives each its
+    offset, and K3's emit stage writes them in candidate order into the
+    first of cfg.max_intersections slots: key = local tile << depth_bits |
+    depth_q, gidk = gid << kbits | k; the rest SENTINEL_KEY and -1, and
+    candidates past the slots dropped.
+
+    Returns (key (max_I,) int64, gidk (max_I,) int32, counts (N,) int32,
+    offsets (N,) int32)."""
+    kmax = cfg.max_tiles_per_gaussian
+    depth_bits = _check_depth_bits(cfg.num_tiles)
+    t0 = tile_start or 0
+    params = cull_params(proj, cfg)
+    ballots, counts = cull_count_from_params(
+        params, kmax, cfg.tile_size, cfg.tile_culling, cfg.tiles_x, t0,
+        t0 + n_local)
+    offsets = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    key, gidk = cull_emit_from_params(
+        params, ballots, offsets, _depth_q(proj.depth, depth_bits), kmax,
+        cfg.tiles_x, t0, depth_bits, _kbits(kmax_eff(cfg)),
+        cfg.max_intersections, SENTINEL_KEY)
+    return key, gidk, counts, offsets
+
+
 def _candidate_tiles(proj: ProjectedGaussians, cfg: RenderConfig,
                      n_local: int, tile_start: int | None = None):
     """Every Gaussian's K_max candidate (tile, gid << kbits | k), row-major
@@ -500,12 +540,17 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig,
             f"{1 << kb} and N < {n_cap} (got K_max {kmax}, N {n})"
         )
 
+    pool_ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    offsets = None
     if cfg.binning == "tiered":
         key, gidk, total, pool_ovf, gcounts = _tiered_candidates(
             proj, cfg, n_tiles, tile_start)
+    elif cfg.binning == "packed":
+        key, gidk, gcounts, offsets = _packed_candidates(
+            proj, cfg, n_tiles, tile_start)
+        total = gcounts.sum(dtype=torch.int32)
     else:
         tile, gidk, valid = _candidate_tiles(proj, cfg, n_tiles, tile_start)
-        pool_ovf = torch.zeros((), dtype=torch.bool, device=dev)
         gcounts = valid.sum(dim=1, dtype=torch.int32)
         total = gcounts.sum(dtype=torch.int32)
         gidk = gidk.reshape(-1)
@@ -524,11 +569,6 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig,
         s_tile = tile[order]
         keys_sorted = depth.numel()
     else:
-        if cfg.binning == "packed":
-            key = pack_tile_depth_key(
-                tile, proj.depth[:, None].expand(tile.shape), cfg.num_tiles
-            )
-            key = torch.where(valid, key, SENTINEL_KEY).reshape(-1)
         order = torch.sort(key, stable=True).indices[:max_i]
         keys_sorted = key.numel()
         s_tile = torch.clamp_max(
@@ -548,6 +588,8 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig,
             s_tile, s_gid, ranges, max_i, n_tiles, cfg.stream_align, s_gidk)
         overflow = overflow | (total_padded > max_i)
 
+    if offsets is None:
+        offsets = (torch.cumsum(gcounts, 0) - gcounts).to(torch.int32)
     return BinnedGaussians(
         sorted_tile=s_tile,
         sorted_gid=s_gid,
@@ -556,7 +598,7 @@ def bin_gaussians(proj: ProjectedGaussians, cfg: RenderConfig,
         overflow=overflow,
         sorted_gidk=s_gidk,
         gauss_counts=gcounts,
-        gauss_offsets=(torch.cumsum(gcounts, 0) - gcounts).to(torch.int32),
+        gauss_offsets=offsets,
         keys_sorted=keys_sorted,
     )
 

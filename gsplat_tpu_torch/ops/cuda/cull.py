@@ -1,5 +1,5 @@
 """K3, the exact ellipse-tile cull: CUDA kernel `csrc/cull.cu` and its plain
-PyTorch versions, for each of the kernel's three output stages.
+PyTorch versions, for each of the kernel's output stages.
 
 Replaces `gsplat_tpu/ops/pallas/cull.py::_cull_kernel` and, in the compact
 stage, the row sort of the JAX package's tiered binning
@@ -15,10 +15,20 @@ into FMAs, so the two agree bit for bit. The stages:
   - compact: each row's kept k ascending padded with kmax, (R, kmax) int32,
     and the kept counts (R,) int32 (`cull_compact_*`: the base tiers);
   - rank: the mask, krank = cumsum(mask, 1) - 1 (R, kmax) int32, and the
-    counts (`cull_rank_*`: the jumbo grid).
+    counts (`cull_rank_*`: the jumbo grid);
+  - count: each row's kept lanes as ballot words (R, ceil(kmax / 32)) int32
+    (bit k % 32 of word k // 32) and the counts (`cull_count_*`: the first
+    half of the 'packed' binning), with or without the cull, keeping only
+    the lanes whose tile lies in [tile_lo, tile_hi);
+  - emit: from those ballots and the rows' exclusive offsets, each kept
+    lane's (tile, depth) key and gid << kb | k at slot offset + rank of a
+    stream of max_slots, the rest the sentinel key and -1 (`cull_emit_*`:
+    the second half; no cull, no walk past the kept lanes).
 
 The plain compact and rank versions are the mask followed by the torch ops
-the kernel's stage replaces (`compact_from_mask`, `rank_from_mask`).
+the kernel's stage replaces (`compact_from_mask`, `rank_from_mask`); the
+plain count and emit are the mask, the band and the scatter written out
+(`ballots_from_mask`, `mask_from_ballots`, `walk_tiles`).
 """
 
 from __future__ import annotations
@@ -37,11 +47,16 @@ NUM_ROWS = 10
 # The kernel's `stage` argument (csrc/cull.cu, Stage).
 STAGES = {"mask": 0, "compact": 1, "rank": 2}
 
-# Kernel launches, every stage: `_launch` adds one per launch, nowhere else;
-# `rank_launches` the same for the rank stage alone (the jumbo grid).
+# Kernel launches, every stage: the CUDA wrappers add one per launch,
+# nowhere else; `rank_launches`, `count_launches` and `emit_launches` the
+# same for the rank stage alone (the jumbo grid) and for the 'packed'
+# route's count and emit stages.
 launches = 0
 rank_launches = 0
-counters.register(__name__, "launches", "rank_launches")
+count_launches = 0
+emit_launches = 0
+counters.register(__name__, "launches", "rank_launches", "count_launches",
+                  "emit_launches")
 
 
 def cull_params(proj, cfg: RenderConfig, counts=None) -> torch.Tensor:
@@ -141,10 +156,77 @@ def cull_rank_plain(params: torch.Tensor, kmax: int, tile_size: int):
     return rank_from_mask(cull_mask_plain(params, kmax, tile_size))
 
 
-def _launch(params: torch.Tensor, kmax: int, tile_size: int, stage: str):
-    """Launch the kernel's `stage` on (10, R) rows: its outputs as the
-    plain version of that stage returns them."""
-    global launches, rank_launches
+def walk_tiles(params: torch.Tensor, kmax: int, tiles_x: int) -> torch.Tensor:
+    """(10, R) rows -> (R, kmax) int32 tile id y * tiles_x + x of every lane
+    of the rect walk (meaningful where the lane is within the walk)."""
+    k = torch.arange(kmax, dtype=torch.float32, device=params.device)[None, :]
+    w = params[R_W][:, None]
+    ky = torch.floor((k + 0.5) / w)
+    kx = k - ky * w
+    return ((params[R_Y0][:, None] + ky).to(torch.int32) * tiles_x
+            + (params[R_X0][:, None] + kx).to(torch.int32))
+
+
+def ballots_from_mask(mask: torch.Tensor) -> torch.Tensor:
+    """(R, kmax) bool -> (R, ceil(kmax / 32)) int32 ballot words, bit k % 32
+    of word k // 32."""
+    r, kmax = mask.shape
+    chunks = (kmax + 31) // 32
+    bits = torch.nn.functional.pad(mask, (0, 32 * chunks - kmax)).view(
+        r, chunks, 32).to(torch.int64)
+    shift = torch.arange(32, dtype=torch.int64, device=mask.device)
+    words = (bits << shift).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(
+        torch.int32)
+
+
+def mask_from_ballots(ballots: torch.Tensor, kmax: int) -> torch.Tensor:
+    """The inverse of `ballots_from_mask`: (R, kmax) bool."""
+    shift = torch.arange(32, dtype=torch.int32, device=ballots.device)
+    bits = (ballots[:, :, None] >> shift) & 1
+    return bits.reshape(ballots.shape[0], -1)[:, :kmax].bool()
+
+
+def cull_count_plain(params: torch.Tensor, kmax: int, tile_size: int,
+                     cull: bool, tiles_x: int, tile_lo: int, tile_hi: int):
+    """(10, R) rows -> (ballots (R, ceil(kmax / 32)) int32, counts (R,)
+    int32) of the lanes kept by the cull (or, without it, k < count) whose
+    tile lies in [tile_lo, tile_hi)."""
+    if cull:
+        mask = cull_mask_plain(params, kmax, tile_size)
+    else:
+        k = torch.arange(kmax, dtype=torch.float32, device=params.device)
+        mask = k[None, :] < params[R_COUNT][:, None]
+    tile = walk_tiles(params, kmax, tiles_x)
+    mask = mask & (tile >= tile_lo) & (tile < tile_hi)
+    return ballots_from_mask(mask), mask.sum(dim=1, dtype=torch.int32)
+
+
+def cull_emit_plain(params: torch.Tensor, ballots: torch.Tensor,
+                    offsets: torch.Tensor, depth_q: torch.Tensor, kmax: int,
+                    tiles_x: int, tile_lo: int, depth_bits: int, kb: int,
+                    max_slots: int, sentinel: int):
+    """The kept lanes of `ballots` at slots offsets + rank (those below
+    max_slots): (keys (max_slots,) int64 = (tile - tile_lo) << depth_bits |
+    depth_q, gidk (max_slots,) int32 = row << kb | k); the sentinel and -1
+    elsewhere."""
+    r, dev = params.shape[1], params.device
+    mask = mask_from_ballots(ballots, kmax)
+    slot = (offsets.to(torch.int64)[:, None]
+            + torch.cumsum(mask, dim=1, dtype=torch.int64) - 1)
+    mask = mask & (slot < max_slots)
+    tile = (walk_tiles(params, kmax, tiles_x) - tile_lo).to(torch.int64)
+    key = (tile << depth_bits) | depth_q[:, None]
+    gidk = ((torch.arange(r, dtype=torch.int64, device=dev)[:, None] << kb)
+            | torch.arange(kmax, dtype=torch.int64, device=dev)).to(torch.int32)
+    keys = torch.full((max_slots,), sentinel, dtype=torch.int64, device=dev)
+    out_gidk = torch.full((max_slots,), -1, dtype=torch.int32, device=dev)
+    keys[slot[mask]] = key[mask]
+    out_gidk[slot[mask]] = gidk[mask]
+    return keys, out_gidk
+
+
+def _check_params(params: torch.Tensor) -> None:
     if params.device.type != "cuda":
         raise ValueError(f"cull: the kernel needs a CUDA device, got "
                          f"{params.device}")
@@ -154,6 +236,20 @@ def _launch(params: torch.Tensor, kmax: int, tile_size: int, stage: str):
             "cull: params must be a contiguous (10, R) float32 tensor, got "
             f"{tuple(params.shape)} {params.dtype}"
         )
+
+
+def _function(name: str, argtypes: list):
+    fn = getattr(_build.load("cull"), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(params: torch.Tensor, kmax: int, tile_size: int, stage: str):
+    """Launch the kernel's `stage` on (10, R) rows: its outputs as the
+    plain version of that stage returns them."""
+    global launches, rank_launches
+    _check_params(params)
     r, dev = params.shape[1], params.device
     mask = idx = counts = None
     if stage != "compact":
@@ -161,12 +257,10 @@ def _launch(params: torch.Tensor, kmax: int, tile_size: int, stage: str):
     if stage != "mask":
         idx = torch.empty((r, kmax), dtype=torch.int32, device=dev)
         counts = torch.empty((r,), dtype=torch.int32, device=dev)
-    lib = _build.load("cull")
-    fn = lib.gsplat_cull
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _function("gsplat_cull", [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p])
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(params.data_ptr(), r, kmax, float(tile_size), STAGES[stage],
@@ -195,13 +289,71 @@ def cull_rank_cuda(params: torch.Tensor, kmax: int, tile_size: int):
     return _launch(params, kmax, tile_size, "rank")
 
 
-def _dispatch(plain, cuda, params, kmax, tile_size):
+def cull_count_cuda(params: torch.Tensor, kmax: int, tile_size: int,
+                    cull: bool, tiles_x: int, tile_lo: int, tile_hi: int):
+    """The count stage: (10, R) rows -> (ballots, counts)."""
+    global launches, count_launches
+    _check_params(params)
+    r, dev = params.shape[1], params.device
+    ballots = torch.empty((r, (kmax + 31) // 32), dtype=torch.int32,
+                          device=dev)
+    counts = torch.empty((r,), dtype=torch.int32, device=dev)
+    fn = _function("gsplat_cull_count", [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(params.data_ptr(), r, kmax, float(tile_size), int(cull),
+                 tiles_x, tile_lo, tile_hi, ballots.data_ptr(),
+                 counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "gsplat_cull_count")
+    launches += 1
+    count_launches += 1
+    return ballots, counts
+
+
+def cull_emit_cuda(params: torch.Tensor, ballots: torch.Tensor,
+                   offsets: torch.Tensor, depth_q: torch.Tensor, kmax: int,
+                   tiles_x: int, tile_lo: int, depth_bits: int, kb: int,
+                   max_slots: int, sentinel: int):
+    """The emit stage: the count stage's ballots -> (keys, gidk)."""
+    global launches, emit_launches
+    _check_params(params)
+    r, dev = params.shape[1], params.device
+    for name, t, dtype, shape in (
+            ("ballots", ballots, torch.int32, (r, (kmax + 31) // 32)),
+            ("offsets", offsets, torch.int32, (r,)),
+            ("depth_q", depth_q, torch.int64, (r,))):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"cull emit: {name} must be a contiguous {shape} {dtype} "
+                f"tensor on {dev}, got {tuple(t.shape)} {t.dtype} {t.device}")
+    keys = torch.full((max_slots,), sentinel, dtype=torch.int64, device=dev)
+    gidk = torch.full((max_slots,), -1, dtype=torch.int32, device=dev)
+    fn = _function("gsplat_cull_emit", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(params.data_ptr(), ballots.data_ptr(), offsets.data_ptr(),
+                 depth_q.data_ptr(), r, kmax, tiles_x, tile_lo, depth_bits,
+                 kb, max_slots, keys.data_ptr(), gidk.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "gsplat_cull_emit")
+    launches += 1
+    emit_launches += 1
+    return keys, gidk
+
+
+def _dispatch(plain, cuda, params, *args):
     """The CUDA kernel for a CUDA tensor, the plain version for a CPU
     tensor."""
     if params.device.type == "cpu":
-        return plain(params, kmax, tile_size)
+        return plain(params, *args)
     if params.device.type == "cuda":
-        return cuda(params, kmax, tile_size)
+        return cuda(params, *args)
     raise ValueError(f"cull: unsupported device {params.device}")
 
 
@@ -220,6 +372,27 @@ def cull_compact_from_params(params: torch.Tensor, kmax: int, tile_size: int):
 def cull_rank_from_params(params: torch.Tensor, kmax: int, tile_size: int):
     """(10, R) rows -> (mask, krank (R, kmax) int32, counts (R,) int32)."""
     return _dispatch(cull_rank_plain, cull_rank_cuda, params, kmax, tile_size)
+
+
+def cull_count_from_params(params: torch.Tensor, kmax: int, tile_size: int,
+                           cull: bool, tiles_x: int, tile_lo: int,
+                           tile_hi: int):
+    """(10, R) rows -> (ballots (R, ceil(kmax / 32)) int32, counts (R,)
+    int32): the count stage."""
+    return _dispatch(cull_count_plain, cull_count_cuda, params, kmax,
+                     tile_size, cull, tiles_x, tile_lo, tile_hi)
+
+
+def cull_emit_from_params(params: torch.Tensor, ballots: torch.Tensor,
+                          offsets: torch.Tensor, depth_q: torch.Tensor,
+                          kmax: int, tiles_x: int, tile_lo: int,
+                          depth_bits: int, kb: int, max_slots: int,
+                          sentinel: int):
+    """The count stage's ballots -> (keys (max_slots,) int64, gidk
+    (max_slots,) int32): the emit stage."""
+    return _dispatch(cull_emit_plain, cull_emit_cuda, params, ballots,
+                     offsets, depth_q, kmax, tiles_x, tile_lo, depth_bits,
+                     kb, max_slots, sentinel)
 
 
 def tile_cull_mask(proj, cfg: RenderConfig) -> torch.Tensor:

@@ -426,3 +426,190 @@ def test_align_stream_matches_jax(max_i):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
     assert (int(got[3]) > max_i) == (max_i == 200)
+
+
+def dense_packed(proj, cfg, tile_start=None, n_local=None):
+    """The packed route as the lane grid: every Gaussian's K_max rect-walk
+    candidates (N, K_max), int64 keys with SENTINEL_KEY where the cull or
+    the band drops a lane, one stable sort of all N * K_max keys, its first
+    max_intersections kept."""
+    max_i = cfg.max_intersections
+    n_tiles = cfg.num_tiles if n_local is None else n_local
+    kb = tbin._kbits(tbin.kmax_eff(cfg))
+    tile, gidk, valid = tbin._candidate_tiles(proj, cfg, n_tiles, tile_start)
+    counts = valid.sum(dim=1, dtype=torch.int32)
+    total = counts.sum(dtype=torch.int32)
+    key = tbin.pack_tile_depth_key(
+        tile, proj.depth[:, None].expand(tile.shape), cfg.num_tiles)
+    key = torch.where(valid, key, tbin.SENTINEL_KEY).reshape(-1)
+    order = torch.sort(key, stable=True).indices[:max_i]
+    s_tile = torch.clamp_max(key[order] >> tbin.depth_bits_for(cfg.num_tiles),
+                             n_tiles).to(torch.int32)
+    s_gidk = gidk.reshape(-1)[order]
+    s_gidk = torch.where(s_tile < n_tiles, s_gidk, -1)
+    return tbin.BinnedGaussians(
+        sorted_tile=s_tile,
+        sorted_gid=torch.where(s_gidk >= 0, s_gidk >> kb, 0),
+        ranges=tbin._tile_ranges(s_tile, n_tiles),
+        num_intersections=total,
+        overflow=proj.overflow | (total > max_i),
+        sorted_gidk=s_gidk,
+        gauss_counts=counts,
+        gauss_offsets=(torch.cumsum(counts, 0) - counts).to(torch.int32),
+        keys_sorted=key.numel(),
+    ), valid
+
+
+BINNED_FIELDS = ("sorted_tile", "sorted_gid", "ranges", "num_intersections",
+                 "overflow", "sorted_gidk", "gauss_counts", "gauss_offsets")
+
+
+@pytest.mark.parametrize("band,bands", [(None, 1), (0, 4), (2, 4), (1, 2)])
+@pytest.mark.parametrize("tile_culling", [True, False])
+def test_packed_binning_equals_the_dense_lane_grid(tile_culling, band, bands):
+    """The packed route (K3's count stage, the exclusive scan, its emit
+    stage, a stable sort of max_intersections slots) equals the stable sort
+    of the whole (N, K_max) lane grid bit for bit in every field, on the
+    full frame and on the bands of the sharded paths, with the cull and
+    without: kept lanes in candidate order tie as the grid's lanes do.
+    Depths rounded to quarters make many keys tie."""
+    kw = dict(BASE, binning="packed", tile_culling=tile_culling)
+    proj, cfg, _, _ = both(kw, scale_shift=0.5)
+    proj = dataclasses.replace(proj, depth=torch.round(proj.depth * 4) / 4)
+    if band is None:
+        args = {}
+    else:
+        n_local = cfg.num_tiles // bands
+        args = dict(tile_start=band * n_local, num_local_tiles=n_local)
+    got = tbin.bin_gaussians(proj, cfg, **args)
+    want, _ = dense_packed(proj, cfg, args.get("tile_start"),
+                           args.get("num_local_tiles"))
+    assert not bool(got.overflow) and int(got.num_intersections) > 0
+    for f in BINNED_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.dtype == w.dtype and torch.equal(g, w), f
+    assert got.keys_sorted == cfg.max_intersections < want.keys_sorted
+    # Tied keys occur, so the tie order is tested, not vacuous.
+    key = tbin.pack_tile_depth_key(got.sorted_tile, proj.depth[
+        got.sorted_gid.long()], cfg.num_tiles)[:int(got.num_intersections)]
+    assert int((key[1:] == key[:-1]).sum()) > 10
+
+
+def test_packed_capacity_overflow_keeps_the_first_candidates():
+    """A stream too small for the candidates: overflow and the total as the
+    lane grid's and the JAX package's; the slots kept are the first
+    max_intersections candidates in Gaussian order (the grid keeps the
+    lowest keys), distinct, valid, and in (tile, depth) order."""
+    kw = dict(BASE, binning="packed", max_intersections=64)
+    proj, cfg, jproj, jcfg = both(kw, scale_shift=0.5)
+    got = tbin.bin_gaussians(proj, cfg)
+    want, valid = dense_packed(proj, cfg)
+    jb = jbin.bin_gaussians(jproj, jcfg)
+    assert bool(got.overflow) and bool(want.overflow) and bool(jb.overflow)
+    assert int(got.num_intersections) == int(want.num_intersections) == \
+        int(jb.num_intersections) > 64
+    for f in ("gauss_counts", "gauss_offsets"):
+        assert torch.equal(getattr(got, f), getattr(want, f))
+    kb = tbin._kbits(tbin.kmax_eff(cfg))
+    n, kmax = valid.shape
+    lanes = (torch.arange(n)[:, None] << kb) | torch.arange(kmax)
+    first = lanes[valid][:64]            # row-major: candidate order
+    assert torch.equal(torch.sort(got.sorted_gidk).values,
+                       torch.sort(first.to(torch.int32)).values)
+    assert bool((got.sorted_tile < cfg.num_tiles).all())
+    key = tbin.pack_tile_depth_key(got.sorted_tile,
+                                   proj.depth[got.sorted_gid.long()],
+                                   cfg.num_tiles)
+    assert bool((key[1:] >= key[:-1]).all())
+    assert int(got.ranges[-1]) == 64
+    assert not torch.equal(got.sorted_gidk, want.sorted_gidk)
+
+
+def random_cull_rows(n, kmax, seed):
+    """(10, n) K3 parameter rows of random splats on a 12 x 10 tile grid of
+    8-pixel tiles: rects inside the grid, walk bounds up to kmax."""
+    rng = np.random.default_rng(seed)
+    p = np.zeros((cull.NUM_ROWS, n), np.float32)
+    w = rng.integers(1, 12, n)
+    h = rng.integers(1, 10, n)
+    x0 = rng.integers(0, 12 - w + 1)
+    y0 = rng.integers(0, 10 - h + 1)
+    p[cull.R_GX] = (x0 + w * rng.uniform(0, 1, n)) * 8
+    p[cull.R_GY] = (y0 + h * rng.uniform(0, 1, n)) * 8
+    p[cull.R_A], p[cull.R_C] = rng.uniform(1e-3, 5e-2, (2, n))
+    p[cull.R_B] = rng.uniform(-5e-3, 5e-3, n)
+    p[cull.R_TAU] = rng.uniform(-1.0, 8.0, n)
+    p[cull.R_X0], p[cull.R_Y0], p[cull.R_W] = x0, y0, w
+    p[cull.R_COUNT] = np.minimum(w * h, kmax)
+    return torch.from_numpy(p)
+
+
+@pytest.mark.parametrize("cull_on", [True, False])
+@pytest.mark.parametrize("kmax", [16, 64, 100])
+def test_count_and_emit_stages_plain(kmax, cull_on):
+    """The plain count and emit stages (what K3's count and emit stages are
+    held to on the card) against the mask, a cumsum and a loop over the
+    rows: ballots, counts, and every slot's key and gidk, with a band and a
+    stream that cuts the last rows."""
+    tiles_x, ts, depth_bits, kb = 12, 8, 24, 7
+    params = random_cull_rows(300, kmax, seed=kmax)
+    tile_lo, tile_hi = 24, 96
+    ballots, counts = cull.cull_count_plain(params, kmax, ts, cull_on,
+                                            tiles_x, tile_lo, tile_hi)
+    k = np.arange(kmax)
+    w = params[cull.R_W].numpy().astype(np.int64)
+    x0 = params[cull.R_X0].numpy().astype(np.int64)
+    y0 = params[cull.R_Y0].numpy().astype(np.int64)
+    tile = (y0[:, None] + k // w[:, None]) * tiles_x + x0[:, None] \
+        + k % w[:, None]
+    if cull_on:
+        mask = cull.cull_mask_plain(params, kmax, ts).numpy()
+    else:
+        mask = k[None, :] < params[cull.R_COUNT].numpy()[:, None]
+    mask = mask & (tile >= tile_lo) & (tile < tile_hi)
+    assert 0 < mask.sum() < mask[:, 0].size * kmax
+    np.testing.assert_array_equal(cull.mask_from_ballots(ballots, kmax)
+                                  .numpy(), mask)
+    np.testing.assert_array_equal(counts.numpy(), mask.sum(1))
+    assert ballots.shape == (300, (kmax + 31) // 32)
+    assert torch.equal(cull.ballots_from_mask(torch.from_numpy(mask)),
+                       ballots)
+    offsets = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    depth_q = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 1 << depth_bits, 300))
+    max_slots = int(counts.sum()) - 7
+    keys, gidk = cull.cull_emit_plain(params, ballots, offsets, depth_q,
+                                      kmax, tiles_x, tile_lo, depth_bits,
+                                      kb, max_slots, tbin.SENTINEL_KEY)
+    want_keys = np.full(max_slots, tbin.SENTINEL_KEY, np.int64)
+    want_gidk = np.full(max_slots, -1, np.int32)
+    slot = 0
+    for g in range(300):
+        for kk in np.nonzero(mask[g])[0]:
+            if slot < max_slots:
+                want_keys[slot] = ((tile[g, kk] - tile_lo) << depth_bits) \
+                    | int(depth_q[g])
+                want_gidk[slot] = (g << kb) | kk
+            slot += 1
+    np.testing.assert_array_equal(keys.numpy(), want_keys)
+    np.testing.assert_array_equal(gidk.numpy(), want_gidk)
+    # The kernels' wrappers refuse a CPU tensor; the dispatcher takes the
+    # plain versions for it.
+    with pytest.raises(ValueError, match="CUDA"):
+        cull.cull_count_cuda(params, kmax, ts, cull_on, tiles_x, 0, 120)
+    with pytest.raises(ValueError, match="CUDA"):
+        cull.cull_emit_cuda(params, ballots, offsets, depth_q, kmax, tiles_x,
+                            0, depth_bits, kb, 8, tbin.SENTINEL_KEY)
+    got = cull.cull_count_from_params(params, kmax, ts, cull_on, tiles_x,
+                                      tile_lo, tile_hi)
+    assert all(torch.equal(a, b) for a, b in zip(got, (ballots, counts)))
+
+
+def test_ballot_words_hold_every_bit():
+    """Bit 31 of a word (a negative int32) and a last partial word survive
+    the plain round trip."""
+    mask = torch.from_numpy(np.random.default_rng(3).random((40, 70)) < 0.5)
+    mask[:, 31] = True
+    words = cull.ballots_from_mask(mask)
+    assert words.dtype == torch.int32 and bool((words[:, 0] < 0).all())
+    assert torch.equal(cull.mask_from_ballots(words, 70), mask)
