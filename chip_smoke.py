@@ -319,6 +319,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
      script's own draw (shift 0), capacities measured at that draw:
      memory per rank, exchange bytes, ms; replays bit-identical to eager
      and losses finite; overflow (rects past K_max 64) reported.
+ 22. Feature 3DGS's K6 and K7 (`check_features`), packed4 with 128
+     channels, on a 1080p view of the benchmark's feature cell (its 1M
+     garden scene, seed FEAT_SEED, view FEAT_VIEW): K6's colour and
+     transmittance K1's bit for bit; on the heaviest tile row, against
+     the plain walks on CPU copies of the stream, the colour within K1's
+     tolerance, the feature map's RMSE <= 1e-6 with >= 99.99% of pixels
+     within 1e-5, the slot and table gradients within 1e-5 of the plain
+     walk's largest magnitude, and K7's slot gradients outside the row 0;
+     both kernels timed beside K1 and K2 and their bounds (the
+     reference's tally); then the main path feat3dgs, FEAT_STEPS captured
+     train steps and a `render_jit` frame: K6 once a step and a frame, K7
+     once a step.
      Each phase prints its seconds.
 Then one JSON line of kernel numbers, each kernel with its launches on each
 main path (`launches_by_path`, and their sum as `launches`; K3's rank stage
@@ -467,6 +479,10 @@ KERNELS = {
     "probe_coldma": ("probes.coldma_launches",
                      "gsplat_tpu_torch/csrc/probe_coldma.cu",
                      "scripts/micro_kernel_costs.py:213"),
+    "feat_fwd": ("features.launches", "gsplat_tpu_torch/csrc/feat_fwd.cu",
+                 "none: no TPU kernel blends more than the colour"),
+    "feat_bwd": ("features.bwd_launches", "gsplat_tpu_torch/csrc/feat_bwd.cu",
+                 "none: no TPU kernel blends more than the colour"),
 }
 PROBES = ("probe_transc", "probe_tricumsum", "probe_gather", "probe_coldma")
 
@@ -1073,9 +1089,10 @@ def launch_counts() -> dict:
     """Each kernel's launch count, and K3's rank stage (the jumbo grid),
     count and emit stages (the 'packed' binning) alone as "cull_rank",
     "cull_count" and "cull_emit"."""
-    from gsplat_tpu_torch.ops.cuda import cull, probes, raster, segsum
+    from gsplat_tpu_torch.ops.cuda import cull, features, probes, raster, segsum
 
-    mods = {"cull": cull, "raster": raster, "segsum": segsum, "probes": probes}
+    mods = {"cull": cull, "raster": raster, "segsum": segsum, "probes": probes,
+            "features": features}
     out = {}
     for name, (attr, _, _) in KERNELS.items():
         mod, var = attr.split(".")
@@ -1087,7 +1104,7 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    from gsplat_tpu_torch.ops.cuda import cull, probes, raster, segsum
+    from gsplat_tpu_torch.ops.cuda import cull, features, probes, raster, segsum
 
     cull.launches = cull.rank_launches = 0
     cull.count_launches = cull.emit_launches = 0
@@ -1096,6 +1113,7 @@ def reset_launch_counts() -> None:
     segsum.launches = segsum.packed_launches = 0
     probes.transc_launches = probes.tricumsum_launches = 0
     probes.gather_launches = probes.coldma_launches = 0
+    features.launches = features.bwd_launches = 0
 
 
 def make_trainer(scene, cams, cfg, dev, eager=False):
@@ -4618,6 +4636,273 @@ def check_config5(dev, card: str, by_path: dict, kernels: dict) -> dict:
     return out
 
 
+# ---- Feature 3DGS's blend kernels K6 and K7 (phase 22) ----------------------
+
+# The feature cell of the benchmark (splatbench/), whose 1080p garden view
+# phase 22 drives: its configuration, traffic, seed and view.
+FEAT_CONFIG = os.path.join(HERE, "splatbench", "configs",
+                           "feat3dgs-garden-1m-1080p.json")
+FEAT_TRAFFIC = os.path.join(HERE, "splatbench", "traffic", "train-feat.json")
+FEAT_SEED = 22
+FEAT_VIEW = 11
+FEAT_STEPS = 3      # captured train steps of the feature path
+
+
+def heaviest_tile_row(ranges, cfg) -> int:
+    """The tile row whose tiles hold the most slots."""
+    per_tile = (ranges[1:] - ranges[:-1]).reshape(cfg.tiles_y, cfg.tiles_x)
+    return int(per_tile.sum(1).argmax())
+
+
+def band_only(g_col, g_tt, g_fm, row: int, cfg):
+    """The upstream gradients with every tile outside tile row `row`
+    zeroed: (g_colors (T, 3, P), g_trans (T, P), g_fmap (H, W, C))."""
+    import torch
+
+    t0, t1 = row * cfg.tiles_x, (row + 1) * cfg.tiles_x
+    y0, y1 = row * cfg.tile_size, min(cfg.height, (row + 1) * cfg.tile_size)
+    col, tt, fm = (torch.zeros_like(x) for x in (g_col, g_tt, g_fm))
+    col[t0:t1], tt[t0:t1], fm[y0:y1] = g_col[t0:t1], g_tt[t0:t1], g_fm[y0:y1]
+    return col, tt, fm
+
+
+def plain_feature_band(stream, ranges, gid, gidk, table, g_col, g_tt, g_fm,
+                       row: int, cfg) -> dict:
+    """The plain walks of K6 and K7 (`ops/cuda/features.py`'s plain path)
+    over tile row `row` alone, on the tensors' device: the row's colour
+    (tx, 3, P), transmittance (tx, P) and feature tiles (tx, C, P); the
+    slot gradients of the row's slots (9, s1 - s0) and the table's
+    gradient (N, C) from the upstream gradients of the whole frame
+    (g_colors (T, 3, P), g_trans (T, P), g_fmap (H, W, C)) restricted to
+    the row; the slots (s0, s1), the pairs applied and the seconds."""
+    import torch
+
+    from gsplat_tpu_torch.ops.binning import NUM_FEATURES
+    from gsplat_tpu_torch.ops.cuda.features import _stacked
+    from gsplat_tpu_torch.ops.raster_torch import (
+        _image_to_tiles,
+        _raster_tiles,
+        _raster_tiles_bwd_walk,
+    )
+
+    t0 = time.perf_counter()
+    tx = cfg.tiles_x
+    first = row * tx
+    band = ranges[first:first + tx + 1]
+    s0, s1 = int(band[0]), int(band[-1])
+    stacked = _stacked(stream, gid, table, cfg)
+    tiles, trans, _ = _raster_tiles(stacked, band, first, cfg)
+    fwd_s = time.perf_counter() - t0
+    g_all = torch.cat([g_col[first:first + tx],
+                       _image_to_tiles(g_fm, cfg)[first:first + tx]], 1)
+    b_all = (g_all * tiles).sum(1) + g_tt[first:first + tx] * trans
+    dslot, applied = _raster_tiles_bwd_walk(stacked, band, first, g_all,
+                                            b_all[..., None], cfg)
+    valid = gidk[s0:s1] >= 0
+    dtable = torch.zeros_like(table).index_add_(
+        0, gid[s0:s1].long()[valid], dslot[NUM_FEATURES:, s0:s1][:, valid].T)
+    return dict(colors=tiles[:, :3], trans=trans, fmap=tiles[:, 3:],
+                dgeo=dslot[:NUM_FEATURES, s0:s1], dtable=dtable,
+                slots=(s0, s1), applied=int(applied), fwd_s=fwd_s,
+                bwd_s=time.perf_counter() - t0 - fwd_s)
+
+
+def compare_features(k: dict, p: dict) -> dict:
+    """K6's and K7's outputs on a tile row (`k`, as `plain_feature_band`
+    returns them, on the CPU) against the plain walks' (`p`): the colour
+    and transmittance within K1's tolerance (PSNR >= 60 dB, >= 99.99% of
+    pixels within 1e-4); the feature map's RMSE <= 1e-6 and >= 99.99% of
+    pixels within 1e-5 on every channel; the slot gradients and the
+    table's gradient each within 1e-5 of the plain walk's largest
+    magnitude (the card tests' tolerance). Returns the numbers and "ok"."""
+    import torch
+
+    def share(err, tol):
+        return float((err <= tol).float().mean())
+
+    err_c = (k["colors"] - p["colors"]).abs().amax(1)
+    err_t = (k["trans"] - p["trans"]).abs()
+    mse = float(((k["colors"] - p["colors"]) ** 2).mean())
+    out = dict(psnr=-10.0 * math.log10(max(mse, 1e-30)),
+               color_within=share(err_c, 1e-4), trans_within=share(err_t, 1e-4))
+    d = k["fmap"] - p["fmap"]
+    out.update(fmap_rmse=float(torch.sqrt((d * d).mean())),
+               fmap_max_abs=float(d.abs().max()),
+               fmap_within=share(d.abs().amax(1), 1e-5))
+    for name in ("dgeo", "dtable"):
+        e = (k[name] - p[name]).abs()
+        scale = float(p[name].abs().max())
+        out[f"{name}_rel_max"] = float(e.max()) / max(scale, 1e-30)
+        out[f"{name}_rel_l2"] = float(torch.linalg.vector_norm(
+            k[name] - p[name]) / torch.linalg.vector_norm(p[name]).clamp_min(
+                1e-30))
+    out["ok"] = bool(out["psnr"] >= 60.0 and out["color_within"] >= 0.9999
+                     and out["trans_within"] >= 0.9999
+                     and out["fmap_rmse"] <= 1e-6
+                     and out["fmap_within"] >= 0.9999
+                     and out["dgeo_rel_max"] <= 1e-5
+                     and out["dtable_rel_max"] <= 1e-5)
+    return out
+
+
+def check_features(dev, card: str, by_path: dict, kernels: dict) -> dict:
+    """Phase 22: K6 and K7 (packed4, C = 128) on a 1080p view of the
+    benchmark's feature cell (its 1M-Gaussian garden scene and its
+    RenderConfig, `FEAT_SEED`, `FEAT_VIEW`). K6's colour and
+    transmittance against K1's bit for bit on the whole frame; K6 and K7
+    on the heaviest tile row against their plain walks run on CPU copies
+    of the same stream (`compare_features`; K7 fed upstream gradients
+    zero outside that row, so that its slot gradients outside the row's
+    slots must be exactly 0); both timed with CUDA events on the whole
+    frame (N(0, 1) upstream gradients) beside K1 and K2 on the same stream
+    and beside their bounds from the reference's tally
+    (`splatbench/roofline_features.py`). Then the main path "feat3dgs":
+    FEAT_STEPS captured train steps of the cell's step and one
+    `render_jit` frame, its launches counted: K6 one a step and a frame,
+    K7 one a step."""
+    import torch
+
+    from gsplat_tpu_torch.models.gaussians import FeatureScene
+    from gsplat_tpu_torch.ops.binning import bin_gaussians, features_f32
+    from gsplat_tpu_torch.ops.cuda import features as FE
+    from gsplat_tpu_torch.ops.cuda import raster
+    from gsplat_tpu_torch.ops.projection import project_gaussians
+    from gsplat_tpu_torch.ops.raster_torch import _image_to_tiles
+    from gsplat_tpu_torch.ops.stream16 import gather_packed
+    from gsplat_tpu_torch.render.pipeline import render_jit
+    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+    from splatbench import gen, gen_features, port, roofline_features
+    from splatbench.reference import features as ref_features
+    from splatbench.reference import render as ref_render
+
+    with open(FEAT_CONFIG) as f:
+        config = json.load(f)
+    with open(FEAT_TRAFFIC) as f:
+        traffic = json.load(f)
+    rc, tc, fc = config["render"], config["train"], config["features"]
+    cfg = port.render_config(rc)
+    fields = gen.make_scene(config, FEAT_SEED, dev)
+    n = fields["means"].shape[0]
+    fields.update(gen_features.make_feature_fields(config, n, FEAT_SEED, dev))
+    views = gen.view_matrices(traffic["poses"])
+    cams = [port.camera(v, rc["width"], rc["height"], dev)
+            for v in views[FEAT_VIEW:FEAT_VIEW + FEAT_STEPS]]
+    table = fields["features"]
+    with torch.no_grad():
+        proj = project_gaussians(FeatureScene(**fields), cams[0], cfg)
+        binned = bin_gaussians(proj, cfg)
+        stream = gather_packed(features_f32(proj, cfg), binned.sorted_gid,
+                               cfg)
+    if bool(binned.overflow):
+        raise SystemExit("features: the view overflowed its stream")
+    ranges, gid, gidk = binned.ranges, binned.sorted_gid, binned.sorted_gidk
+    total = int(binned.num_intersections)
+    col, tr, fm = FE.feat_fwd_cuda(stream, ranges, gid, table, cfg)
+    k1c, k1t = raster.raster_tiles_cuda(stream, ranges, cfg)
+    same_as_k1 = bool(torch.equal(col, k1c) and torch.equal(tr, k1t))
+    del k1c, k1t
+    gen_t = torch.Generator(device=dev).manual_seed(FEAT_SEED)
+    g_col = torch.randn(col.shape, generator=gen_t, device=dev)
+    g_tt = torch.randn(tr.shape, generator=gen_t, device=dev)
+    g_fm = torch.randn(fm.shape, generator=gen_t, device=dev)
+    row = heaviest_tile_row(ranges, cfg)
+    b_col, b_tt, b_fm = band_only(g_col, g_tt, g_fm, row, cfg)
+    dgeo, dtab = FE.feat_bwd(stream, ranges, gid, gidk, table, b_col, col,
+                             b_tt, tr, b_fm, fm, cfg)
+    plain = plain_feature_band(
+        *[x.cpu() for x in (stream, ranges, gid, gidk, table, b_col, b_tt,
+                            b_fm)], row, cfg)
+    s0, s1 = plain["slots"]
+    first, tx = row * cfg.tiles_x, cfg.tiles_x
+    kern = dict(colors=col[first:first + tx].cpu(),
+                trans=tr[first:first + tx].cpu(),
+                fmap=_image_to_tiles(fm, cfg)[first:first + tx].cpu(),
+                dgeo=dgeo[:, s0:s1].cpu(), dtable=dtab.cpu())
+    outside = int((dgeo[:, :s0] != 0).sum() + (dgeo[:, s1:] != 0).sum())
+    res = compare_features(kern, plain)
+    log(f"[K6/K7 garden 1080p] {n} Gaussians, {total} intersections, view "
+        f"{FEAT_VIEW}; K6's colour and transmittance K1's bit for bit: "
+        f"{same_as_k1}; tile row {row} (slots {s0}..{s1}, {plain['applied']} "
+        f"pairs applied) against the plain walks on the CPU "
+        f"({plain['fwd_s']} s forward, {plain['bwd_s']} s backward): {res}; "
+        f"K7's slot gradients outside the row nonzero: {outside}")
+    if not (same_as_k1 and res["ok"] and outside == 0):
+        raise SystemExit("K6/K7: kernel outside the stated tolerance of the "
+                         "plain walks, or K6's colour not K1's")
+    plain_s = dict(feat_fwd=plain["fwd_s"], feat_bwd=plain["bwd_s"])
+    del plain, kern, dgeo, dtab, b_col, b_tt, b_fm
+    b_total = ((g_col * col).sum(1) + g_tt * tr).contiguous()
+    ms = dict(
+        feat_fwd=cuda_ms(lambda: FE.feat_fwd_cuda(stream, ranges, gid, table,
+                                                  cfg), 20),
+        feat_bwd=cuda_ms(lambda: FE.feat_bwd_cuda(
+            stream, ranges, gid, table, g_col, b_total, g_fm, fm, cfg), 20),
+        K1=cuda_ms(lambda: raster.raster_tiles_cuda(stream, ranges, cfg), 20),
+        K2=cuda_ms(lambda: raster.raster_bwd_cuda(
+            stream, ranges, g_col, b_total, cfg, pack_out=True), 20))
+    del col, tr, fm, g_col, g_tt, g_fm, b_total, stream, proj, binned
+    torch.cuda.empty_cache()
+    tally = {}
+    rcam = ref_render.camera(views[FEAT_VIEW], rc["width"], rc["height"], dev)
+    ref_features.render(fields, rcam, rc, tally=tally)
+    torch.cuda.empty_cache()
+    for name, work, alone in (
+            ("feat_fwd", roofline_features.k6_work(tally, rc, n), "K1"),
+            ("feat_bwd", roofline_features.k7_work(tally, rc, n), "K2")):
+        ops, n_bytes = work
+        bound_ms, bound_by = bound(n_bytes, ops)
+        kernels[name].update(
+            ms=ms[name], bound_ms=bound_ms, bound_by=bound_by,
+            roofline_pct=100.0 * bound_ms / ms[name], library_ms=None,
+            plain_cpu_row_s=plain_s[name], max_rel_err=res[
+                "fmap_max_abs" if name == "feat_fwd" else "dtable_rel_max"],
+            **{f"{alone}_ms": ms[alone]})
+        log(f"[{name}] {ms[name]} ms ({alone} on the same stream "
+            f"{ms[alone]} ms), bound {bound_ms} ms ({bound_by}: {ops} ops, "
+            f"{n_bytes} B): {100.0 * bound_ms / ms[name]}% of it; plain "
+            f"walk of one tile row on the CPU {plain_s[name]} s; {card}")
+
+    # The main path: the cell's captured train step, then a frame.
+    targets = gen.make_targets(traffic["targets"], len(views), rc["height"],
+                               rc["width"], FEAT_SEED, dev,
+                               range(FEAT_VIEW, FEAT_VIEW + FEAT_STEPS))
+    teachers = gen_features.make_teachers(
+        traffic["teachers"], len(views), config, FEAT_SEED, dev,
+        range(FEAT_VIEW, FEAT_VIEW + FEAT_STEPS))
+    scene = FeatureScene(**fields)
+
+    def feature_path():
+        opt = make_optimizer(scene, lr=tc["lr"], feature_lr=fc["lr"],
+                             decoder_lr=fc["decoder_lr"])
+        step = make_train_step(cfg, opt, ssim_weight=tc["ssim_weight"],
+                               feature_weight=fc["gamma"])
+        for i in range(FEAT_STEPS):
+            loss, aux, _ = step(scene, [cams[i]], targets[i:i + 1],
+                                tc["active_sh_degree"],
+                                teachers=teachers[i:i + 1])
+            log(f"[feat3dgs] step {i}: loss {float(loss)}, overflow "
+                f"{bool(aux['overflow'])}, grads finite "
+                f"{bool(aux['grads_finite'])}")
+            if bool(aux["overflow"]) or not bool(aux["grads_finite"]) or \
+                    not math.isfinite(float(loss)):
+                raise SystemExit(f"feat3dgs: step {i} overflowed or went "
+                                 "non-finite")
+        out = render_jit(scene, cams[0], cfg)
+        if bool(out.overflow) or not bool(torch.isfinite(out.features).all()):
+            raise SystemExit("feat3dgs: render_jit's frame failed")
+
+    by_path["feat3dgs"] = counts = drive("feat3dgs", ("feat_fwd", "feat_bwd"),
+                                         feature_path)
+    if counts["feat_fwd"] != FEAT_STEPS + 1 or \
+            counts["feat_bwd"] != FEAT_STEPS:
+        raise SystemExit(f"feat3dgs: K6 launched {counts['feat_fwd']} and K7 "
+                         f"{counts['feat_bwd']} times for {FEAT_STEPS} steps "
+                         "and a frame")
+    del scene, fields, targets, teachers, table
+    torch.cuda.empty_cache()
+    return res
+
+
 def drive(path, needs, fn):
     """Run one main path with the launch counts set to 0 just before and
     read just after; fail unless each kernel in `needs` was launched."""
@@ -5208,6 +5493,12 @@ def run(dev) -> int:
     t0 = time.perf_counter()
     check_config5(dev, card, by_path, kernels)
     log(f"[phase 21] {time.perf_counter() - t0:.1f} s")
+
+    # 22. Feature 3DGS's K6 and K7 on a 1080p view of the benchmark's
+    # feature cell, and its captured step as a main path.
+    t0 = time.perf_counter()
+    check_features(dev, card, by_path, kernels)
+    log(f"[phase 22] {time.perf_counter() - t0:.1f} s")
 
     for stage in ("rank", "count", "emit"):
         kernels["cull"][f"{stage}_launches_by_path"] = {

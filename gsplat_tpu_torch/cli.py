@@ -492,6 +492,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="after densification, rebuild the step at this "
                         "multiple of the measured peak stream demand "
                         "(fit's staged-capacity schedule; 0 = off)")
+    p.add_argument("--features", type=int, default=0,
+                   help="Feature 3DGS: C feature channels per Gaussian, "
+                        "distilled from 512-channel teacher maps at a "
+                        "quarter of each side, decoded from the target's "
+                        "own features (0 = off)")
     _common_flags(p)
     p.set_defaults(fn=cmd_train)
     return parser

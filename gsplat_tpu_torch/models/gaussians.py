@@ -4,6 +4,11 @@ Same five fields, layouts and parameterization as
 `gsplat_tpu.models.gaussians.GaussianScene`: scales stored as log(scale),
 opacity as a logit, rotation as an unnormalized (w, x, y, z) quaternion,
 color as SH coefficients (N, K, 3).
+
+`FeatureScene` adds Feature 3DGS's fields (Zhou et al. 2024,
+arXiv:2312.03203): a view-independent feature vector per Gaussian, blended
+beside the colour, and the 1x1 decoder that maps a rendered feature map to
+the teacher's channels.
 """
 
 from __future__ import annotations
@@ -57,6 +62,55 @@ class GaussianScene:
             opacity_logits=_pad(self.opacity_logits, -30.0),
             sh=_pad(self.sh, 0.0),
         )
+
+
+@dataclasses.dataclass
+class FeatureScene(GaussianScene):
+    """A GaussianScene whose Gaussians carry C features each (`features`,
+    (N, C) float32, rendered as an (H, W, C) map beside the image), with
+    the decoder of the map to the teacher's D channels: decoder_weight (D,
+    C) and decoder_bias (D,), a 1x1 convolution."""
+
+    features: torch.Tensor = None         # (N, C)
+    decoder_weight: torch.Tensor = None   # (D, C)
+    decoder_bias: torch.Tensor = None     # (D,)
+
+    def pad_to(self, capacity: int) -> "FeatureScene":
+        """GaussianScene.pad_to, the padding Gaussians' features zero."""
+        base = GaussianScene.pad_to(self, capacity)
+        pad = capacity - self.num_gaussians
+        features = torch.cat(
+            [self.features, self.features.new_zeros(
+                (pad, self.features.shape[1]))])
+        return FeatureScene(**{f.name: getattr(base, f.name)
+                               for f in dataclasses.fields(GaussianScene)},
+                            features=features,
+                            decoder_weight=self.decoder_weight,
+                            decoder_bias=self.decoder_bias)
+
+
+# The fields FeatureScene adds, in order.
+FEATURE_FIELDS = ("features", "decoder_weight", "decoder_bias")
+
+
+def with_features(scene: GaussianScene, channels: int, out_channels: int,
+                  generator: torch.Generator | None = None,
+                  std: float = 0.1) -> FeatureScene:
+    """`scene` with C = `channels` features per Gaussian drawn N(0, std^2)
+    and a decoder to `out_channels`, its weight drawn as torch's default
+    1x1 convolution's (uniform within 1 / sqrt(C)) and its bias zero; the
+    draws on the scene's device (`generator`, when given, lives there)."""
+    dev = scene.means.device
+    kw = dict(device=dev, generator=generator, dtype=torch.float32)
+    bound = 1.0 / math.sqrt(channels)
+    return FeatureScene(
+        **{f.name: getattr(scene, f.name)
+           for f in dataclasses.fields(GaussianScene)},
+        features=std * torch.randn((scene.num_gaussians, channels), **kw),
+        decoder_weight=(torch.rand((out_channels, channels), **kw) * 2 - 1)
+        * bound,
+        decoder_bias=torch.zeros((out_channels,), dtype=torch.float32,
+                                 device=dev))
 
 
 def random_scene(

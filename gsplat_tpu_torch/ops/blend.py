@@ -21,8 +21,14 @@ final colour's gradient product, so the suffix sums behind d L / d a_i are
 recovered in one forward re-walk as b_total - cumsum(b) (see
 `blend_block_bwd`).
 
+Feature channels (Feature 3DGS's N-dimensional blend): rows of feat past
+the NUM_FEATURES stream rows are C more channels blended with the colour's
+weights, and the colour carry and its gradient then hold 3 + C channels,
+the colour's first.
+
 Shapes: any leading batch dims (...), e.g. one entry per tile:
-  feat: (..., NUM_FEATURES, G) Gaussian block, depth-ordered along the last
+  feat: (..., NUM_FEATURES [+ C], G) Gaussian block, depth-ordered along
+        the last
   px, py: (..., P, 1) pixel centres; in_range: (..., 1, G) bool
   carry: color (..., 3, P), trans (..., P, 1), done (..., P, 1) 0/1 float
   backward: g_color (..., 3, P), b_total and accum_b (..., P, 1)
@@ -43,19 +49,22 @@ from gsplat_tpu_torch.ops.binning import (
     FEAT_GY,
     FEAT_OPACITY,
     FEAT_R,
+    NUM_FEATURES,
 )
 
 
 class BlendCarry(NamedTuple):
-    color: torch.Tensor  # (..., 3, P)
+    color: torch.Tensor  # (..., 3 [+ C], P)
     trans: torch.Tensor  # (..., P, 1) current transmittance T
     done: torch.Tensor   # (..., P, 1) float32 0/1 permanent-termination flag
 
 
-def init_carry(num_pixels: int, batch: tuple = (), device="cpu") -> BlendCarry:
+def init_carry(num_pixels: int, batch: tuple = (), device="cpu",
+               channels: int = 3) -> BlendCarry:
+    """channels: the colour's 3, and the feature channels after them."""
     kw = dict(dtype=torch.float32, device=device)
     return BlendCarry(
-        color=torch.zeros(batch + (3, num_pixels), **kw),
+        color=torch.zeros(batch + (channels, num_pixels), **kw),
         trans=torch.ones(batch + (num_pixels, 1), **kw),
         done=torch.zeros(batch + (num_pixels, 1), **kw),
     )
@@ -121,6 +130,8 @@ def blend_block(carry: BlendCarry, feat, px, py, in_range, cfg: RenderConfig):
         carry, feat, px, py, in_range, cfg
     )
     colors = feat[..., FEAT_R : FEAT_R + 3, :]  # (..., 3, G)
+    if feat.shape[-2] > NUM_FEATURES:
+        colors = torch.cat([colors, feat[..., NUM_FEATURES:, :]], -2)
     # sum_g colors[c, g] * w[p, g] -> (..., 3, P), elementwise in f32.
     new_color = carry.color + (colors[..., :, None, :] * w[..., None, :, :]).sum(-1)
     return BlendCarry(new_color, new_trans, new_done), walked.sum(-1)
@@ -146,6 +157,10 @@ def blend_block_bwd(carry: BlendCarry, feat, px, py, in_range, g_color,
 
     # dL/dw[p, g] = sum_c colors[c, g] * g_color[c, p]
     dw = sum(row(FEAT_R + c) * g_color[..., c, :, None] for c in range(3))
+    extra = feat[..., NUM_FEATURES:, :]  # (..., C, G) feature channels
+    if extra.shape[-2]:
+        dw = dw + torch.einsum("...cg,...cp->...pg", extra,
+                               g_color[..., 3:, :])
     b = dw * w
     cum_b = accum_b + torch.cumsum(b, dim=-1)  # inclusive, past blocks too
     suffix = b_total - cum_b                   # over strictly-later Gaussians
@@ -175,6 +190,9 @@ def blend_block_bwd(carry: BlendCarry, feat, px, py, in_range, g_color,
     # dL/dcolor[c, g] = sum_p g_color[c, p] * w[p, g]
     d_colors = [(g_color[..., c, :, None] * w).sum(-2) for c in range(3)]
     dfeat = torch.stack([d_gx, d_gy, d_ca, d_cb, d_cc, *d_colors, d_op], -2)
+    if extra.shape[-2]:
+        d_extra = torch.einsum("...cp,...pg->...cg", g_color[..., 3:, :], w)
+        dfeat = torch.cat([dfeat, d_extra], -2)
     applied = (aux["valid"] & (a > 0.0)).sum()
     return (dfeat, BlendCarry(carry.color, new_trans, new_done),
             cum_b[..., -1:], applied)

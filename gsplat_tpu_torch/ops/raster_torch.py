@@ -34,11 +34,12 @@ from gsplat_tpu_torch.ops.blend import (
 
 
 def _tiles_to_image(tile_colors: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
-    """(T, 3, P) per-tile pixels -> (H, W, 3) image."""
+    """(T, C, P) per-tile pixels -> (H, W, C) image (C = 3: the colour)."""
     ts = cfg.tile_size
-    x = tile_colors.reshape(cfg.tiles_y, cfg.tiles_x, 3, ts, ts)
+    c = tile_colors.shape[1]
+    x = tile_colors.reshape(cfg.tiles_y, cfg.tiles_x, c, ts, ts)
     x = x.permute(0, 3, 1, 4, 2)  # (ty, py, tx, px, c)
-    x = x.reshape(cfg.padded_height, cfg.padded_width, 3)
+    x = x.reshape(cfg.padded_height, cfg.padded_width, c)
     return x[: cfg.height, : cfg.width]
 
 
@@ -64,6 +65,8 @@ def _image_to_tiles(img: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
 
 def _raster_tiles(features, ranges, tile_offset, cfg: RenderConfig):
     """Forward walk -> (tile_colors (T, 3, P), tile_trans (T, P), walk):
+    features (NUM_FEATURES + C, max_I) with C feature channels past the
+    stream rows give tile_colors (T, 3 + C, P), the colour first.
     `walk` (T, P) int64 is each pixel's walk length, the (pixel, Gaussian)
     evaluations the data needs (a pixel walks its tile's segment until it
     terminates, that Gaussian included); its sum is the pairs that size the
@@ -78,7 +81,8 @@ def _raster_tiles(features, ranges, tile_offset, cfg: RenderConfig):
     px, py = tile_pixel_coords(
         torch.arange(num_tiles, device=dev) + tile_offset, cfg
     )
-    carry = init_carry(cfg.pixels_per_tile, (num_tiles,), dev)
+    carry = init_carry(cfg.pixels_per_tile, (num_tiles,), dev,
+                       3 + features.shape[0] - NUM_FEATURES)
     walk = torch.zeros((num_tiles, cfg.pixels_per_tile), dtype=torch.int64,
                        device=dev)
     lane = torch.arange(g, device=dev)[None, :]
@@ -119,7 +123,9 @@ def power_floor(op, cfg: RenderConfig):
 def _raster_tiles_bwd_walk(features, ranges, tile_offset, g_color_tiles,
                            b_total_tiles, cfg: RenderConfig):
     """Analytic backward of `_raster_tiles`: g_color_tiles (T, 3, P) and
-    b_total_tiles (T, P, 1) -> (dfeat (NUM_FEATURES, max_I), applied).
+    b_total_tiles (T, P, 1) -> (dfeat (NUM_FEATURES, max_I), applied); with
+    C feature channels past the stream rows of `features`, g_color_tiles is
+    (T, 3 + C, P) and dfeat (NUM_FEATURES + C, max_I).
     Slots outside every tile's segment, and slots no pixel reached, get
     exactly 0. `applied` is the () int64 count of (pixel, Gaussian) pairs
     with a nonzero weight: the pairs whose gradient terms the data needs."""
@@ -136,7 +142,7 @@ def _raster_tiles_bwd_walk(features, ranges, tile_offset, g_color_tiles,
     carry = init_carry(cfg.pixels_per_tile, (num_tiles,), dev)
     accum_b = torch.zeros((num_tiles, cfg.pixels_per_tile, 1), device=dev)
     # Column max_i takes the out-of-range lanes and is dropped.
-    dfeat = torch.zeros((NUM_FEATURES, max_i + 1), device=dev)
+    dfeat = torch.zeros((features.shape[0], max_i + 1), device=dev)
     applied = torch.zeros((), dtype=torch.int64, device=dev)
     lane = torch.arange(g, device=dev)[None, :]
     for i in range(cdiv(longest, g)):
@@ -150,7 +156,7 @@ def _raster_tiles_bwd_walk(features, ranges, tile_offset, g_color_tiles,
         applied += n
         # Tile segments are disjoint: one scatter-set per block.
         slot = torch.where(in_range, idx, max_i).reshape(-1)
-        dfeat[:, slot] = d.permute(1, 0, 2).reshape(NUM_FEATURES, -1)
+        dfeat[:, slot] = d.permute(1, 0, 2).reshape(features.shape[0], -1)
     return dfeat[:, :max_i], applied
 
 

@@ -28,6 +28,12 @@ mark the backward's boundaries: "render.blend.backward" begins when the
 image's gradient is ready (the loss's backward ends; K2 and the gather's
 backward follow), "render.project.backward" when the features' gradient is
 (the SH and projection backward follow).
+
+A `FeatureScene` (Feature 3DGS) renders its (N, C) features beside the
+colour with the same weights: the blend is then kernel K6 and its backward
+K7 (`ops/cuda/features.py`), reading each slot's feature row by its
+Gaussian id, and the output carries the (H, W, C) feature map. A scene
+without features takes the path above unchanged.
 """
 
 from __future__ import annotations
@@ -37,13 +43,14 @@ import dataclasses
 import torch
 
 from gsplat_tpu_torch.config import RenderConfig
-from gsplat_tpu_torch.models.gaussians import GaussianScene
+from gsplat_tpu_torch.models.gaussians import FeatureScene, GaussianScene
 from gsplat_tpu_torch.ops.binning import (
     bin_gaussians,
     features_f32,
     gather_stream,
 )
 from gsplat_tpu_torch.ops.camera import Camera
+from gsplat_tpu_torch.ops.cuda.features import rasterize_features
 from gsplat_tpu_torch.ops.cuda.raster import rasterize_packed16, rasterize_tiles
 from gsplat_tpu_torch.ops.projection import ProjectedGaussians, project_gaussians
 from gsplat_tpu_torch.ops.stream16 import gather_packed
@@ -62,6 +69,8 @@ class RenderOutput:
     num_intersections: torch.Tensor  # () int32
     overflow: torch.Tensor           # () bool -- static capacity exceeded
     gauss_counts: torch.Tensor       # (N,) int32 post-cull candidates per Gaussian
+    features: torch.Tensor | None = None  # (H, W, C) feature map of a
+    #                                     #   FeatureScene, else None
 
 
 def render_with_projection(
@@ -73,6 +82,7 @@ def render_with_projection(
 ) -> tuple[RenderOutput, ProjectedGaussians]:
     """`render`, and the projection it rendered from (the train step reads
     its tile counts for visibility instead of projecting a second time)."""
+    table = scene.features if isinstance(scene, FeatureScene) else None
     with stage("render.project"):
         proj = project_gaussians(scene, camera, cfg, uv_tap=uv_tap)
     with stage("render.bin") as bin_stage, torch.no_grad():
@@ -81,13 +91,23 @@ def render_with_projection(
     with stage("render.gather"):
         feats = features_f32(proj, cfg)
         on_grad(feats, "render.project.backward")
-        if cfg.stream_format == "f32":
+        if table is not None:
+            # The stream carries no gradient: K7's VJP takes the gather's.
+            with torch.no_grad():
+                slots = (gather_stream(feats, binned, cfg)
+                         if cfg.stream_format == "f32"
+                         else gather_packed(feats, binned.sorted_gid, cfg))
+        elif cfg.stream_format == "f32":
             features = gather_stream(feats, binned, cfg)
         else:
             with torch.no_grad():
                 slots = gather_packed(feats, binned.sorted_gid, cfg)
+    fmap = None
     with stage("render.blend"):
-        if cfg.stream_format == "f32":
+        if table is not None:
+            image, trans, fmap = rasterize_features(feats, table, slots,
+                                                    binned, cfg)
+        elif cfg.stream_format == "f32":
             image, trans = rasterize_tiles(features, binned.ranges, cfg)
         else:
             image, trans = rasterize_packed16(feats, slots, binned, cfg)
@@ -100,6 +120,7 @@ def render_with_projection(
         num_intersections=binned.num_intersections,
         overflow=binned.overflow,
         gauss_counts=binned.gauss_counts,
+        features=fmap,
     )
     return out, proj
 
@@ -166,18 +187,28 @@ def render_jit(scene: GaussianScene, camera: Camera, cfg: RenderConfig,
     the scene is read where it lies, the camera copied into the graph's
     buffers (`utils/graphs.py`).
     On the CPU the same call runs eagerly. The outputs are new tensors,
-    outside autograd."""
+    outside autograd. A FeatureScene's feature table is read where it lies
+    too, and the output carries its feature map."""
     inputs = scene_camera_inputs(scene, camera)
     if background is not None:
         inputs.append(background)
+    n = len(SCENE_FIELDS)
+    key = (cfg, background is not None)
+    table = scene.features if isinstance(scene, FeatureScene) else None
+    if table is not None:
+        inputs.insert(n, table)
+        key += ("features",)
 
     def body(*flat):
-        s, c, rest = split_inputs(flat)
+        if table is None:
+            s, c, rest = split_inputs(flat)
+        else:
+            s, c, rest = split_inputs(flat[:n] + flat[n + 1:])
+            s = FeatureScene(*flat[:n], features=flat[n])
         with torch.no_grad():
             return render(s, c, cfg, rest[0] if rest else None)
 
-    return RENDER_GRAPHS((cfg, background is not None), inputs, body,
-                         held=len(SCENE_FIELDS))
+    return RENDER_GRAPHS(key, inputs, body, held=n + (table is not None))
 
 
 def _loss_and_grad(scene, camera, target, cfg: RenderConfig):

@@ -17,6 +17,17 @@ mark where it is captured. The backward's own boundaries are the render's
 gradient marks ("render.blend.backward" ends the loss's backward,
 "render.project.backward" the blend's); the profile scripts
 (`scripts/profile_torch_train*.py`) read the record of replays.
+
+A `FeatureScene` trains Feature 3DGS (Zhou et al. 2024, arXiv:2312.03203):
+the step also takes the teachers' feature maps, and adds gamma
+(`feature_weight`, FEATURE_WEIGHT by default) times the L1 between each
+teacher and the rendered feature map, resized to the teacher's size and
+decoded by the scene's 1x1 decoder (`train/losses.py::decoded_l1`), in a
+stage "train.decode" whose backward is marked "train.decode.backward" (to
+the map's gradient, where "train.backward" resumes). Its features and
+decoder are Adam groups of their own. The step's backward runs with
+cuBLAS's TF32 off, so the decoder's gradient GEMMs are float32 as its
+forward is.
 """
 
 from __future__ import annotations
@@ -30,7 +41,11 @@ import numpy as np
 import torch
 
 from gsplat_tpu_torch.config import RenderConfig
-from gsplat_tpu_torch.models.gaussians import GaussianScene
+from gsplat_tpu_torch.models.gaussians import (
+    FEATURE_FIELDS,
+    FeatureScene,
+    GaussianScene,
+)
 from gsplat_tpu_torch.ops.binning import _normalize_tier_plan
 from gsplat_tpu_torch.ops.camera import Camera
 from gsplat_tpu_torch.render.pipeline import (
@@ -38,9 +53,9 @@ from gsplat_tpu_torch.render.pipeline import (
     SCENE_FIELDS,
     render_with_projection,
 )
-from gsplat_tpu_torch.train.losses import rgb_loss
+from gsplat_tpu_torch.train.losses import decoded_l1, fp32_matmuls, rgb_loss
 from gsplat_tpu_torch.utils.graphs import Captured
-from gsplat_tpu_torch.utils.trace import stage
+from gsplat_tpu_torch.utils.trace import on_grad, stage
 
 # The stages of a train step (a view's forward and loss stages repeat once
 # per view).
@@ -51,6 +66,20 @@ TRAIN_SPANS = ("train.forward", "train.loss", "train.backward",
 # colour and opacity.
 LR_SCALES = dict(means=0.016, log_scales=0.5, quats=0.1, opacity_logits=5.0,
                  sh=0.25)
+# Feature 3DGS's default rates (absolute, not multiples of lr) of the
+# features and the decoder, and the weight of its feature loss (gamma).
+FEATURE_LR = 1e-3
+DECODER_LR = 1e-4
+FEATURE_WEIGHT = 1.0
+# The teacher's channels in `train_from_cli`: LSeg's CLIP embedding.
+TEACHER_CHANNELS = 512
+
+
+def param_fields(scene: GaussianScene) -> tuple:
+    """The scene's fields the optimizer trains, in its groups' order: the
+    five, and a FeatureScene's features and decoder."""
+    return SCENE_FIELDS + (FEATURE_FIELDS if isinstance(scene, FeatureScene)
+                           else ())
 
 
 def sh_band_mask(num_coeffs: int, active_degree, device="cuda") -> torch.Tensor:
@@ -144,9 +173,12 @@ def make_optimizer(
     *,
     position_lr_final_ratio: float | None = None,
     lr_max_steps: int | None = None,
+    feature_lr: float = FEATURE_LR,
+    decoder_lr: float = DECODER_LR,
 ) -> SceneAdam:
     """Adam over the scene's five fields, each at lr times its `LR_SCALES`
-    multiplier. The scene's tensors become the parameters: they are set to
+    multiplier, and a FeatureScene's features at feature_lr and decoder at
+    decoder_lr. The scene's tensors become the parameters: they are set to
     require grad, and the optimizer updates them in place.
 
     position_lr_final_ratio with lr_max_steps adds the exponential position
@@ -159,19 +191,24 @@ def make_optimizer(
             raise ValueError("position_lr_final_ratio requires lr_max_steps")
         decay = (lr * LR_SCALES["means"], float(position_lr_final_ratio),
                  lr_max_steps)
+    rates = dict({k: lr * v for k, v in LR_SCALES.items()},
+                 features=feature_lr, decoder_weight=decoder_lr,
+                 decoder_bias=decoder_lr)
     groups = []
-    for name in SCENE_FIELDS:
+    for name in param_fields(scene):
         param = getattr(scene, name)
         if not param.is_leaf:
             raise ValueError(f"make_optimizer: scene.{name} is not a leaf "
                              "tensor; pass a scene of plain tensors")
         param.requires_grad_(True)
-        groups.append(dict(params=[param], lr=lr * LR_SCALES[name], name=name))
+        groups.append(dict(params=[param], lr=rates[name], name=name))
     return SceneAdam(groups, decay)
 
 
 def check_params(scene: GaussianScene, params) -> None:
-    if any(getattr(scene, f) is not p for f, p in zip(SCENE_FIELDS, params)):
+    fields = param_fields(scene)
+    if len(params) < len(fields) or any(
+            getattr(scene, f) is not p for f, p in zip(fields, params)):
         raise ValueError("train step: the scene's tensors are not the "
                          "optimizer's parameters")
 
@@ -203,12 +240,20 @@ def zero_grads_(optimizer, tap: torch.Tensor) -> None:
         tap.grad.zero_()
 
 
+def trains_features(optimizer: SceneAdam) -> bool:
+    """Whether the optimizer holds a FeatureScene's features."""
+    return any(g["name"] == "features" for g in optimizer.param_groups)
+
+
 def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
-                     ssim_weight: float):
+                     ssim_weight: float,
+                     feature_weight: float = FEATURE_WEIGHT):
     """(body, band_mask, params) of the train step.
 
     body(scene, cameras, targets, mask=None) -> (loss, aux, (tap_grads,
-    visible)), mask a (K, 1) SH band mask or None. Its `.grad`s (the
+    visible)), mask a (K, 1) SH band mask or None; for a FeatureScene's
+    optimizer body(scene, cameras, targets, teachers, mask=None), teachers
+    (B, D, h, w). Its `.grad`s (the
     parameters' and the (N, 2) zero leaf `tap` of the densification
     trigger, made once) are zeroed and accumulated in place, so each keeps
     its storage from the first step on, as a captured step needs.
@@ -222,17 +267,32 @@ def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
     dev = params[0].device
     tap = torch.zeros((params[0].shape[0], 2), device=dev, requires_grad=True)
 
-    def body(scene, cameras, targets, mask=None):
+    featured = trains_features(optimizer)
+
+    def body(scene, cameras, targets, *extra):
+        teachers = extra[0] if featured else None
+        mask = extra[-1] if len(extra) > (teachers is not None) else None
         zero_grads_(optimizer, tap)
         if mask is not None:
             scene = dataclasses.replace(scene, sh=scene.sh * mask)
         losses, overflow, n_int, visible, members = [], [], [], [], []
-        for camera, target in zip(cameras, targets):
+        for v, (camera, target) in enumerate(zip(cameras, targets)):
             with stage("train.forward"):
                 out, proj = render_with_projection(scene, camera, cfg,
                                                    uv_tap=tap)
             with stage("train.loss"):
-                losses.append(rgb_loss(out.image, target, ssim_weight))
+                loss_v = rgb_loss(out.image, target, ssim_weight)
+            if teachers is not None:
+                with stage("train.decode"):
+                    fmap = out.features.permute(2, 0, 1)[None]
+                    # The decode's backward ends at the map's gradient.
+                    on_grad(fmap, "train.backward")
+                    f_loss = feature_weight * decoded_l1(
+                        fmap, teachers[v], scene.decoder_weight,
+                        scene.decoder_bias)
+                    on_grad(f_loss, "train.decode.backward")
+                loss_v = loss_v + f_loss
+            losses.append(loss_v)
             overflow.append(out.overflow)
             n_int.append(out.num_intersections)
             visible.append(proj.counts > 0)
@@ -242,7 +302,7 @@ def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
                 else torch.zeros((0,), dtype=torch.int32, device=dev))
         with stage("train.loss"):
             loss = torch.stack(losses).mean()
-        with stage("train.backward"):
+        with stage("train.backward"), fp32_matmuls():
             loss.backward()
         with stage("train.optimizer"):
             # One non-finite gradient lane spreads through Adam into the
@@ -268,15 +328,18 @@ def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
 
 
 def eager_step(body, band_mask, params):
-    """step(scene, cameras, targets, active_sh_degree=None) -> (loss, aux,
-    (tap_grads, visible)) running `body` (a `_train_step_body`'s, or a
-    sharded step's of the same contract) op by op, the tap's gradient
-    copied out of its fixed storage."""
+    """step(scene, cameras, targets, active_sh_degree=None, teachers=None)
+    -> (loss, aux, (tap_grads, visible)) running `body` (a
+    `_train_step_body`'s, or a sharded step's of the same contract) op by
+    op, the tap's gradient copied out of its fixed storage; teachers, where
+    given, go to the body after the targets."""
 
-    def step(scene: GaussianScene, cameras, targets, active_sh_degree=None):
+    def step(scene: GaussianScene, cameras, targets, active_sh_degree=None,
+             teachers=None):
         check_params(scene, params)
+        lead = () if teachers is None else (teachers,)
         loss, aux, (tap_grads, visible) = body(
-            scene, cameras, targets, band_mask(active_sh_degree))
+            scene, cameras, targets, *lead, band_mask(active_sh_degree))
         return loss, aux, (tap_grads.clone(), visible)
 
     return step
@@ -313,30 +376,53 @@ def captured_step(body, params, kind: str, key, mesh=None):
 
 
 def masked_step(run, band_mask):
-    """step(scene, cameras, targets, active_sh_degree=None): a
-    `captured_step` given the degree's SH band mask as its extra input (JAX's
-    traced `active_sh`: one graph serves every degree)."""
+    """step(scene, cameras, targets, active_sh_degree=None, teachers=None):
+    a `captured_step` given the degree's SH band mask as its extra input
+    (JAX's traced `active_sh`: one graph serves every degree), after the
+    teachers where given."""
 
-    def step(scene: GaussianScene, cameras, targets, active_sh_degree=None):
+    def step(scene: GaussianScene, cameras, targets, active_sh_degree=None,
+             teachers=None):
         mask = band_mask(active_sh_degree)
-        return run(scene, cameras, targets,
+        lead = () if teachers is None else (teachers,)
+        return run(scene, cameras, targets, *lead,
                    *(() if mask is None else (mask,)))
 
     step.graphs = run.graphs
     return step
 
 
+def _teachers_checked(step, featured: bool):
+    """The step, refusing a call whose teachers are missing (a FeatureScene's
+    step) or unexpected (a plain scene's)."""
+
+    def checked(scene, cameras, targets, active_sh_degree=None,
+                teachers=None):
+        if (teachers is None) == featured:
+            raise ValueError("train step: teachers go with a FeatureScene, "
+                             "and only with it")
+        return step(scene, cameras, targets, active_sh_degree, teachers)
+
+    checked.graphs = getattr(step, "graphs", None)
+    return checked
+
+
 def make_eager_train_step(cfg: RenderConfig, optimizer: SceneAdam,
-                          ssim_weight: float = 0.2):
+                          ssim_weight: float = 0.2,
+                          feature_weight: float = FEATURE_WEIGHT):
     """`make_train_step`'s step run eagerly, op by op: the body the
     captured step captures, with the same interface. The profile scripts
     (`scripts/profile_torch_train*.py`) read its spans, and `chip_smoke.py`
     holds the captured step to it."""
-    return eager_step(*_train_step_body(cfg, optimizer, ssim_weight))
+    return _teachers_checked(
+        eager_step(*_train_step_body(cfg, optimizer, ssim_weight,
+                                     feature_weight)),
+        trains_features(optimizer))
 
 
 def make_train_step(cfg: RenderConfig, optimizer: SceneAdam,
-                    ssim_weight: float = 0.2):
+                    ssim_weight: float = 0.2,
+                    feature_weight: float = FEATURE_WEIGHT):
     """Single-device train step over a small batch of views, unrolled (one
     render per view, as the JAX step unrolls its batch), dispatched as one
     program as the JAX package's jitted `_step`: on a CUDA device a CUDA
@@ -362,10 +448,19 @@ def make_train_step(cfg: RenderConfig, optimizer: SceneAdam,
       visible: (N,) bool, Gaussian touched >= 1 tile in >= 1 view.
     The gradients stay in each parameter's `.grad` after the step. The
     parameters, their `.grad` and Adam's state keep their storage: code
-    between steps changes them in place (`fit`'s `_assign`)."""
-    body, band_mask, params = _train_step_body(cfg, optimizer, ssim_weight)
-    return masked_step(captured_step(body, params, "train_step",
-                                     (cfg, float(ssim_weight))), band_mask)
+    between steps changes them in place (`fit`'s `_assign`).
+
+    A FeatureScene's optimizer (`make_optimizer`): the step takes
+    teachers= (B, D, h, w), the teachers' maps of the views (any float
+    dtype, read as float32), and the loss adds feature_weight (gamma) times
+    each view's `decoded_l1`; the teachers are an input of the graph."""
+    body, band_mask, params = _train_step_body(cfg, optimizer, ssim_weight,
+                                               feature_weight)
+    featured = trains_features(optimizer)
+    key = (cfg, float(ssim_weight)) + (
+        ("features", float(feature_weight)) if featured else ())
+    return _teachers_checked(masked_step(
+        captured_step(body, params, "train_step", key), band_mask), featured)
 
 
 def _append_csv_row(path: str, row: dict):
@@ -453,6 +548,7 @@ def fit(
     data_axis: str = "data",
     tile_axis: str = "tiles",
     retighten_capacity: float = 0.0,
+    teachers=None,
 ):
     """Fit `scene` to `targets` seen from `cameras` (port of
     `gsplat_tpu.train.loop.fit`, single device). Returns (trained scene,
@@ -503,9 +599,23 @@ def fit(
     trace_dir with trace_steps=(start, stop) records a `torch.profiler`
     trace of the steps [start, stop) (densify rounds, evals and host work
     included) and writes it to trace_dir/trace.json (Chrome trace format).
+
+    A FeatureScene fits Feature 3DGS: teachers (V, D, h, w), the teacher's
+    feature map of each view, and the loss adds the decoded feature L1
+    (`make_train_step`); the returned scene carries the trained features
+    and decoder. Densification, checkpoints and a mesh take no feature
+    scene yet.
     """
     if overflow_policy not in ("raise", "warn", "ignore"):
         raise ValueError(f"unknown overflow_policy {overflow_policy!r}")
+    featured = isinstance(scene, FeatureScene)
+    if featured != (teachers is not None):
+        raise ValueError("fit: teachers go with a FeatureScene, and only "
+                         "with it")
+    if featured and (mesh is not None or densify_every or checkpoint_every
+                     or resume):
+        raise ValueError("fit: a FeatureScene trains on one device without "
+                         "densification or checkpoints")
     from gsplat_tpu_torch.train.densify import (
         accumulate_grads,
         densify_and_prune_jit,
@@ -519,8 +629,8 @@ def fit(
     )
 
     dev = scene.means.device
-    scene = GaussianScene(**{f: getattr(scene, f).detach().clone()
-                             for f in SCENE_FIELDS})
+    scene = type(scene)(**{f: getattr(scene, f).detach().clone()
+                           for f in param_fields(scene)})
     optimizer = make_optimizer(
         scene, lr,
         position_lr_final_ratio=position_lr_final_ratio,
@@ -528,6 +638,7 @@ def fit(
         if position_lr_final_ratio is not None else None,
     )
     params = [getattr(scene, f) for f in SCENE_FIELDS]
+    trained = [getattr(scene, f) for f in param_fields(scene)]
     n_cap = scene.num_gaussians
     dstate = init_densify_state(n_cap, dev)
     start_step = 0
@@ -543,7 +654,7 @@ def fit(
         say(f"resumed from {resume} at step {start_step}")
 
     def detached():
-        return GaussianScene(*(p.detach() for p in params))
+        return type(scene)(*(p.detach() for p in trained))
 
     if mesh is not None:
         from gsplat_tpu_torch.parallel.sharding import local_tile_cfg
@@ -731,7 +842,9 @@ def fit(
             if sh_warmup_every else None
         )
         loss, aux, (screen_grads, visible) = step_fn(
-            scene, cams_b, targets_b, active_sh
+            scene, cams_b, targets_b, active_sh,
+            **({"teachers": torch.stack([teachers[i] for i in sel])}
+               if featured else {})
         )
         ovf_any = ovf_any | aux["overflow"]
         tm = aux["tier_members"]
@@ -898,7 +1011,14 @@ def train_from_cli(args) -> int:
     """Backs the `train` subcommand of `gsplat_tpu_torch.cli`: fit a fresh
     random scene to orbit renders of a target scene (a synthetic one, or a
     PLY). The scenes are drawn from torch generators seeded args.seed and
-    args.seed + 1, so they differ from the JAX command's."""
+    args.seed + 1, so they differ from the JAX command's.
+
+    With args.features = C (Feature 3DGS) the target scene gets C features
+    and a decoder to TEACHER_CHANNELS, drawn from a generator seeded
+    args.seed + 2; each view's teacher is its rendered feature map decoded
+    at a quarter of the image's sides (stored as bfloat16), and the fit
+    trains C features per Gaussian and a decoder of its own; they are
+    saved beside the PLY (`<out>.features.pt`)."""
     from gsplat_tpu_torch.cli import _build_cfg, _load_scene
     from gsplat_tpu_torch.io.ply import save_ply
     from gsplat_tpu_torch.models.gaussians import random_scene
@@ -909,6 +1029,13 @@ def train_from_cli(args) -> int:
     dev = torch.device(args.device)
     cfg = _build_cfg(args, args.width, args.height)
     target_scene = _load_scene(args)
+    channels = getattr(args, "features", 0)
+    if channels:
+        from gsplat_tpu_torch.models.gaussians import with_features
+
+        target_scene = with_features(
+            target_scene, channels, TEACHER_CHANNELS,
+            torch.Generator(device=dev).manual_seed(args.seed + 2))
 
     means = target_scene.means.cpu().numpy()
     center = means.mean(0)
@@ -924,8 +1051,19 @@ def train_from_cli(args) -> int:
     print(f"rendering {total_views} target views "
           f"({args.views} train + {holdout} held-out)...")
     # Targets and evals through render_jit, as the JAX command jits them.
-    all_targets = torch.stack([render_jit(target_scene, c, cfg).image
-                               for c in all_cams])
+    target_out = [render_jit(target_scene, c, cfg) for c in all_cams]
+    all_targets = torch.stack([o.image for o in target_out])
+    teachers = None
+    if channels:
+        from gsplat_tpu_torch.train.losses import decode_map
+
+        size = (max(1, cfg.height // 4), max(1, cfg.width // 4))
+        with torch.no_grad():
+            teachers = torch.stack([decode_map(
+                o.features.permute(2, 0, 1)[None],
+                target_scene.decoder_weight, target_scene.decoder_bias,
+                size).to(torch.bfloat16) for o in target_out])
+    del target_out
     # Interleave the held-out views so they sample the whole orbit, like
     # taking every Nth image of a capture (the graphdeco -eval convention).
     idx = np.arange(total_views)
@@ -939,6 +1077,8 @@ def train_from_cli(args) -> int:
                         sh_degree=target_scene.sh_degree, generator=gen,
                         device=dev)
     init.means = place_init(init.means, center, radius)
+    if channels:
+        init = with_features(init, channels, TEACHER_CHANNELS, gen)
     if args.densify_every:
         capacity = args.capacity or 2 * init.num_gaussians
         init = init.pad_to(capacity)
@@ -977,6 +1117,8 @@ def train_from_cli(args) -> int:
         eval_every=args.eval_every,
         eval_fn=eval_fn,
         retighten_capacity=args.retighten_capacity,
+        teachers=None if teachers is None
+        else teachers[torch.as_tensor(train_idx, device=dev)],
     )
     final_psnr = float(
         psnr_fn(render_jit(trained, cams[0], cfg).image, targets[0]))
@@ -985,4 +1127,9 @@ def train_from_cli(args) -> int:
         print(f"final held-out metrics: {eval_fn(trained, args.steps)}")
     save_ply(trained, args.out)
     print(f"saved {args.out}")
+    if channels:
+        path = f"{args.out}.features.pt"
+        torch.save({f: getattr(trained, f).cpu() for f in FEATURE_FIELDS},
+                   path)
+        print(f"saved {path}")
     return 0

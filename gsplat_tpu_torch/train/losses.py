@@ -10,10 +10,19 @@ drove the SSIM denominator through zero and killed two training runs; see
 `gsplat_tpu/train/losses.py::_blur`). cuDNN convolutions default to TF32,
 so `_Blur` sets `allow_tf32=False` around its forward and around its
 backward, which autograd would otherwise run outside any such context.
+
+Feature 3DGS's feature loss (`decoded_l1`, Zhou et al. 2024,
+arXiv:2312.03203): the rendered feature map resized bilinearly to the
+teacher's size (corners aligned), decoded by a 1x1 convolution (a (D, C)
+matrix and a bias) and held to the teacher by L1. The decoder is one dense
+float32 GEMM (cuBLAS), run with TF32 off (`fp32_matmuls`), as the
+configuration states float32; autograd runs its backward GEMMs where the
+caller's backward runs, which the train step puts under the same context.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -37,6 +46,18 @@ def _fp32_convs():
     cudnn = torch.backends.cudnn
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                        deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+@contextlib.contextmanager
+def fp32_matmuls():
+    """cuBLAS's float32 products with TF32 off, the flag restored after."""
+    flags = torch.backends.cuda.matmul
+    was = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        yield
+    finally:
+        flags.allow_tf32 = was
 
 
 @functools.lru_cache()
@@ -120,6 +141,27 @@ def rgb_loss(pred: torch.Tensor, target: torch.Tensor,
     return (1.0 - ssim_weight) * l1(pred, target) + ssim_weight * (
         1.0 - ssim(pred, target)
     )
+
+
+def decode_map(fmap: torch.Tensor, weight: torch.Tensor,
+               bias: torch.Tensor, size: tuple) -> torch.Tensor:
+    """The (D, h, w) decoding of a rendered feature map fmap (1, C, H, W):
+    resized bilinearly to size = (h, w) with its corners aligned, then
+    the 1x1 decoder weight (D, C), bias (D,), in full float32."""
+    x = F.interpolate(fmap, size=tuple(size), mode="bilinear",
+                      align_corners=True)[0]
+    with fp32_matmuls():
+        y = torch.addmm(bias[:, None], weight, x.flatten(1))
+    return y.view(-1, *x.shape[1:])
+
+
+def decoded_l1(fmap: torch.Tensor, teacher: torch.Tensor,
+               weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """mean |decode_map(fmap) - teacher|: fmap (1, C, H, W), the rendered
+    feature map; teacher (D, h, w), read as float32; weight (D, C) and
+    bias (D,), the 1x1 decoder."""
+    y = decode_map(fmap, weight, bias, teacher.shape[-2:])
+    return torch.mean(torch.abs(y - teacher.float()))
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,9 @@ configuration and on its inputs' shapes, dtypes and device (the port's
   (the warm-up: the kernels are built and loaded, lazy state such as
   Adam's moments is created, so no `nvcc` runs inside a capture) and
   returns that call's outputs; it then captures the body with
-  `torch.cuda.graph`;
+  `torch.cuda.graph` on that same stream, so that state kept per stream
+  (cuBLAS's workspace) exists before the capture and is not taken from
+  the graphs' pool, which would then hold it past its graph;
 - on a later call it replays the graph and returns fresh copies of the
   outputs, as `jax.jit` returns new arrays: a caller that keeps frame t
   does not see it overwritten by frame t + 1.
@@ -289,6 +291,7 @@ class Captured:
             t0 = time.perf_counter()
             before = counters.snapshot()
             with torch.cuda.graph(graph, pool=pool,
+                                  stream=_warm_streams[device],
                                   capture_error_mode=_capture_mode()):
                 with trace.capturing(device):
                     outputs = body(*args)

@@ -1,0 +1,163 @@
+"""On a CUDA card: K6 and K7, the blend of the colour and 128 feature
+channels and its backward (`csrc/feat_fwd.cu`, `csrc/feat_bwd.cu`), held
+to the port's plain walks on small frames and to the benchmark's plain
+reference (`splatbench/reference/features.py`) on a 1080p view of the
+garden configuration. Imports no JAX; skips without a card. On a machine
+without JAX, run it without tests/conftest.py:
+
+    python -m pytest --noconftest tests/test_torch_features_card.py -q
+"""
+
+import json
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from gsplat_tpu_torch import Camera
+from gsplat_tpu_torch.config import RenderConfig
+from gsplat_tpu_torch.models.gaussians import (
+    FeatureScene,
+    random_scene,
+    realistic_scene,
+    with_features,
+)
+from gsplat_tpu_torch.ops.binning import (
+    bin_gaussians,
+    features_f32,
+    gather_stream,
+)
+from gsplat_tpu_torch.ops.cuda import features as FE
+from gsplat_tpu_torch.ops.cuda import raster as RA
+from gsplat_tpu_torch.ops.projection import project_gaussians
+from gsplat_tpu_torch.ops.stream16 import gather_packed
+from gsplat_tpu_torch.render.pipeline import render
+from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+
+ROOT = Path(__file__).resolve().parents[1]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+from splatbench import gen, port  # noqa: E402
+from splatbench.reference import features as RF  # noqa: E402
+from splatbench.reference import render as RR  # noqa: E402
+
+C, D = 128, 512
+# Gaussians of the 1080p view: garden's statistics at a third of its count,
+# to keep the reference's pass short.
+N_1080P = 300_000
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _stream(scene, cfg, dev):
+    cam = Camera.default(cfg.width, cfg.height, device=dev)
+    with torch.no_grad():
+        proj = project_gaussians(scene, cam, cfg)
+        binned = bin_gaussians(proj, cfg)
+        feats = features_f32(proj, cfg)
+        stream = (gather_stream(feats, binned, cfg)
+                  if cfg.stream_format == "f32"
+                  else gather_packed(feats, binned.sorted_gid, cfg))
+    return binned, stream
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("fmt,ts", [("f32", 8), ("packed4", 16),
+                                    ("packed16", 32)])
+def test_kernels_against_the_plain_walks(cuda_device, fmt, ts):
+    """K6's colour is K1's bit for bit and its map the plain walk's; K7's
+    slot and table gradients the plain re-walk's, and K2's with no feature
+    gradient."""
+    g = torch.Generator(cuda_device).manual_seed(1)
+    scene = with_features(random_scene(3000, 3, generator=g,
+                                       device=cuda_device), C, 64,
+                          generator=g)
+    cfg = RenderConfig(width=192, height=128, tile_size=ts,
+                       max_intersections=1 << 20, block_size=ts,
+                       max_per_tile=8192 // ts * ts, binning="packed",
+                       stream_format=fmt,
+                       gather_backward="bf16" if fmt != "f32" else "variadic",
+                       grad_readout="bf16" if fmt != "f32" else "f32",
+                       segment_sum="pallas")
+    b, stream = _stream(scene, cfg, cuda_device)
+    gid, table = b.sorted_gid, scene.features
+    col, tr, fm = FE.feat_fwd_cuda(stream, b.ranges, gid, table, cfg)
+    k1c, k1t = RA.raster_tiles_cuda(stream, b.ranges, cfg)
+    assert torch.equal(col, k1c) and torch.equal(tr, k1t)
+    cpu = [x.cpu() for x in (stream, b.ranges, gid, table)]
+    pc, pt, pf = FE.feat_fwd(*cpu, cfg)
+    assert float((fm.cpu() - pf).abs().max()) < 1e-6
+    gc = torch.randn(col.shape, device=cuda_device, generator=g)
+    gt = torch.randn(tr.shape, device=cuda_device, generator=g)
+    gf = torch.randn(fm.shape, device=cuda_device, generator=g)
+    dgeo, dtab = FE.feat_bwd(stream, b.ranges, gid, b.sorted_gidk, table, gc,
+                             col, gt, tr, gf, fm, cfg)
+    pd, ptab = FE.feat_bwd(cpu[0], cpu[1], cpu[2], b.sorted_gidk.cpu(),
+                           cpu[3], gc.cpu(), pc, gt.cpu(), pt, gf.cpu(), pf,
+                           cfg)
+    assert float((dgeo.cpu() - pd).abs().max() / pd.abs().max()) < 1e-5
+    assert float((dtab.cpu() - ptab).abs().max() / ptab.abs().max()) < 1e-5
+    dgeo0, dtab0 = FE.feat_bwd(stream, b.ranges, gid, b.sorted_gidk, table,
+                               gc, col, gt, tr, torch.zeros_like(gf), fm, cfg)
+    k2 = RA.raster_bwd(stream, b.ranges, gc, col, gt, tr, cfg)
+    assert float((dgeo0 - k2).abs().max() / k2.abs().max()) < 1e-5
+    assert float(dtab0.abs().max()) == 0.0
+
+
+def _garden_1080p(dev):
+    cfg = json.loads((ROOT / "splatbench" / "configs" /
+                      "garden-1m-1080p.json").read_text())
+    rc = cfg["render"]
+    g = torch.Generator(dev).manual_seed(7)
+    scene = with_features(realistic_scene(N_1080P, 3, generator=g, device=dev),
+                          C, D, generator=g)
+    fields = {f: getattr(scene, f) for f in RF.FIELDS}
+    view = gen.view_matrices(dict(layout="disk", count=160, radius=0.1,
+                                  turn=0.05, center=[0.7, 0.7]))[11]
+    return rc, fields, view
+
+
+@pytest.mark.card
+def test_1080p_view_against_the_reference(cuda_device):
+    """The garden configuration's 1080p view: the feature map and image,
+    and the step's loss and every field's gradient, against the reference."""
+    rc, fields, view = _garden_1080p(cuda_device)
+    cfg = port.render_config(rc)
+    cam = port.camera(view, rc["width"], rc["height"], cuda_device)
+    rcam = RR.camera(view, rc["width"], rc["height"], cuda_device)
+    with torch.no_grad():
+        out = render(FeatureScene(**fields), cam, cfg)
+    ref = RF.render(fields, rcam, rc)
+    assert not bool(out.overflow)
+    d = out.features - ref["features"]
+    rmse, worst = float(torch.sqrt(torch.mean(d * d))), float(d.abs().max())
+    assert rmse < 1e-6 and worst < 1e-3, (rmse, worst)
+    g = torch.Generator(cuda_device).manual_seed(8)
+    target = torch.rand((rc["height"], rc["width"], 3), device=cuda_device,
+                        generator=g)
+    teacher = torch.randn((D, 270, 480), device=cuda_device,
+                          generator=g).to(torch.bfloat16)
+    tc = dict(lr=0.01, lr_scales=dict(means=0.016, log_scales=0.5, quats=0.1,
+                                      opacity_logits=5.0, sh=0.25),
+              ssim_weight=0.2)
+    fc = dict(gamma=1.0, lr=1e-3, decoder_lr=1e-4)
+    ref_loss, ref_grads = RF.loss_and_grads(fields, rcam, target, teacher, rc,
+                                            tc, fc)
+    scene = FeatureScene(**{k: v.clone() for k, v in fields.items()})
+    step = make_train_step(cfg, make_optimizer(scene), 0.2)
+    loss, aux, _ = step(scene, [cam], target[None], 3, teachers=teacher[None])
+    assert bool(aux["grads_finite"]) and not bool(aux["overflow"])
+    assert abs(float(loss) - ref_loss) <= 1e-5 * abs(ref_loss), (
+        float(loss), ref_loss)
+    gaps = {f: float(torch.linalg.vector_norm(getattr(scene, f).grad
+                                              - ref_grads[f])
+                     / torch.linalg.vector_norm(ref_grads[f]))
+            for f in RF.FIELDS}
+    assert max(gaps.values()) < 2e-2, gaps
