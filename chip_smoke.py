@@ -331,6 +331,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      reference's tally); then the main path feat3dgs, FEAT_STEPS captured
      train steps and a `render_jit` frame: K6 once a step and a frame, K7
      once a step.
+ 23. The projection's K8 and K9 (`check_projection`) on the first view of
+     bicycle's 6M scene (3840x2048) and of garden's 1M scene (1920x1080),
+     the benchmark cells' configurations, seed PROJECT_SEED: K8's outputs
+     against `_project_plain` run on the card (mask, rect, counts, radius
+     equal on >= 99.99% of the Gaussians, overflow equal, each float
+     output bit-equal on >= 99.9% of its elements and the rest within
+     PROJECT_ULPS); K9's gradients for N(0, 1) upstream gradients against
+     autograd of `_project_plain` (>= 99.99% of each field's entries
+     within rtol 5e-3 / atol 1e-5, all finite), both beside autograd in
+     float64; K9 with the upstream gradients zeroed off the mask, zeros
+     there; K8, K9 and the plain versions timed beside the bytes' bound;
+     then the main path project, 2 captured bicycle frames and 2 captured
+     garden steps: K8 once a frame or step, K9 once a step; the two
+     graphs' nodes by type.
      Each phase prints its seconds.
 Then one JSON line of kernel numbers, each kernel with its launches on each
 main path (`launches_by_path`, and their sum as `launches`; K3's rank stage
@@ -483,6 +497,11 @@ KERNELS = {
                  "none: no TPU kernel blends more than the colour"),
     "feat_bwd": ("features.bwd_launches", "gsplat_tpu_torch/csrc/feat_bwd.cu",
                  "none: no TPU kernel blends more than the colour"),
+    "project_fwd": ("project.launches", "gsplat_tpu_torch/csrc/project.cu",
+                    "none: XLA fuses the JAX package's jnp projection"),
+    "project_bwd": ("project.bwd_launches",
+                    "gsplat_tpu_torch/csrc/project.cu",
+                    "none: XLA fuses the JAX package's jnp projection"),
 }
 PROBES = ("probe_transc", "probe_tricumsum", "probe_gather", "probe_coldma")
 
@@ -1089,10 +1108,17 @@ def launch_counts() -> dict:
     """Each kernel's launch count, and K3's rank stage (the jumbo grid),
     count and emit stages (the 'packed' binning) alone as "cull_rank",
     "cull_count" and "cull_emit"."""
-    from gsplat_tpu_torch.ops.cuda import cull, features, probes, raster, segsum
+    from gsplat_tpu_torch.ops.cuda import (
+        cull,
+        features,
+        probes,
+        project,
+        raster,
+        segsum,
+    )
 
     mods = {"cull": cull, "raster": raster, "segsum": segsum, "probes": probes,
-            "features": features}
+            "features": features, "project": project}
     out = {}
     for name, (attr, _, _) in KERNELS.items():
         mod, var = attr.split(".")
@@ -1104,7 +1130,14 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
-    from gsplat_tpu_torch.ops.cuda import cull, features, probes, raster, segsum
+    from gsplat_tpu_torch.ops.cuda import (
+        cull,
+        features,
+        probes,
+        project,
+        raster,
+        segsum,
+    )
 
     cull.launches = cull.rank_launches = 0
     cull.count_launches = cull.emit_launches = 0
@@ -1114,6 +1147,7 @@ def reset_launch_counts() -> None:
     probes.transc_launches = probes.tricumsum_launches = 0
     probes.gather_launches = probes.coldma_launches = 0
     features.launches = features.bwd_launches = 0
+    project.launches = project.bwd_launches = 0
 
 
 def make_trainer(scene, cams, cfg, dev, eager=False):
@@ -4648,10 +4682,10 @@ FEAT_VIEW = 11
 FEAT_STEPS = 3      # captured train steps of the feature path
 
 
-def heaviest_tile_row(ranges, cfg) -> int:
-    """The tile row whose tiles hold the most slots."""
-    per_tile = (ranges[1:] - ranges[:-1]).reshape(cfg.tiles_y, cfg.tiles_x)
-    return int(per_tile.sum(1).argmax())
+def heaviest_row_index(ranges, cfg) -> int:
+    """The index of the tile row whose tiles hold the most slots (phase
+    21's `heaviest_tile_row`, which gives its tiles)."""
+    return heaviest_tile_row(ranges, cfg.tiles_x)[0] // cfg.tiles_x
 
 
 def band_only(g_col, g_tt, g_fm, row: int, cfg):
@@ -4805,7 +4839,7 @@ def check_features(dev, card: str, by_path: dict, kernels: dict) -> dict:
     g_col = torch.randn(col.shape, generator=gen_t, device=dev)
     g_tt = torch.randn(tr.shape, generator=gen_t, device=dev)
     g_fm = torch.randn(fm.shape, generator=gen_t, device=dev)
-    row = heaviest_tile_row(ranges, cfg)
+    row = heaviest_row_index(ranges, cfg)
     b_col, b_tt, b_fm = band_only(g_col, g_tt, g_fm, row, cfg)
     dgeo, dtab = FE.feat_bwd(stream, ranges, gid, gidk, table, b_col, col,
                              b_tt, tr, b_fm, fm, cfg)
@@ -4901,6 +4935,343 @@ def check_features(dev, card: str, by_path: dict, kernels: dict) -> dict:
     del scene, fields, targets, teachers, table
     torch.cuda.empty_cache()
     return res
+
+
+# ---- the projection kernels K8 and K9 (phase 23) ----------------------------
+
+# The cells whose scene and first view phase 23 projects: bicycle's 6M-
+# Gaussian 4K frame and garden's 1M-Gaussian 1080p step.
+PROJECT_CELLS = (("bicycle-6m-4k", "render.json"),
+                 ("garden-1m-1080p", "train.json"))
+PROJECT_SEED = 23
+# K8 against the plain version on the card: the integer outputs (mask,
+# rect, counts; and radius, a ceil) equal on PROJECT_INT_SHARE of the
+# Gaussians and overflow equal; each float output bit-equal on
+# PROJECT_BIT_SHARE of its elements, the rest at most PROJECT_ULPS apart.
+PROJECT_INT_SHARE = 0.9999
+PROJECT_BIT_SHARE = 0.999
+PROJECT_ULPS = 2
+PROJECT_INT_FIELDS = ("mask", "rect", "counts", "radius")
+PROJECT_FLOAT_FIELDS = ("uv", "conic", "depth", "color", "opacity")
+# K9 against autograd of the plain version: the scene-gradient tolerance,
+# on PROJECT_GRAD_SHARE of each field's entries.
+PROJECT_RTOL, PROJECT_ATOL = 5e-3, 1e-5
+PROJECT_GRAD_SHARE = 0.9999
+# Bytes a Gaussian at SH degree 3. K8 reads means 12, log-scales 12, the
+# quaternion 16, the opacity logit 4 and SH 192, and writes uv 8, conic
+# 12, depth 4, colour 12, opacity 4, radius 4, rect 16, count 4 and the
+# mask 1; K9 reads the same 236, the 36 of upstream gradients (uv 8, conic
+# 12, colour 12, opacity 4), and writes 236 of gradients.
+K8_BYTES = 236 + 65
+K9_BYTES = 236 + 36 + 236
+# FP32 operations a Gaussian, counted from the source (csrc/project.cu):
+# K8 about 400, K9 about 1000 (the forward again and its chain). Far
+# below the bytes on this card either way.
+K8_OPS, K9_OPS = 400, 1000
+
+
+def projection_edge_camera(device):
+    """The camera of `projection_edge_scene`: at the origin, looking down
+    +z, 64x48 pixels, focal (60, 50)."""
+    from gsplat_tpu_torch.ops.camera import Camera, look_at
+
+    return Camera.create(look_at((0.0, 0.0, 0.0), (0.0, 0.0, 1.0)), 64, 48,
+                         60.0, 50.0, device=device)
+
+
+def projection_edge_config(**kw):
+    """The RenderConfig of `projection_edge_scene`: K_max 16, so that its
+    largest splats overflow."""
+    from gsplat_tpu_torch import RenderConfig
+
+    return RenderConfig(**dict(dict(
+        width=64, height=48, tile_size=8, max_intersections=1 << 14,
+        max_tiles_per_gaussian=16, block_size=8, max_per_tile=256), **kw))
+
+
+# The groups of `projection_edge_scene`, in order.
+EDGE_GROUPS = ("visible", "behind", "before_near", "outside", "faint",
+               "dark", "degenerate", "huge")
+
+
+def projection_edge_scene(device, per_group: int = 16, seed: int = 0):
+    """An SH-3 scene that reaches every branch of the projection from
+    `projection_edge_camera`, `per_group` Gaussians a group (EDGE_GROUPS):
+    visible ones; behind the camera; between it and the near plane;
+    outside the frustum (|x / z| from 1.5 to 3, so that the txy clamp
+    bites);
+    opacity under alpha_min (logit -8); colour below 0 (SH DC -3, the
+    rest 0); zero
+    covariance (log-scales -60: exp(-60)^2 rounds to 0 in float32, so det
+    is 0 at a zero low-pass); rects past K_max (scale 0.5); and two
+    Gaussians at the camera's centre (a zero view direction)."""
+    import torch
+
+    from gsplat_tpu_torch.models.gaussians import GaussianScene
+
+    rng = np.random.default_rng(seed)
+    k = per_group
+
+    def block(z_lo, z_hi, spread):
+        z = rng.uniform(z_lo, z_hi, k)
+        xy = rng.uniform(-1.0, 1.0, (k, 2)) * spread * np.abs(z)[:, None]
+        return np.column_stack([xy, z])
+
+    spans = dict(visible=(2, 6, 0.3), behind=(-3, -0.5, 0.3),
+                 before_near=(0.01, 0.19, 0.3), outside=(2, 6, 1.0),
+                 faint=(2, 6, 0.3), dark=(2, 6, 0.3), degenerate=(2, 6, 0.3),
+                 huge=(2, 6, 0.2))
+    means = np.concatenate([block(*spans[g]) for g in EDGE_GROUPS]
+                           + [np.zeros((2, 3))])
+    n = means.shape[0]
+    at = {g: slice(i * k, (i + 1) * k) for i, g in enumerate(EDGE_GROUPS)}
+    out = means[at["outside"]]  # |x / z| in [1.5, 3]: off every frustum
+    out[:, 0] = np.sign(out[:, 0]) * rng.uniform(1.5, 3.0, k) * out[:, 2]
+    log_scales = rng.uniform(-4.5, -2.5, (n, 3))
+    logits = rng.uniform(-1.0, 3.0, n)
+    sh = rng.normal(0.0, 0.3, (n, 16, 3))
+    sh[:, 0] = rng.uniform(0.0, 2.0, (n, 3))
+    logits[at["faint"]] = -8.0
+    sh[at["dark"], 0] = -3.0
+    sh[at["dark"], 1:] = 0.0
+    log_scales[at["degenerate"]] = -60.0
+    log_scales[at["huge"]] = np.log(0.5)
+    return GaussianScene(*(
+        torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+        for x in (means, log_scales, rng.normal(size=(n, 4)), logits, sh)))
+
+
+def float_ulps(a, b):
+    """Per element, how many float32 steps apart a and b are (0 where
+    both are NaN; -0 and +0 are 0 apart)."""
+    import torch
+
+    def key(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    d = (key(a) - key(b)).abs()
+    return torch.where(torch.isnan(a) & torch.isnan(b), torch.zeros_like(d),
+                       d)
+
+
+def compare_projected(k, p) -> dict:
+    """K8's ProjectedGaussians `k` against the plain version's `p`: the
+    share of Gaussians whose integer outputs are equal, each float output's
+    share of bit-equal elements and largest distance in ulps, whether
+    overflow agrees, and `ok` where all are within PROJECT_*."""
+    out = {}
+    for f in PROJECT_INT_FIELDS:
+        a, b = getattr(k, f), getattr(p, f)
+        eq = (a == b) | ((a != a) & (b != b))  # NaN radii agree
+        out[f] = float((eq.all(-1) if eq.dim() > 1 else eq).float().mean())
+    out["overflow"] = bool(k.overflow) == bool(p.overflow)
+    for f in PROJECT_FLOAT_FIELDS:
+        d = float_ulps(getattr(k, f), getattr(p, f))
+        out[f] = float((d == 0).float().mean())
+        out[f"{f}_ulps"] = int(d.max())
+    out["ok"] = (out["overflow"]
+                 and all(out[f] >= PROJECT_INT_SHARE
+                         for f in PROJECT_INT_FIELDS)
+                 and all(out[f] >= PROJECT_BIT_SHARE
+                         and out[f"{f}_ulps"] <= PROJECT_ULPS
+                         for f in PROJECT_FLOAT_FIELDS))
+    return out
+
+
+def compare_projection_grads(got, want, exact=None) -> dict:
+    """K9's gradients against autograd's, per scene field: the share of
+    entries within PROJECT_ATOL + PROJECT_RTOL |want|, the largest
+    |got - want| / (PROJECT_ATOL + PROJECT_RTOL |want|), non-finite
+    entries; with `exact` (autograd in float64), each one's share within
+    the same tolerance of it. `ok` where every field's share is at least
+    PROJECT_GRAD_SHARE and every entry finite."""
+    from gsplat_tpu_torch.render.pipeline import SCENE_FIELDS
+
+    def ratio(a, b):
+        b = b.to(a.dtype)
+        return ((a - b).abs() / (PROJECT_ATOL + PROJECT_RTOL * b.abs())
+                ).nan_to_num(float("inf"))
+
+    out = {}
+    for i, (f, a, b) in enumerate(zip(SCENE_FIELDS, got, want)):
+        r = ratio(a, b)
+        out[f] = dict(within=float((r <= 1).float().mean()),
+                      worst=float(r.max()),
+                      nonfinite=int((~a.isfinite()).sum()))
+        if exact is not None:
+            for who, x in (("kernel", a), ("autograd", b)):
+                out[f][f"{who}_exact"] = float(
+                    (ratio(x, exact[i]) <= 1).float().mean())
+    out["ok"] = all(v["within"] >= PROJECT_GRAD_SHARE and v["nonfinite"] == 0
+                    for v in out.values())
+    return out
+
+
+def project_cell(name: str, traffic: str, dev):
+    """A benchmark cell's scene (seed PROJECT_SEED), its first view's
+    camera, its RenderConfig, and its config and traffic."""
+    from splatbench import gen, port
+
+    bench_dir = os.path.join(HERE, "splatbench")
+    with open(os.path.join(bench_dir, "configs", f"{name}.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(bench_dir, "traffic", traffic)) as f:
+        traffic = json.load(f)
+    rc = config["render"]
+    view = gen.view_matrices(traffic["poses"])[0]
+    return (port.scene(gen.make_scene(config, PROJECT_SEED, dev)),
+            port.camera(view, rc["width"], rc["height"], dev),
+            port.render_config(rc), config, traffic)
+
+
+def float64_grads(fields, cam, cfg, upstream):
+    """Autograd of `_project_plain` in float64 (scene, camera and upstream
+    gradients widened): the exact chain's reference for K9 and for
+    autograd in float32."""
+    import dataclasses as dc
+
+    import torch
+
+    from gsplat_tpu_torch.models.gaussians import GaussianScene
+    from gsplat_tpu_torch.ops import projection as P
+
+    leaves = [t.detach().double().requires_grad_(True) for t in fields]
+    cam64 = dc.replace(cam, **{f.name: getattr(cam, f.name).double()
+                               for f in dc.fields(cam)})
+    q = P._project_plain(GaussianScene(*leaves), cam64, cfg)
+    return torch.autograd.grad([q.uv, q.conic, q.color, q.opacity], leaves,
+                               [g.double() for g in upstream])
+
+
+def check_project_kernels(tag, scene, cam, cfg, dev) -> dict:
+    """K8 and K9 on one scene and view against the plain versions on the
+    card: K8's outputs (`compare_projected`), K9's gradients for N(0, 1)
+    upstream gradients against autograd of `_project_plain`, and both
+    against its float64 autograd (`compare_projection_grads`), K9 again
+    with the upstream gradients zero outside the mask (zeros there, the
+    first call's bits elsewhere); K8, K9 and the plain versions timed."""
+    import torch
+
+    from gsplat_tpu_torch.models.gaussians import GaussianScene
+    from gsplat_tpu_torch.ops import projection as P
+    from gsplat_tpu_torch.ops.cuda import project as K
+
+    fields = tuple(getattr(scene, f.name)
+                   for f in dataclasses.fields(GaussianScene))
+    cam_t = tuple(getattr(cam, f) for f in K.CAMERA_FIELDS)
+    degree = P.sh_degree(scene, cfg)
+    n = scene.num_gaussians
+    with torch.no_grad():
+        k = P.project_gaussians(scene, cam, cfg)
+        p, plain_fwd_ms = timed_once(lambda: P._project_plain(scene, cam, cfg))
+    fwd = compare_projected(k, p)
+    mask = k.mask
+    del k, p
+    gen_t = torch.Generator(device=dev).manual_seed(PROJECT_SEED)
+    g = [torch.randn(shape, generator=gen_t, device=dev)
+         for shape in ((n, 2), (n, 3), (n, 3), (n,))]
+    leaves = [t.detach().clone().requires_grad_(True) for t in fields]
+    q = P._project_plain(GaussianScene(*leaves), cam, cfg)
+    want, plain_bwd_ms = timed_once(lambda: torch.autograd.grad(
+        [q.uv, q.conic, q.color, q.opacity], leaves, g))
+    del q, leaves
+    exact = float64_grads(fields, cam, cfg, g)
+    got = K.project_bwd_cuda(fields, cam_t, cfg, degree, *g)
+    bwd = compare_projection_grads(got, want, exact)
+    del want, exact
+    masked = [torch.where(mask.view(-1, *([1] * (x.dim() - 1))), x,
+                          torch.zeros_like(x)) for x in g]
+    got_m = K.project_bwd_cuda(fields, cam_t, cfg, degree, *masked)
+    zero_rows = all(bool((x[~mask] == 0).all()) for x in got_m)
+    same_rows = all(bool(torch.equal(x[mask], y[mask]))
+                    for x, y in zip(got_m, got))
+    del got, got_m, masked
+    ms = dict(
+        K8=cuda_ms(lambda: K.project_fwd_cuda(fields, None, cam_t, cfg,
+                                              degree), 20),
+        K9=cuda_ms(lambda: K.project_bwd_cuda(fields, cam_t, cfg, degree,
+                                              *g), 20))
+    bounds = dict(K8=bound(n * K8_BYTES, n * K8_OPS),
+                  K9=bound(n * K9_BYTES, n * K9_OPS))
+    row = dict(n=n, fwd=fwd, bwd=bwd, zero_rows=zero_rows,
+               same_rows=same_rows, ms=ms,
+               bound_ms={k: b[0] for k, b in bounds.items()},
+               plain_fwd_ms=plain_fwd_ms, plain_bwd_ms=plain_bwd_ms,
+               visible=int(mask.sum()))
+    log(f"[K8/K9 {tag}] {json.dumps(row)}")
+    if not (fwd["ok"] and bwd["ok"] and zero_rows and same_rows):
+        raise SystemExit(f"K8/K9 {tag}: kernel outside the stated tolerance "
+                         "of the plain version, or K9 not zero on the rows "
+                         "without upstream gradients")
+    return row
+
+
+def check_projection(dev, card: str, by_path: dict, kernels: dict) -> dict:
+    """Phase 23: K8 and K9 (`check_project_kernels`) on bicycle's 6M scene
+    and its first view (3840x2048) and on garden's 1M scene and its first
+    view (1920x1080), the benchmark cells' configurations; then the main
+    path "project": bicycle's captured frame (`render_jit`, 2 calls) and
+    garden's captured train step (the cell's recipe, 2 steps), counted:
+    one K8 a frame or step, one K9 a step; the graphs' nodes by type at
+    capture."""
+    import torch
+
+    from gsplat_tpu_torch.render import pipeline
+    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+    from splatbench import gen
+
+    rows, cells = {}, {}
+    for name, traffic in PROJECT_CELLS:
+        scene, cam, cfg, config, tr = project_cell(name, traffic, dev)
+        rows[name] = check_project_kernels(name, scene, cam, cfg, dev)
+        cells[name] = (scene, cam, cfg, config, tr)
+        torch.cuda.empty_cache()
+    for kname, key, bytes_ in (("project_fwd", "K8", K8_BYTES),
+                               ("project_bwd", "K9", K9_BYTES)):
+        kernels[kname].update(
+            ms={c: r["ms"][key] for c, r in rows.items()},
+            bound_ms={c: r["bound_ms"][key] for c, r in rows.items()},
+            bound_by="bytes", library_ms=None,
+            plain_ms={c: r["plain_fwd_ms" if key == "K8" else "plain_bwd_ms"]
+                      for c, r in rows.items()},
+            bytes_per_gaussian=bytes_)
+
+    bscene, bcam, bcfg, _, _ = cells["bicycle-6m-4k"]
+    gscene, gcam, gcfg, gconfig, gtr = cells["garden-1m-1080p"]
+    tc = gconfig["train"]
+    targets = gen.make_targets(gtr["targets"], 1, gcfg.height, gcfg.width,
+                               PROJECT_SEED, dev, range(1))
+    nodes = {}
+
+    def path():
+        for _ in range(2):
+            out = pipeline.render_jit(bscene, bcam, bcfg)
+        nodes["frame"] = next(reversed(
+            pipeline.RENDER_GRAPHS.entries.values())).nodes
+        opt = make_optimizer(gscene, lr=tc["lr"])
+        step = make_train_step(gcfg, opt, ssim_weight=tc["ssim_weight"])
+        for _ in range(2):
+            loss, aux, _ = step(gscene, [gcam], targets,
+                                tc["active_sh_degree"])
+        (entry,) = step.graphs.entries.values()
+        nodes["step"] = entry.nodes
+        if bool(out.overflow) or bool(aux["overflow"]) or not (
+                bool(aux["grads_finite"]) and math.isfinite(float(loss))):
+            raise SystemExit("project: the frame or the step overflowed or "
+                             "went non-finite")
+
+    by_path["project"] = counts = drive("project",
+                                        ("project_fwd", "project_bwd"), path)
+    log(f"[project] nodes at capture: garden step {nodes['step']}, bicycle "
+        f"frame {nodes['frame']}; {card}")
+    if counts["project_fwd"] != 4 or counts["project_bwd"] != 2:
+        raise SystemExit(f"project: K8 launched {counts['project_fwd']} and "
+                         f"K9 {counts['project_bwd']} times for 2 frames and "
+                         "2 steps")
+    del cells, bscene, gscene, targets
+    torch.cuda.empty_cache()
+    return dict(rows=rows, nodes=nodes)
 
 
 def drive(path, needs, fn):
@@ -5499,6 +5870,13 @@ def run(dev) -> int:
     t0 = time.perf_counter()
     check_features(dev, card, by_path, kernels)
     log(f"[phase 22] {time.perf_counter() - t0:.1f} s")
+
+    # 23. The projection's K8 and K9 against the plain versions on
+    # bicycle's and garden's first views, and their launches on a captured
+    # frame and step.
+    t0 = time.perf_counter()
+    check_projection(dev, card, by_path, kernels)
+    log(f"[phase 23] {time.perf_counter() - t0:.1f} s")
 
     for stage in ("rank", "count", "emit"):
         kernels["cull"][f"{stage}_launches_by_path"] = {

@@ -28,6 +28,13 @@ SH_C3 = (
 def eval_sh(sh: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
     """sh: (..., K, 3) with K >= (degree+1)**2; dirs: (..., 3) unit view
     directions. Returns (..., 3) RGB, offset by +0.5 and clamped >= 0."""
+    return torch.clamp_min(eval_sh_unclamped(sh, dirs, degree), 0.0)
+
+
+def eval_sh_unclamped(sh: torch.Tensor, dirs: torch.Tensor,
+                      degree: int) -> torch.Tensor:
+    """`eval_sh` before its clamp at 0 (the projection's backward reads
+    where the clamp passed)."""
     if degree not in (0, 1, 2, 3):
         raise ValueError(f"Unsupported SH degree {degree}")
     if sh.shape[-2] < (degree + 1) ** 2:
@@ -65,5 +72,4 @@ def eval_sh(sh: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
             + SH_C3[5] * z * (xx - yy) * c[14]
             + SH_C3[6] * x * (xx - 3.0 * yy) * c[15]
         )
-    result = result + 0.5
-    return torch.clamp_min(result, 0.0)
+    return result + 0.5

@@ -134,15 +134,16 @@ OLD_PIX = ("    pix = uv * torch.tensor([cfg.width, cfg.height], "
 
 
 def _old_project_gaussians():
-    """project_gaussians as it was, with the image size a tensor built on
-    every call."""
-    src = inspect.getsource(projection.project_gaussians)
+    """The projection's plain version (the body of project_gaussians on
+    CPU tensors) as it was, with the image size a tensor built on every
+    call."""
+    src = inspect.getsource(projection._project_plain)
     src, n = re.subn(r"    pix = torch\.stack\(\[.*?\], -1\)\n", OLD_PIX, src,
                      flags=re.S)
     assert n == 1
     space = dict(vars(projection))
     exec(compile(src, projection.__file__, "exec"), space)
-    return space["project_gaussians"]
+    return space["_project_plain"]
 
 
 def _bits(t):

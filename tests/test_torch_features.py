@@ -303,7 +303,7 @@ def test_chip_smoke_tile_row_walk_is_the_frames(fmt):
     col, tr, fm = FE.feat_fwd(*args, scene.features, cfg)
     g = torch.Generator().manual_seed(5)
     grads = [torch.randn(x.shape, generator=g) for x in (col, tr, fm)]
-    row = cs.heaviest_tile_row(b.ranges, cfg)
+    row = cs.heaviest_row_index(b.ranges, cfg)
     bc, bt, bf = cs.band_only(*grads, row, cfg)
     dgeo, dtab = FE.feat_bwd(*args, b.sorted_gidk, scene.features, bc, col,
                              bt, tr, bf, fm, cfg)
