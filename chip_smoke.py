@@ -461,46 +461,43 @@ CLI_KMAX = 128
 CLI_STEPS = 180
 CLI_RESET_EVERY = 90
 
-# The kernels, in the order of the JSON line: name -> (module attribute of
-# its launch count, source, the TPU kernel it replaces).
+# K3's stages in the table of launch counts (ops/cuda/counters.py).
+K3_STAGES = ("K3.mask", "K3.compact", "K3.rank", "K3.count", "K3.emit")
+# The kernels, in the order of the JSON line: name -> (its names in the
+# table of launch counts, summed where the kernel is every stage; source;
+# the TPU kernel it replaces).
 KERNELS = {
-    "cull": ("cull.launches", "gsplat_tpu_torch/csrc/cull.cu",
+    "cull": (K3_STAGES, "gsplat_tpu_torch/csrc/cull.cu",
              "gsplat_tpu/ops/pallas/cull.py:31"),
-    "raster_fwd": ("raster.launches", "gsplat_tpu_torch/csrc/raster_fwd.cu",
+    "raster_fwd": (("K1",), "gsplat_tpu_torch/csrc/raster_fwd.cu",
                    "gsplat_tpu/ops/pallas/raster.py:143"),
-    "raster_fwd_packed": ("raster.packed_launches",
+    "raster_fwd_packed": (("K1.packed",),
                           "gsplat_tpu_torch/csrc/raster_fwd.cu",
                           "gsplat_tpu/ops/pallas/raster.py:143"),
-    "raster_bwd": ("raster.bwd_launches", "gsplat_tpu_torch/csrc/raster_bwd.cu",
+    "raster_bwd": (("K2",), "gsplat_tpu_torch/csrc/raster_bwd.cu",
                    "gsplat_tpu/ops/pallas/raster.py:214"),
-    "raster_bwd_packed": ("raster.bwd_packed_launches",
+    "raster_bwd_packed": (("K2.packed",),
                           "gsplat_tpu_torch/csrc/raster_bwd.cu",
                           "gsplat_tpu/ops/pallas/raster.py:214"),
-    "segsum": ("segsum.launches", "gsplat_tpu_torch/csrc/segsum.cu",
+    "segsum": (("K4",), "gsplat_tpu_torch/csrc/segsum.cu",
                "gsplat_tpu/ops/pallas/segsum.py:41"),
-    "segsum_packed": ("segsum.packed_launches",
-                      "gsplat_tpu_torch/csrc/segsum_packed.cu",
+    "segsum_packed": (("K5",), "gsplat_tpu_torch/csrc/segsum_packed.cu",
                       "gsplat_tpu/ops/pallas/segsum.py:86"),
-    "probe_transc": ("probes.transc_launches",
-                     "gsplat_tpu_torch/csrc/probe_transc.cu",
+    "probe_transc": (("P1",), "gsplat_tpu_torch/csrc/probe_transc.cu",
                      "scripts/micro_kernel_costs.py:37"),
-    "probe_tricumsum": ("probes.tricumsum_launches",
-                        "gsplat_tpu_torch/csrc/probe_tricumsum.cu",
+    "probe_tricumsum": (("P2",), "gsplat_tpu_torch/csrc/probe_tricumsum.cu",
                         "scripts/micro_kernel_costs.py:117"),
-    "probe_gather": ("probes.gather_launches",
-                     "gsplat_tpu_torch/csrc/probe_gather.cu",
+    "probe_gather": (("P3",), "gsplat_tpu_torch/csrc/probe_gather.cu",
                      "scripts/micro_kernel_costs.py:156"),
-    "probe_coldma": ("probes.coldma_launches",
-                     "gsplat_tpu_torch/csrc/probe_coldma.cu",
+    "probe_coldma": (("P4",), "gsplat_tpu_torch/csrc/probe_coldma.cu",
                      "scripts/micro_kernel_costs.py:213"),
-    "feat_fwd": ("features.launches", "gsplat_tpu_torch/csrc/feat_fwd.cu",
+    "feat_fwd": (("K6",), "gsplat_tpu_torch/csrc/feat_fwd.cu",
                  "none: no TPU kernel blends more than the colour"),
-    "feat_bwd": ("features.bwd_launches", "gsplat_tpu_torch/csrc/feat_bwd.cu",
+    "feat_bwd": (("K7",), "gsplat_tpu_torch/csrc/feat_bwd.cu",
                  "none: no TPU kernel blends more than the colour"),
-    "project_fwd": ("project.launches", "gsplat_tpu_torch/csrc/project.cu",
+    "project_fwd": (("K8",), "gsplat_tpu_torch/csrc/project.cu",
                     "none: XLA fuses the JAX package's jnp projection"),
-    "project_bwd": ("project.bwd_launches",
-                    "gsplat_tpu_torch/csrc/project.cu",
+    "project_bwd": (("K9",), "gsplat_tpu_torch/csrc/project.cu",
                     "none: XLA fuses the JAX package's jnp projection"),
 }
 PROBES = ("probe_transc", "probe_tricumsum", "probe_gather", "probe_coldma")
@@ -816,7 +813,7 @@ def check_packed_stages(proj, cfg, tag: str) -> dict:
     import torch
 
     from gsplat_tpu_torch.ops import binning
-    from gsplat_tpu_torch.ops.cuda import cull
+    from gsplat_tpu_torch.ops.cuda import counters, cull
 
     kmax, ts, tiles_x = cfg.max_tiles_per_gaussian, cfg.tile_size, cfg.tiles_x
     n_tiles, max_slots = cfg.num_tiles, cfg.max_intersections
@@ -827,7 +824,7 @@ def check_packed_stages(proj, cfg, tag: str) -> dict:
         depth_q = binning._depth_q(proj.depth, depth_bits)
     rows = params.shape[1]
     half = (cfg.tiles_y // 2) * tiles_x
-    before = (cull.count_launches, cull.emit_launches)
+    before = counters.snapshot()
     out = {"rows": rows, "kmax": kmax, "max_slots": max_slots}
     for name, cull_on, lo, hi in (("frame", True, 0, n_tiles),
                                   ("no_cull", False, 0, n_tiles),
@@ -865,8 +862,9 @@ def check_packed_stages(proj, cfg, tag: str) -> dict:
         del got, egot
     # 2 calls of each stage per variant, 21 more of the frame's count and
     # emit (cuda_ms warms up once).
-    out["launches"] = dict(count=cull.count_launches - before[0],
-                           emit=cull.emit_launches - before[1])
+    rose = counters.rise(before, counters.snapshot())
+    out["launches"] = dict(count=rose.get("K3.count", 0),
+                           emit=rose.get("K3.emit", 0))
     log(f"[K3 count/emit {tag}] {json.dumps(out)}")
     if any(any(out[v]["count_differ"]) or any(out[v]["emit_differ"])
            for v in ("frame", "no_cull", "band")):
@@ -1105,49 +1103,24 @@ def check_segsum_layouts(dev) -> None:
 
 
 def launch_counts() -> dict:
-    """Each kernel's launch count, and K3's rank stage (the jumbo grid),
-    count and emit stages (the 'packed' binning) alone as "cull_rank",
-    "cull_count" and "cull_emit"."""
-    from gsplat_tpu_torch.ops.cuda import (
-        cull,
-        features,
-        probes,
-        project,
-        raster,
-        segsum,
-    )
+    """Each kernel's launch count, K3's rank stage (the jumbo grid), count
+    and emit stages (the 'packed' binning) alone as "cull_rank",
+    "cull_count" and "cull_emit", and the stage marks as "mark"."""
+    from gsplat_tpu_torch.ops.cuda import counters
 
-    mods = {"cull": cull, "raster": raster, "segsum": segsum, "probes": probes,
-            "features": features, "project": project}
-    out = {}
-    for name, (attr, _, _) in KERNELS.items():
-        mod, var = attr.split(".")
-        out[name] = getattr(mods[mod], var)
-    out["cull_rank"] = cull.rank_launches
-    out["cull_count"] = cull.count_launches
-    out["cull_emit"] = cull.emit_launches
+    now = counters.snapshot()
+    out = {name: sum(now[n] for n in names)
+           for name, (names, _, _) in KERNELS.items()}
+    out.update(cull_rank=now["K3.rank"], cull_count=now["K3.count"],
+               cull_emit=now["K3.emit"], mark=now["mark"])
     return out
 
 
 def reset_launch_counts() -> None:
-    from gsplat_tpu_torch.ops.cuda import (
-        cull,
-        features,
-        probes,
-        project,
-        raster,
-        segsum,
-    )
+    """Every launch count, the marks and collectives too, to 0."""
+    from gsplat_tpu_torch.ops.cuda import counters
 
-    cull.launches = cull.rank_launches = 0
-    cull.count_launches = cull.emit_launches = 0
-    raster.launches = raster.packed_launches = 0
-    raster.bwd_launches = raster.bwd_packed_launches = 0
-    segsum.launches = segsum.packed_launches = 0
-    probes.transc_launches = probes.tricumsum_launches = 0
-    probes.gather_launches = probes.coldma_launches = 0
-    features.launches = features.bwd_launches = 0
-    project.launches = project.bwd_launches = 0
+    counters.reset()
 
 
 def make_trainer(scene, cams, cfg, dev, eager=False):
@@ -1803,7 +1776,7 @@ def check_bench(view0: dict, card: str) -> list:
     import torch
 
     from gsplat_tpu_torch.bench import build_kwargs, build_parser, preset
-    from gsplat_tpu_torch.ops.cuda import cull
+    from gsplat_tpu_torch.ops.cuda import counters
     from gsplat_tpu_torch.utils import bench, graphs
 
     runs = [(dict(mode=mode, scene=kind, exact_grads=exact),
@@ -1818,7 +1791,7 @@ def check_bench(view0: dict, card: str) -> list:
     results = []
     for tag, kw in runs:
         syncs = []
-        rank_before = cull.rank_launches
+        rank_before = counters.snapshot()["K3.rank"]
         kind = "loss_and_grad" if kw["mode"] == "fwd_bwd" else "render"
         caps = graphs.captures[kind]
         r = bench.run_bench(**kw, after_window=lambda fn: syncs.append(
@@ -1835,7 +1808,8 @@ def check_bench(view0: dict, card: str) -> list:
                     device=d["device"])
         if "flags" in tag:
             line.update(max_intersections=kw["max_intersections"],
-                        rank_launches=cull.rank_launches - rank_before)
+                        rank_launches=(counters.snapshot()["K3.rank"]
+                                       - rank_before))
             ok = (d["num_intersections"] < kw["max_intersections"]
                   and line["rank_launches"] > 0)
         else:
@@ -3161,16 +3135,14 @@ def check_tools(card: str, by_path: dict, view0: dict) -> dict:
 
 
 # Phase 19: the captured paths. A substring of each path kernel's demangled
-# name in the profiler's records, and the launch counters (names of
+# name in the profiler's records, and the launch counts (names of
 # ops/cuda/counters.py) whose launches it makes.
 PROFILE_NAMES = {
-    "cull": ("cull_kernel", ("cull.launches",)),
-    "raster_fwd": ("raster_fwd_kernel", ("raster.launches",
-                                         "raster.packed_launches")),
-    "raster_bwd": ("raster_bwd_kernel", ("raster.bwd_launches",
-                                         "raster.bwd_packed_launches")),
-    "segsum": ("F32Rows", ("segsum.launches",)),
-    "segsum_packed": ("Bf16Pairs", ("segsum.packed_launches",)),
+    "cull": ("cull_kernel", K3_STAGES),
+    "raster_fwd": ("raster_fwd_kernel", ("K1", "K1.packed")),
+    "raster_bwd": ("raster_bwd_kernel", ("K2", "K2.packed")),
+    "segsum": ("F32Rows", ("K4",)),
+    "segsum_packed": ("Bf16Pairs", ("K5",)),
 }
 JIT_STEPS = 10       # steps from one init, eager and captured
 JIT_TIMED = 8        # frames or calls timed, eager and replayed
@@ -3211,8 +3183,8 @@ def profile_window(fn, calls: int, skip=()) -> dict:
 def path_kernels(prof: dict, launches: dict, per: int = 1) -> dict:
     """Per path kernel of PROFILE_NAMES: its calls per replay in the
     profiler's records (of `per` replays), and the launches one replay
-    makes by the graph's own count (`Entry.launches`, the wrappers'
-    counters' rise at capture)."""
+    makes by the graph's own count (`Entry.launches`, the launch counts'
+    rise at capture)."""
     out = {}
     for name, (sub, names) in PROFILE_NAMES.items():
         out[name] = dict(
@@ -3582,7 +3554,7 @@ def check_cli_train_eager(out_dir: str, captured: dict, card: str) -> dict:
 # Their times are those of that setting, not of NVLink or of several cards.
 JIT_RANKS = 2
 # NCCL's kernels in the profiler's records (one per collective the port
-# issues: the `sharding.collectives` counter, which a replay adds per graph).
+# issues: the "collectives" launch count, which a replay adds per graph).
 NCCL_KERNEL = "ncclDevKernel"
 MESH_FIT_STEPS, MESH_FIT_DENSIFY_AT = 60, 30
 MESH_TIMED = 4       # calls timed per program, eager and replayed
@@ -3687,12 +3659,12 @@ def check_nccl_share(card: str) -> dict:
 def rank_counted(fn) -> dict:
     """fn() with this rank's launch counts set to 0 just before and read
     just after, the collectives it issued beside them."""
-    from gsplat_tpu_torch.parallel import sharding
+    from gsplat_tpu_torch.ops.cuda import counters
 
     reset_launch_counts()
-    sharding.collectives = 0
     fn()
-    return dict(launch_counts(), collectives=sharding.collectives)
+    return dict(launch_counts(),
+                collectives=counters.snapshot()["collectives"])
 
 
 def replay_report(replay, eager, entry, needs, skip=()):
@@ -3711,7 +3683,7 @@ def replay_report(replay, eager, entry, needs, skip=()):
     kern = path_kernels(prof, entry.launches, 4)
     nccl = dict(profiler=sum(v["calls"] for k, v in prof["kernels"].items()
                              if NCCL_KERNEL in k) / 4,
-                counted=entry.launches.get("sharding.collectives", 0))
+                counted=entry.launches.get("collectives", 0))
     row = dict(syncs_per_replay=syncs / 4, sync_sites=sites, eager=eager_t,
                replay=replay_t, busy_share=prof["busy_share"],
                profiled_wall_ms=prof["wall_ms"] / 4,
@@ -5637,13 +5609,14 @@ def run(dev) -> int:
     with np.load(os.path.join(gdir, "render_64.npz")) as d:
         golden = d["image"].astype(np.float32)
     gcam = Camera.default(64, 64, device=dev)
-    before = (cull.launches, raster.launches)
+    before = launch_counts()
     out = render(gscene, gcam, RenderConfig(**GOLDEN))
     g_db = psnr(out.image.cpu().numpy(), golden)
+    now = launch_counts()
+    rose = {k: now[k] - before[k] for k in ("cull", "raster_fwd")}
     log(f"[golden] PSNR {g_db} dB against render_64.npz, launches "
-        f"cull +{cull.launches - before[0]} raster +{raster.launches - before[1]}")
-    if not (g_db > 55.0 and cull.launches > before[0]
-            and raster.launches > before[1]):
+        f"cull +{rose['cull']} raster +{rose['raster_fwd']}")
+    if not (g_db > 55.0 and rose["cull"] > 0 and rose["raster_fwd"] > 0):
         raise SystemExit("golden: render below 55 dB or not through the kernels")
     c16 = RenderConfig(**GOLDEN, binning="tiered",
                        **dict(DEFAULT, stream_format="packed16"))

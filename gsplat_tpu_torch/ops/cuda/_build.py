@@ -7,8 +7,11 @@ by a hash of the sources and flags, so an edited source rebuilds. Nothing is
 built at import: the first launch builds, so a machine without `nvcc` can
 import every module and run the plain versions.
 
-Every C entry point returns `cudaGetLastError()` after its launch; `check`
-raises if that is not `cudaSuccess`.
+Every C entry point is bound here once, by `kernel` (a launch: the current
+stream appended, the returned `cudaGetLastError()` checked, the launch
+counted in `counters.py`) or `query` (a number read from the build, no
+stream); `expect` is the wrappers' one check of a tensor they hand to a
+kernel.
 """
 
 from __future__ import annotations
@@ -19,6 +22,10 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
+
+from gsplat_tpu_torch.ops.cuda import counters
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "gsplat_tpu_torch"
@@ -32,7 +39,14 @@ NVCC_FLAGS = [
 # Where the CUDA toolkit puts nvcc when it is not on PATH.
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 
+# The C argument types of the entry points.
+PTR, INT, INT64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                          ctypes.c_float)
+
 _libs: dict[str, ctypes.CDLL] = {}
+# Every bound C entry point: symbol -> (the library that exports it, its
+# argument types).
+bound: dict[str, tuple[str, list]] = {}
 
 
 def _nvcc() -> str:
@@ -95,6 +109,70 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {err}")
+def _bind(lib: str, symbol: str, argtypes: list):
+    """A getter of the C function `symbol` of csrc/<lib>.cu, its argument
+    types and int result set once per loaded library (the first call builds
+    and loads it; a library put in its place later is bound anew)."""
+    if symbol in bound:
+        raise ValueError(f"{symbol} is bound already")
+    bound[symbol] = (lib, argtypes)
+    fn = cdll = None
+
+    def get():
+        nonlocal fn, cdll
+        if load(lib) is not cdll:
+            cdll = load(lib)
+            fn = getattr(cdll, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        return fn
+
+    return get
+
+
+def kernel(lib: str, symbol: str, argtypes: list, name: str | None):
+    """`launch(device, *args, count=name)`: calls the entry point `symbol`
+    of csrc/<lib>.cu (arguments `argtypes`, then the stream) with args and
+    `device`'s current stream, inside `device`, raises if it returns an
+    error and then adds one launch to `count` in the table (None counts
+    nothing)."""
+    get = _bind(lib, symbol, [*argtypes, PTR])
+
+    def launch(device, *args, count: str | None = name) -> None:
+        with torch.cuda.device(device):
+            err = get()(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"CUDA kernel {symbol} failed to launch: "
+                               f"cudaError {err}")
+        if count is not None:
+            counters.bump(count)
+
+    return launch
+
+
+def query(lib: str, symbol: str):
+    """The int that the entry point `symbol` of csrc/<lib>.cu returns,
+    taking no argument and no stream, as a function."""
+    get = _bind(lib, symbol, [])
+    return lambda: get()()
+
+
+def expect(t: torch.Tensor, what: str, *, dtype: torch.dtype,
+           shape: tuple | None = None, device=None) -> None:
+    """Raise a ValueError naming `what` unless t is a contiguous tensor of
+    `dtype` and `shape` (None entries match any size) on `device`, or on
+    any CUDA device where `device` is None."""
+    if t.dtype != dtype:
+        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
+    if shape is not None and (t.dim() != len(shape) or any(
+            want not in (None, got) for got, want in zip(t.shape, shape))):
+        raise ValueError(f"{what} must have shape {shape} (None: any "
+                         f"size), got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous, got strides "
+                         f"{t.stride()}")
+    if device is None and t.device.type != "cuda":
+        raise ValueError(f"{what} must be on a CUDA device (the kernel's), "
+                         f"got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{what} must be on {device}, got {t.device}")

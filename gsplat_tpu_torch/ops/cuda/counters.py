@@ -1,44 +1,52 @@
-"""One registry of the kernel wrappers' launch counters.
+"""One table of launch counts by name.
 
-Each kernel module keeps its counters as module globals (`cull.launches`,
-`raster.bwd_packed_launches`, ...), to which its wrapper adds one where it
-launches its kernel and nowhere else, and names them here when it is
-imported (`register`). A CUDA graph's replay runs no Python, so no wrapper
-sees it: `utils/graphs.py` reads the counters' rise across a capture
-(`snapshot`), takes it back, since a capture launches nothing, and adds it
-once per replay (`add`).
+The names are the kernel table's (`PERF.md` §6): K1 and K2 on a float32 or
+a packed stream, K3's five stages, K4-K9, the probes P1-P4, the stage
+marks of `utils/trace.py` and the collectives of `parallel/sharding.py`.
+A launch counts under exactly one name, after its launch succeeded
+(`_build.kernel`), a collective where it is issued (`bump`); a total is a
+sum of names.
+
+A CUDA graph's replay runs no Python, so no wrapper sees it:
+`utils/graphs.py` reads the table's rise across a capture (`snapshot`,
+`rise`), takes it back, since a capture launches nothing, and adds it once
+per replay (`add`).
 """
 
 from __future__ import annotations
 
-import sys
+NAMES = ("K1", "K1.packed", "K2", "K2.packed", "K3.mask", "K3.compact",
+         "K3.rank", "K3.count", "K3.emit", "K4", "K5", "K6", "K7", "K8", "K9",
+         "P1", "P2", "P3", "P4", "mark", "collectives")
 
-# "<module>.<global>" -> (the module's full name, the global).
-_counters: dict = {}
+_table = dict.fromkeys(NAMES, 0)
 
 
-def register(module: str, *names: str) -> None:
-    """Name the launch counters `names` of the module `module` (its
-    `__name__`)."""
-    for name in names:
-        _counters[f"{module.rsplit('.', 1)[1]}.{name}"] = (module, name)
+def bump(name: str, n: int = 1) -> None:
+    """Add n to the count of `name` (one of NAMES)."""
+    if name not in _table:
+        raise KeyError(f"no launch count named {name!r}")
+    _table[name] += n
 
 
 def snapshot() -> dict:
-    """Every registered counter's value, by "<module>.<global>"."""
-    return {key: getattr(sys.modules[mod], name)
-            for key, (mod, name) in _counters.items()}
+    """Every count, by name."""
+    return dict(_table)
 
 
 def rise(before: dict, after: dict) -> dict:
-    """The counters that rose from `before` to `after`, and by how much."""
+    """The counts that rose from `before` to `after`, and by how much."""
     return {k: v - before.get(k, 0) for k, v in after.items()
             if v != before.get(k, 0)}
 
 
 def add(delta: dict, times: int = 1) -> None:
-    """Add `times` times `delta` (a `rise`) to the counters."""
-    for key, d in delta.items():
-        mod, name = _counters[key]
-        module = sys.modules[mod]
-        setattr(module, name, getattr(module, name) + times * d)
+    """Add `times` times `delta` (a `rise`) to the counts."""
+    for name, d in delta.items():
+        bump(name, times * d)
+
+
+def reset() -> None:
+    """Every count to 0."""
+    for name in _table:
+        _table[name] = 0

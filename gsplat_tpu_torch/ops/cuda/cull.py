@@ -33,12 +33,11 @@ plain count and emit are the mask, the band and the scatter written out
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from gsplat_tpu_torch.config import RenderConfig
-from gsplat_tpu_torch.ops.cuda import _build, counters
+from gsplat_tpu_torch.ops.cuda import _build
+from gsplat_tpu_torch.ops.cuda._build import FLOAT, INT, INT64, PTR
 
 # Parameter rows of the (NUM_ROWS, N) input.
 R_GX, R_GY, R_A, R_B, R_C, R_TAU, R_X0, R_Y0, R_W, R_COUNT = range(10)
@@ -47,16 +46,16 @@ NUM_ROWS = 10
 # The kernel's `stage` argument (csrc/cull.cu, Stage).
 STAGES = {"mask": 0, "compact": 1, "rank": 2}
 
-# Kernel launches, every stage: the CUDA wrappers add one per launch,
-# nowhere else; `rank_launches`, `count_launches` and `emit_launches` the
-# same for the rank stage alone (the jumbo grid) and for the 'packed'
-# route's count and emit stages.
-launches = 0
-rank_launches = 0
-count_launches = 0
-emit_launches = 0
-counters.register(__name__, "launches", "rank_launches", "count_launches",
-                  "emit_launches")
+# The entry points; each launch counts under "K3.<stage>".
+_CULL = _build.kernel("cull", "gsplat_cull",
+                      [PTR, INT64, INT, FLOAT, INT, PTR, PTR, PTR], None)
+_COUNT = _build.kernel(
+    "cull", "gsplat_cull_count",
+    [PTR, INT64, INT, FLOAT, INT, INT, INT, INT, PTR, PTR], "K3.count")
+_EMIT = _build.kernel(
+    "cull", "gsplat_cull_emit",
+    [PTR, PTR, PTR, PTR, INT64, INT, INT, INT, INT, INT, INT64, PTR, PTR],
+    "K3.emit")
 
 
 def cull_params(proj, cfg: RenderConfig, counts=None) -> torch.Tensor:
@@ -227,28 +226,13 @@ def cull_emit_plain(params: torch.Tensor, ballots: torch.Tensor,
 
 
 def _check_params(params: torch.Tensor) -> None:
-    if params.device.type != "cuda":
-        raise ValueError(f"cull: the kernel needs a CUDA device, got "
-                         f"{params.device}")
-    if params.dtype != torch.float32 or params.dim() != 2 or \
-            params.shape[0] != NUM_ROWS or not params.is_contiguous():
-        raise ValueError(
-            "cull: params must be a contiguous (10, R) float32 tensor, got "
-            f"{tuple(params.shape)} {params.dtype}"
-        )
-
-
-def _function(name: str, argtypes: list):
-    fn = getattr(_build.load("cull"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    _build.expect(params, "cull: params", dtype=torch.float32,
+                  shape=(NUM_ROWS, None))
 
 
 def _launch(params: torch.Tensor, kmax: int, tile_size: int, stage: str):
     """Launch the kernel's `stage` on (10, R) rows: its outputs as the
     plain version of that stage returns them."""
-    global launches, rank_launches
     _check_params(params)
     r, dev = params.shape[1], params.device
     mask = idx = counts = None
@@ -257,18 +241,9 @@ def _launch(params: torch.Tensor, kmax: int, tile_size: int, stage: str):
     if stage != "mask":
         idx = torch.empty((r, kmax), dtype=torch.int32, device=dev)
         counts = torch.empty((r,), dtype=torch.int32, device=dev)
-    fn = _function("gsplat_cull", [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(params.data_ptr(), r, kmax, float(tile_size), STAGES[stage],
-                 *(0 if t is None else t.data_ptr()
-                   for t in (mask, idx, counts)), stream)
-    _build.check(err, "gsplat_cull")
-    launches += 1
-    rank_launches += stage == "rank"
+    _CULL(dev, params.data_ptr(), r, kmax, float(tile_size), STAGES[stage],
+          *(0 if t is None else t.data_ptr() for t in (mask, idx, counts)),
+          count=f"K3.{stage}")
     return {"mask": mask, "compact": (idx, counts),
             "rank": (mask, idx, counts)}[stage]
 
@@ -292,23 +267,13 @@ def cull_rank_cuda(params: torch.Tensor, kmax: int, tile_size: int):
 def cull_count_cuda(params: torch.Tensor, kmax: int, tile_size: int,
                     cull: bool, tiles_x: int, tile_lo: int, tile_hi: int):
     """The count stage: (10, R) rows -> (ballots, counts)."""
-    global launches, count_launches
     _check_params(params)
     r, dev = params.shape[1], params.device
     ballots = torch.empty((r, (kmax + 31) // 32), dtype=torch.int32,
                           device=dev)
     counts = torch.empty((r,), dtype=torch.int32, device=dev)
-    fn = _function("gsplat_cull_count", [
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        err = fn(params.data_ptr(), r, kmax, float(tile_size), int(cull),
-                 tiles_x, tile_lo, tile_hi, ballots.data_ptr(),
-                 counts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "gsplat_cull_count")
-    launches += 1
-    count_launches += 1
+    _COUNT(dev, params.data_ptr(), r, kmax, float(tile_size), int(cull),
+           tiles_x, tile_lo, tile_hi, ballots.data_ptr(), counts.data_ptr())
     return ballots, counts
 
 
@@ -317,33 +282,19 @@ def cull_emit_cuda(params: torch.Tensor, ballots: torch.Tensor,
                    tiles_x: int, tile_lo: int, depth_bits: int, kb: int,
                    max_slots: int, sentinel: int):
     """The emit stage: the count stage's ballots -> (keys, gidk)."""
-    global launches, emit_launches
     _check_params(params)
     r, dev = params.shape[1], params.device
     for name, t, dtype, shape in (
             ("ballots", ballots, torch.int32, (r, (kmax + 31) // 32)),
             ("offsets", offsets, torch.int32, (r,)),
             ("depth_q", depth_q, torch.int64, (r,))):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f"cull emit: {name} must be a contiguous {shape} {dtype} "
-                f"tensor on {dev}, got {tuple(t.shape)} {t.dtype} {t.device}")
+        _build.expect(t, f"cull emit: {name}", dtype=dtype, shape=shape,
+                      device=dev)
     keys = torch.full((max_slots,), sentinel, dtype=torch.int64, device=dev)
     gidk = torch.full((max_slots,), -1, dtype=torch.int32, device=dev)
-    fn = _function("gsplat_cull_emit", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        err = fn(params.data_ptr(), ballots.data_ptr(), offsets.data_ptr(),
-                 depth_q.data_ptr(), r, kmax, tiles_x, tile_lo, depth_bits,
-                 kb, max_slots, keys.data_ptr(), gidk.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "gsplat_cull_emit")
-    launches += 1
-    emit_launches += 1
+    _EMIT(dev, params.data_ptr(), ballots.data_ptr(), offsets.data_ptr(),
+          depth_q.data_ptr(), r, kmax, tiles_x, tile_lo, depth_bits, kb,
+          max_slots, keys.data_ptr(), gidk.data_ptr())
     return keys, gidk
 
 

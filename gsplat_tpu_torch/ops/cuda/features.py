@@ -21,8 +21,6 @@ from run to run; `index_add_` on the CPU).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from gsplat_tpu_torch.config import RenderConfig
@@ -31,8 +29,13 @@ from gsplat_tpu_torch.ops.binning import (
     gather_slots_bwd,
     kmax_eff,
 )
-from gsplat_tpu_torch.ops.cuda import _build, counters
-from gsplat_tpu_torch.ops.cuda.raster import _QUANT_TYPES, _stream_args
+from gsplat_tpu_torch.ops.cuda import _build
+from gsplat_tpu_torch.ops.cuda._build import INT, INT64, PTR
+from gsplat_tpu_torch.ops.cuda.raster import (
+    _BLEND_TYPES,
+    _QUANT_TYPES,
+    _stream_args,
+)
 from gsplat_tpu_torch.ops.raster_torch import (
     _image_to_tiles,
     _raster_tiles,
@@ -42,30 +45,31 @@ from gsplat_tpu_torch.ops.raster_torch import (
 )
 from gsplat_tpu_torch.ops.stream16 import unpack_block
 
-# K6 and K7 launches: feat_fwd_cuda and feat_bwd_cuda add one per launch,
-# nowhere else.
-launches = 0
-bwd_launches = 0
-counters.register(__name__, "launches", "bwd_launches")
+# The entry points, after the stream's arguments, gid and the table: the
+# channels, a count of tiles and the image's geometry; K7 takes the
+# upstream gradients and the map before the geometry.
+_GEOMETRY = [INT, INT, INT, INT, INT, *_BLEND_TYPES, *_QUANT_TYPES]
+_K6 = _build.kernel(
+    "feat_fwd", "gsplat_feat_fwd",
+    [PTR, INT, INT64, PTR, PTR, PTR, INT, INT, *_GEOMETRY, PTR, PTR, PTR],
+    "K6")
+_K7 = _build.kernel(
+    "feat_bwd", "gsplat_feat_bwd",
+    [PTR, INT, INT64, PTR, PTR, PTR, INT, INT, PTR, PTR, PTR, PTR,
+     *_GEOMETRY, PTR, PTR], "K7")
 
 
 def _check_table(table, gid, stream) -> None:
-    if table.dtype != torch.float32 or table.dim() != 2 or \
-            not table.is_contiguous() or table.device != stream.device:
-        raise ValueError(
-            f"features: the feature table must be a contiguous (N, C) "
-            f"float32 tensor on the stream's device, got "
-            f"{tuple(table.shape)} {table.dtype} on {table.device}")
-    if gid.dtype != torch.int32 or gid.shape != (stream.shape[1],) or \
-            not gid.is_contiguous() or gid.device != stream.device:
-        raise ValueError("features: gid must be a contiguous (max_I,) int32 "
-                         "tensor on the stream's device")
+    _build.expect(table, "features: the feature table (N, C)",
+                  dtype=torch.float32, shape=(None, None),
+                  device=stream.device)
+    _build.expect(gid, "features: gid (max_I,)", dtype=torch.int32,
+                  shape=(stream.shape[1],), device=stream.device)
 
 
 def feat_fwd_cuda(stream, ranges, gid, table, cfg: RenderConfig):
     """Launch K6: (tile_colors (T, 3, P), tile_trans (T, P), feature map
     (H, W, C))."""
-    global launches
     fmt, *quant = _stream_args(stream, ranges, cfg)
     _check_table(table, gid, stream)
     num_tiles, p = cfg.num_tiles, cfg.pixels_per_tile
@@ -75,26 +79,11 @@ def feat_fwd_cuda(stream, ranges, gid, table, cfg: RenderConfig):
     trans = torch.empty((num_tiles, p), dtype=torch.float32, device=dev)
     fmap = torch.empty((cfg.height, cfg.width, channels), dtype=torch.float32,
                        device=dev)
-    fn = _build.load("feat_fwd").gsplat_feat_fwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, *_QUANT_TYPES,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    cuda_stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(
-            stream.data_ptr(), fmt, stream.shape[1], ranges.data_ptr(),
-            gid.data_ptr(), table.data_ptr(), channels, num_tiles, 0,
-            cfg.tiles_x, cfg.tile_size, cfg.width, cfg.height,
-            cfg.alpha_clamp, cfg.alpha_min, cfg.transmittance_min, *quant,
-            colors.data_ptr(), trans.data_ptr(), fmap.data_ptr(), cuda_stream,
-        )
-    _build.check(err, "gsplat_feat_fwd")
-    launches += 1
+    _K6(dev, stream.data_ptr(), fmt, stream.shape[1], ranges.data_ptr(),
+        gid.data_ptr(), table.data_ptr(), channels, num_tiles, 0,
+        cfg.tiles_x, cfg.tile_size, cfg.width, cfg.height, cfg.alpha_clamp,
+        cfg.alpha_min, cfg.transmittance_min, *quant, colors.data_ptr(),
+        trans.data_ptr(), fmap.data_ptr())
     return colors, trans, fmap
 
 
@@ -104,7 +93,6 @@ def feat_bwd_cuda(stream, ranges, gid, table, g_colors, b_total, g_fmap,
     of K2's inputs, g_fmap the feature map's gradient and fmap the map ->
     (the 9 slot gradients (NUM_FEATURES, max_I) float32, zero on every
     slot no pixel applied; the feature table's gradient (N, C))."""
-    global bwd_launches
     fmt, *quant = _stream_args(stream, ranges, cfg)
     _check_table(table, gid, stream)
     num_tiles, p = cfg.num_tiles, cfg.pixels_per_tile
@@ -115,36 +103,17 @@ def feat_bwd_cuda(stream, ranges, gid, table, g_colors, b_total, g_fmap,
             ("b_total", b_total, (num_tiles, p)),
             ("g_fmap", g_fmap, (cfg.height, cfg.width, channels)),
             ("fmap", fmap, (cfg.height, cfg.width, channels))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape or \
-                not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"features: {name} must be a contiguous {shape} "
-                             f"float32 tensor on the stream's device, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+        _build.expect(t, f"features: {name}", dtype=torch.float32,
+                      shape=shape, device=dev)
     max_i = stream.shape[1]
     dgeo = torch.zeros((NUM_FEATURES, max_i), dtype=torch.float32, device=dev)
     dtable = torch.zeros_like(table)
-    fn = _build.load("feat_bwd").gsplat_feat_bwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, *_QUANT_TYPES,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    cuda_stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(
-            stream.data_ptr(), fmt, max_i, ranges.data_ptr(), gid.data_ptr(),
-            table.data_ptr(), channels, num_tiles, g_colors.data_ptr(),
-            b_total.data_ptr(), g_fmap.data_ptr(), fmap.data_ptr(), 0,
-            cfg.tiles_x, cfg.tile_size, cfg.width, cfg.height,
-            cfg.alpha_clamp, cfg.alpha_min, cfg.transmittance_min, *quant,
-            dgeo.data_ptr(), dtable.data_ptr(), cuda_stream,
-        )
-    _build.check(err, "gsplat_feat_bwd")
-    bwd_launches += 1
+    _K7(dev, stream.data_ptr(), fmt, max_i, ranges.data_ptr(), gid.data_ptr(),
+        table.data_ptr(), channels, num_tiles, g_colors.data_ptr(),
+        b_total.data_ptr(), g_fmap.data_ptr(), fmap.data_ptr(), 0,
+        cfg.tiles_x, cfg.tile_size, cfg.width, cfg.height, cfg.alpha_clamp,
+        cfg.alpha_min, cfg.transmittance_min, *quant, dgeo.data_ptr(),
+        dtable.data_ptr())
     return dgeo, dtable
 
 

@@ -1,5 +1,5 @@
 """The four cost probes of `scripts/micro_kernel_costs.py` as CUDA kernels,
-with their plain PyTorch versions and launch counts:
+with their plain PyTorch versions (launches counted as "P1".."P4"):
 
 - P1 `csrc/probe_transc.cu` replaces `_transc_kernel` (`:37`): an
   elementwise pass shaped like the blend's inner loop, with exact
@@ -28,20 +28,10 @@ tensor; the `*_cuda` wrappers take CUDA tensors only.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from gsplat_tpu_torch.ops.cuda import _build, counters
-
-# Launches of P1..P4: each `*_cuda` wrapper adds one per launch of its
-# kernel, nowhere else.
-transc_launches = 0
-tricumsum_launches = 0
-gather_launches = 0
-coldma_launches = 0
-counters.register(__name__, "transc_launches", "tricumsum_launches",
-                  "gather_launches", "coldma_launches")
+from gsplat_tpu_torch.ops.cuda import _build
+from gsplat_tpu_torch.ops.cuda._build import INT, INT64, PTR
 
 # P1's modes, in the order of the TPU script; the value is the kernel's
 # `mode` argument (csrc/probe_transc.cu, Mode).
@@ -180,52 +170,34 @@ def column_copy_plain(table, idx):
 
 # ----------------------------------------------------------------- kernels
 
-def _check(what: str, t, dtype, dim: int | None = None, like=None) -> None:
-    if t.dtype != dtype or (dim is not None and t.dim() != dim) or \
-            not t.is_contiguous():
-        raise ValueError(f"{what}: expected a contiguous "
-                         f"{'' if dim is None else f'{dim}-D '}{dtype} "
-                         f"tensor, got {tuple(t.shape)} {t.dtype}")
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: the kernel needs a CUDA device, got "
-                         f"{t.device}")
-    if like is not None and t.device != like.device:
-        raise ValueError(f"{what}: tensors on {t.device} and {like.device}")
-
-
-def _launch(name: str, argtypes: list, ref, *args) -> None:
-    fn = getattr(_build.load(name), f"gsplat_{name}")
-    fn.argtypes = [*argtypes, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(ref.device).cuda_stream
-    with torch.cuda.device(ref.device):
-        err = fn(*args, stream)
-    _build.check(err, f"gsplat_{name}")
+_P1 = _build.kernel("probe_transc", "gsplat_probe_transc",
+                    [PTR, PTR, INT64, INT], "P1")
+_P2 = _build.kernel("probe_tricumsum", "gsplat_probe_tricumsum",
+                    [PTR, PTR, INT64, INT], "P2")
+_P3 = _build.kernel("probe_gather", "gsplat_probe_gather",
+                    [PTR, PTR, PTR, INT, INT], "P3")
+_P4 = _build.kernel("probe_coldma", "gsplat_probe_coldma",
+                    [PTR, PTR, PTR, INT64, INT, INT64, INT], "P4")
 
 
 def transc_cuda(x, mode: str):
     """Launch P1: float32 x of any shape (16-byte aligned) -> the mode's
     function of each element."""
-    global transc_launches
-    _check("transc", x, torch.float32)
+    _build.expect(x, "transc: x", dtype=torch.float32)
     if mode not in TRANSC_MODES:
         raise ValueError(f"transc: mode must be one of {tuple(TRANSC_MODES)},"
                          f" got {mode!r}")
     if x.data_ptr() % 16:
         raise ValueError("transc: x must be 16-byte aligned (float4 loads)")
     out = torch.empty_like(x)
-    _launch("probe_transc",
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int],
-            x, x.data_ptr(), out.data_ptr(), x.numel(), TRANSC_MODES[mode])
-    transc_launches += 1
+    _P1(x.device, x.data_ptr(), out.data_ptr(), x.numel(), TRANSC_MODES[mode])
     return out
 
 
 def tricumsum_cuda(x, precision: str):
     """Launch P2: float32 x (..., 128) -> x @ make_triangular(128) at
     `precision` (1, 3 or 6 bf16 passes on the tensor cores)."""
-    global tricumsum_launches
-    _check("tri_cumsum", x, torch.float32)
+    _build.expect(x, "tri_cumsum: x", dtype=torch.float32)
     if x.dim() < 2 or x.shape[-1] != TRI_WIDTH:
         raise ValueError(f"tri_cumsum: x must be (..., {TRI_WIDTH}), got "
                          f"{tuple(x.shape)}")
@@ -233,11 +205,8 @@ def tricumsum_cuda(x, precision: str):
         raise ValueError(f"tri_cumsum: precision must be one of "
                          f"{tuple(PASSES)}, got {precision!r}")
     out = torch.empty_like(x)
-    _launch("probe_tricumsum",
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int],
-            x, x.data_ptr(), out.data_ptr(), x.numel() // TRI_WIDTH,
-            len(PASSES[precision]))
-    tricumsum_launches += 1
+    _P2(x.device, x.data_ptr(), out.data_ptr(), x.numel() // TRI_WIDTH,
+        len(PASSES[precision]))
     return out
 
 
@@ -245,20 +214,17 @@ def lane_gather_cuda(tab, idx):
     """Launch P3: tab (R, C) float32, idx (R, C) int32 -> tab[r, idx[r, c]]
     with lane_gather_plain's index rule, from one CTA per row that holds its
     row in shared memory (C <= GATHER_MAX_COLS)."""
-    global gather_launches
-    _check("lane_gather", tab, torch.float32, 2)
-    _check("lane_gather", idx, torch.int32, 2, like=tab)
+    _build.expect(tab, "lane_gather: tab", dtype=torch.float32,
+                  shape=(None, None))
+    _build.expect(idx, "lane_gather: idx", dtype=torch.int32,
+                  shape=(None, None), device=tab.device)
     if idx.shape != tab.shape or tab.shape[1] > GATHER_MAX_COLS:
         raise ValueError(f"lane_gather: tab and idx must be one (R, C) shape "
                          f"with C <= {GATHER_MAX_COLS}, got "
                          f"{tuple(tab.shape)} and {tuple(idx.shape)}")
     out = torch.empty_like(tab)
-    _launch("probe_gather",
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int],
-            tab, tab.data_ptr(), idx.data_ptr(), out.data_ptr(), tab.shape[0],
-            tab.shape[1])
-    gather_launches += 1
+    _P3(tab.device, tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        tab.shape[0], tab.shape[1])
     return out
 
 
@@ -267,20 +233,17 @@ def column_copy_cuda(table, idx):
     out[i, :, j] = table[:, c] by column_copy_plain's index rule: a thread
     owns 4 columns of a block (one where G % 4 != 0), loads every row of
     them into registers and stores each row as one 16-byte store."""
-    global coldma_launches
-    _check("column_copy", table, torch.float32, 2)
-    _check("column_copy", idx, torch.int32, 2, like=table)
+    _build.expect(table, "column_copy: table", dtype=torch.float32,
+                  shape=(None, None))
+    _build.expect(idx, "column_copy: idx", dtype=torch.int32,
+                  shape=(None, None), device=table.device)
     f, n = table.shape
     b, g = idx.shape
     if n == 0 and idx.numel():
         raise ValueError("column_copy: the table has no column to copy")
     out = torch.empty((b, f, g), dtype=torch.float32, device=table.device)
-    _launch("probe_coldma",
-            [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int],
-            table, table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, f, b,
-            g)
-    coldma_launches += 1
+    _P4(table.device, table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, f,
+        b, g)
     return out
 
 

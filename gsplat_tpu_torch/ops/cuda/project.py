@@ -17,13 +17,8 @@ import numpy as np
 import torch
 
 from gsplat_tpu_torch.config import RenderConfig
-from gsplat_tpu_torch.ops.cuda import _build, counters
-
-# K8 and K9 launches: project_fwd_cuda and project_bwd_cuda add one per
-# launch, nowhere else.
-launches = 0
-bwd_launches = 0
-counters.register(__name__, "launches", "bwd_launches")
+from gsplat_tpu_torch.ops.cuda import _build
+from gsplat_tpu_torch.ops.cuda._build import INT, PTR
 
 CAMERA_FIELDS = ("view", "full_proj", "cam_pos", "focal", "tan_fov", "znear")
 
@@ -36,6 +31,15 @@ class _Config(ctypes.Structure):
         "max_screen_radius", "alpha_min", "inv_alpha_min", "scale_modifier",
         "width", "height", "inv_tile")] + [
         (name, ctypes.c_int) for name in ("tiles_x", "tiles_y", "kmax")]
+
+
+# The entry points: N, the scene's SH coefficients, the degree, then arrays
+# of pointers (scene, tap, camera; or scene, camera, config, gradients) and
+# the outputs' pointers.
+_K8 = _build.kernel("project", "gsplat_project_fwd",
+                    [INT, INT, INT, PTR, PTR, PTR, _Config, PTR], "K8")
+_K9 = _build.kernel("project", "gsplat_project_bwd",
+                    [INT, INT, INT, PTR, PTR, _Config, PTR, PTR], "K9")
 
 
 def _config(cfg: RenderConfig) -> _Config:
@@ -59,26 +63,21 @@ def _pointers(tensors) -> ctypes.Array:
 def _checked(fields, camera, dev) -> tuple[list, list]:
     """The scene's five fields and the camera's six tensors, float32,
     contiguous and on `dev`, or a ValueError."""
+    fields = [t.contiguous() for t in fields]
+    camera = [t.contiguous() for t in camera]
     n = fields[0].shape[0]
-    shapes = ((n, 3), (n, 3), (n, 4), (n,), None)
-    for t, shape in zip(fields, shapes):
-        if t.dtype != torch.float32 or t.device != dev or (
-                shape is not None and tuple(t.shape) != shape):
-            raise ValueError(
-                f"project: scene fields must be float32 (N, 3), (N, 3), "
-                f"(N, 4), (N,), (N, K, 3) on {dev}, got {tuple(t.shape)} "
-                f"{t.dtype} on {t.device}")
-    sh = fields[4]
-    if sh.dim() != 3 or sh.shape[0] != n or sh.shape[2] != 3 or \
-            sh.shape[1] not in (1, 4, 9, 16):
+    for name, t, shape in zip(
+            ("means", "log_scales", "quats", "opacity_logits", "sh"), fields,
+            ((n, 3), (n, 3), (n, 4), (n,), (n, None, 3))):
+        _build.expect(t, f"project: {name}", dtype=torch.float32,
+                      shape=shape, device=dev)
+    if fields[4].shape[1] not in (1, 4, 9, 16):
         raise ValueError(f"project: sh must be (N, 1|4|9|16, 3), got "
-                         f"{tuple(sh.shape)}")
+                         f"{tuple(fields[4].shape)}")
     for name, t in zip(CAMERA_FIELDS, camera):
-        if t.dtype != torch.float32 or t.device != dev:
-            raise ValueError(f"project: camera.{name} must be float32 on "
-                             f"{dev}, got {t.dtype} on {t.device}")
-    return ([t.contiguous() for t in fields],
-            [t.contiguous() for t in camera])
+        _build.expect(t, f"project: camera.{name}", dtype=torch.float32,
+                      device=dev)
+    return fields, camera
 
 
 def project_fwd_cuda(fields, uv_tap, camera, cfg: RenderConfig, degree: int):
@@ -87,16 +86,13 @@ def project_fwd_cuda(fields, uv_tap, camera, cfg: RenderConfig, degree: int):
     SH degree evaluated (at most the scene's). Returns (mask, uv, conic,
     depth, color, opacity, radius, rect, counts, overflow), as
     `ProjectedGaussians` orders them."""
-    global launches
     dev = fields[0].device
     fields, camera = _checked(fields, camera, dev)
     n = fields[0].shape[0]
     if uv_tap is not None:
-        if uv_tap.dtype != torch.float32 or tuple(uv_tap.shape) != (n, 2) \
-                or uv_tap.device != dev:
-            raise ValueError("project: uv_tap must be a float32 (N, 2) "
-                             "tensor on the scene's device")
         uv_tap = uv_tap.contiguous()
+        _build.expect(uv_tap, "project: uv_tap", dtype=torch.float32,
+                      shape=(n, 2), device=dev)
 
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -106,18 +102,9 @@ def project_fwd_cuda(fields, uv_tap, camera, cfg: RenderConfig, degree: int):
             empty(n), empty(n, 4, dtype=torch.int32),
             empty(n, dtype=torch.int32), mask,
             torch.zeros((), dtype=torch.bool, device=dev)]
-    fn = _build.load("project").gsplat_project_fwd
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, _Config, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    cuda_stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(n, fields[4].shape[1], degree, _pointers(fields),
-                 None if uv_tap is None else uv_tap.data_ptr(),
-                 _pointers(camera), _config(cfg), _pointers(outs), cuda_stream)
-    _build.check(err, "gsplat_project_fwd")
-    launches += 1
+    _K8(dev, n, fields[4].shape[1], degree, _pointers(fields),
+        None if uv_tap is None else uv_tap.data_ptr(), _pointers(camera),
+        _config(cfg), _pointers(outs))
     return (mask, *outs[:8], outs[9])
 
 
@@ -127,7 +114,6 @@ def project_bwd_cuda(fields, camera, cfg: RenderConfig, degree: int, g_uv,
     (N, 3) and opacity (N,) -> the gradients of (means, log_scales, quats,
     opacity_logits, sh), zero on every Gaussian whose upstream gradients
     are all zero."""
-    global bwd_launches
     dev = fields[0].device
     fields, camera = _checked(fields, camera, dev)
     n = fields[0].shape[0]
@@ -135,23 +121,10 @@ def project_bwd_cuda(fields, camera, cfg: RenderConfig, degree: int, g_uv,
     for name, g, shape in (("uv", g_uv, (n, 2)), ("conic", g_conic, (n, 3)),
                            ("color", g_color, (n, 3)),
                            ("opacity", g_opacity, (n,))):
-        if g.dtype != torch.float32 or tuple(g.shape) != shape or \
-                g.device != dev:
-            raise ValueError(f"project: the {name} gradient must be a "
-                             f"float32 {shape} tensor on {dev}, got "
-                             f"{tuple(g.shape)} {g.dtype}")
         grads.append(g.contiguous())
+        _build.expect(grads[-1], f"project: the {name} gradient",
+                      dtype=torch.float32, shape=shape, device=dev)
     outs = [torch.empty_like(t) for t in fields]
-    fn = _build.load("project").gsplat_project_bwd
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, _Config, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    cuda_stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(n, fields[4].shape[1], degree, _pointers(fields),
-                 _pointers(camera), _config(cfg), _pointers(grads),
-                 _pointers(outs), cuda_stream)
-    _build.check(err, "gsplat_project_bwd")
-    bwd_launches += 1
+    _K9(dev, n, fields[4].shape[1], degree, _pointers(fields),
+        _pointers(camera), _config(cfg), _pointers(grads), _pointers(outs))
     return tuple(outs)

@@ -20,8 +20,6 @@ tensors and the plain walks for CPU tensors.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from gsplat_tpu_torch.config import RenderConfig
@@ -31,7 +29,8 @@ from gsplat_tpu_torch.ops.binning import (
     gather_slots_bwd,
     kmax_eff,
 )
-from gsplat_tpu_torch.ops.cuda import _build, counters
+from gsplat_tpu_torch.ops.cuda import _build
+from gsplat_tpu_torch.ops.cuda._build import FLOAT, INT, INT64, PTR
 from gsplat_tpu_torch.ops.raster_torch import (
     _raster_tiles,
     _raster_tiles_bwd_walk,
@@ -44,17 +43,6 @@ from gsplat_tpu_torch.ops.stream16 import (
     quant_params,
     unpack_block,
 )
-
-# K1 launches on a float32 stream: raster_tiles_cuda adds one per launch of
-# K1, nowhere else; `packed_launches` the same on a packed stream.
-launches = 0
-packed_launches = 0
-# K2 launches with float32 in and out: raster_bwd_cuda adds one per launch,
-# nowhere else; `bwd_packed_launches` the same on a packed stream.
-bwd_launches = 0
-bwd_packed_launches = 0
-counters.register(__name__, "launches", "packed_launches", "bwd_launches",
-                  "bwd_packed_launches")
 
 # The `fmt` argument of the kernels (csrc/blend.cuh, StreamFormat).
 _FORMATS = {"f32": 0, "packed16": 1, "packed4": 2}
@@ -74,36 +62,36 @@ def _stream_args(stream, ranges, cfg: RenderConfig) -> list:
     fmt = cfg.stream_format
     rows, dtype = ((NUM_FEATURES, torch.float32) if fmt == "f32"
                    else (STREAM_ROWS[fmt], torch.int32))
-    if stream.dtype != dtype or stream.dim() != 2 or \
-            stream.shape[0] != rows or not stream.is_contiguous():
-        raise ValueError(
-            f"raster: a {fmt!r} stream must be a contiguous ({rows}, max_I) "
-            f"{dtype} tensor, got {tuple(stream.shape)} {stream.dtype}"
-        )
-    if stream.device.type != "cuda":
-        raise ValueError(f"raster: the kernel needs a CUDA device, got "
-                         f"{stream.device}")
-    if ranges.dtype != torch.int32 or ranges.dim() != 1 or \
-            not ranges.is_contiguous() or ranges.device != stream.device:
-        raise ValueError(
-            "raster: ranges must be a contiguous (T+1,) int32 tensor on the "
-            "stream's device"
-        )
-    if ranges.shape[0] - 1 != cfg.num_tiles:
-        raise ValueError("raster: ranges length does not match cfg.num_tiles")
+    _build.expect(stream, f"raster: a {fmt!r} stream", dtype=dtype,
+                  shape=(rows, None))
+    _build.expect(ranges, "raster: ranges (cfg.num_tiles + 1)",
+                  dtype=torch.int32, shape=(cfg.num_tiles + 1,),
+                  device=stream.device)
     lox, sx, loy, sy = quant_params(cfg)
     s = PACKED4_COLOR_RANGE
     return [_FORMATS[fmt], lox, 1.0 / sx, loy, 1.0 / sy, s / 2047.0,
             s / 1023.0]
 
 
-_QUANT_TYPES = [ctypes.c_float] * 6
+# The entry points; K1 counts as "K1" or "K1.packed", K2 as "K2" or
+# "K2.packed".
+_QUANT_TYPES = [FLOAT] * 6
+_BLEND_TYPES = [FLOAT] * 3
+_FWD = _build.kernel(
+    "raster_fwd", "gsplat_raster_fwd",
+    [PTR, INT, INT64, PTR, INT, INT, INT, INT, *_BLEND_TYPES, *_QUANT_TYPES,
+     PTR, PTR], None)
+_BWD = _build.kernel(
+    "raster_bwd", "gsplat_raster_bwd",
+    [PTR, INT, INT64, PTR, INT, PTR, PTR, INT, INT, INT, *_BLEND_TYPES,
+     *_QUANT_TYPES, INT, PTR], None)
+_PIXELS_PER_THREAD = _build.query("raster_fwd",
+                                  "gsplat_raster_pixels_per_thread")
 
 
 def raster_tiles_cuda(stream, ranges, cfg: RenderConfig, tile_offset=0):
     """Launch K1 on a stream of cfg.stream_format: (tile_colors (T, 3, P),
     tile_trans (T, P))."""
-    global launches, packed_launches
     fmt, *quant = _stream_args(stream, ranges, cfg)
     num_tiles = ranges.shape[0] - 1
     p = cfg.pixels_per_tile
@@ -111,27 +99,11 @@ def raster_tiles_cuda(stream, ranges, cfg: RenderConfig, tile_offset=0):
                          device=stream.device)
     trans = torch.empty((num_tiles, p), dtype=torch.float32,
                         device=stream.device)
-    fn = _build.load("raster_fwd").gsplat_raster_fwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, *_QUANT_TYPES,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
-    with torch.cuda.device(stream.device):
-        err = fn(
-            stream.data_ptr(), fmt, stream.shape[1], ranges.data_ptr(),
-            num_tiles, int(tile_offset), cfg.tiles_x, cfg.tile_size,
-            cfg.alpha_clamp, cfg.alpha_min, cfg.transmittance_min, *quant,
-            colors.data_ptr(), trans.data_ptr(), cuda_stream,
-        )
-    _build.check(err, "gsplat_raster_fwd")
-    if fmt:
-        packed_launches += 1
-    else:
-        launches += 1
+    _FWD(stream.device, stream.data_ptr(), fmt, stream.shape[1],
+         ranges.data_ptr(), num_tiles, int(tile_offset), cfg.tiles_x,
+         cfg.tile_size, cfg.alpha_clamp, cfg.alpha_min,
+         cfg.transmittance_min, *quant, colors.data_ptr(), trans.data_ptr(),
+         count="K1.packed" if fmt else "K1")
     return colors, trans
 
 
@@ -141,7 +113,6 @@ def raster_bwd_cuda(stream, ranges, g_color_tiles, b_total_tiles,
     slot gradients, zero on every slot no pixel applied: (NUM_FEATURES,
     max_I) float32, or with pack_out (GRAD_PAIRS, max_I) int32 bf16 pairs
     (a packed stream only)."""
-    global bwd_launches, bwd_packed_launches
     fmt, *quant = _stream_args(stream, ranges, cfg)
     if pack_out and not fmt:
         raise ValueError("raster: bf16-pair gradients need a packed stream")
@@ -149,11 +120,8 @@ def raster_bwd_cuda(stream, ranges, g_color_tiles, b_total_tiles,
     p = cfg.pixels_per_tile
     for name, t, shape in (("g_color_tiles", g_color_tiles, (num_tiles, 3, p)),
                            ("b_total_tiles", b_total_tiles, (num_tiles, p))):
-        if t.dtype != torch.float32 or tuple(t.shape) != shape or \
-                not t.is_contiguous() or t.device != stream.device:
-            raise ValueError(f"raster: {name} must be a contiguous {shape} "
-                             f"float32 tensor on the stream's device, got "
-                             f"{tuple(t.shape)} {t.dtype}")
+        _build.expect(t, f"raster: {name}", dtype=torch.float32, shape=shape,
+                      device=stream.device)
     # Zero-filled: slots after a tile's early exit and the invalid tail past
     # ranges[T] are never written, and reach real Gaussians through the
     # gather backward's sort if they hold anything but 0.
@@ -162,29 +130,11 @@ def raster_bwd_cuda(stream, ranges, g_color_tiles, b_total_tiles,
                          device=stream.device) if pack_out else
              torch.zeros((NUM_FEATURES, max_i), dtype=torch.float32,
                          device=stream.device))
-    fn = _build.load("raster_bwd").gsplat_raster_bwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, *_QUANT_TYPES, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
-    with torch.cuda.device(stream.device):
-        err = fn(
-            stream.data_ptr(), fmt, max_i, ranges.data_ptr(), num_tiles,
-            g_color_tiles.data_ptr(), b_total_tiles.data_ptr(),
-            int(tile_offset), cfg.tiles_x, cfg.tile_size, cfg.alpha_clamp,
-            cfg.alpha_min, cfg.transmittance_min, *quant, int(pack_out),
-            dfeat.data_ptr(), cuda_stream,
-        )
-    _build.check(err, "gsplat_raster_bwd")
-    if fmt:
-        bwd_packed_launches += 1
-    else:
-        bwd_launches += 1
+    _BWD(stream.device, stream.data_ptr(), fmt, max_i, ranges.data_ptr(),
+         num_tiles, g_color_tiles.data_ptr(), b_total_tiles.data_ptr(),
+         int(tile_offset), cfg.tiles_x, cfg.tile_size, cfg.alpha_clamp,
+         cfg.alpha_min, cfg.transmittance_min, *quant, int(pack_out),
+         dfeat.data_ptr(), count="K2.packed" if fmt else "K2")
     return dfeat
 
 
@@ -192,9 +142,7 @@ def pixels_per_thread() -> int:
     """The pixels of one column each thread of K1 and K2 walks
     (csrc/blend.cuh's kPixelsPerThread, read from the build): the rows of a
     warp's strip at tile 32."""
-    fn = _build.load("raster_fwd").gsplat_raster_pixels_per_thread
-    fn.restype = ctypes.c_int
-    return fn()
+    return _PIXELS_PER_THREAD()
 
 
 def _check_device(stream) -> None:

@@ -27,19 +27,16 @@ differ.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs
-from gsplat_tpu_torch.ops.cuda import _build, counters
+from gsplat_tpu_torch.ops.cuda import _build
+from gsplat_tpu_torch.ops.cuda._build import INT, INT64, PTR
 
-# K4 launches: segmented_suffix_sum_cuda adds one per launch, nowhere else.
-launches = 0
-# K5 launches: segmented_suffix_sum_packed_cuda adds one per launch, nowhere
-# else.
-packed_launches = 0
-counters.register(__name__, "launches", "packed_launches")
+# K4 (float32 rows) and K5 (bf16 pairs): x, rows, M, F, the reach, out.
+_ARGS = [PTR, PTR, INT64, INT, INT, PTR]
+_K4 = _build.kernel("segsum", "gsplat_segsum", _ARGS, "K4")
+_K5 = _build.kernel("segsum_packed", "gsplat_segsum_packed", _ARGS, "K5")
 
 
 def doubling_depth(kmax: int) -> int:
@@ -71,51 +68,25 @@ def segmented_suffix_sum_packed_plain(x, rows, kmax: int):
         segmented_suffix_sum_plain(unpack_bf16_pairs(x, f), rows, kmax))
 
 
-def _check(x, rows, dtype, what: str) -> None:
-    if x.dtype != dtype or x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"{what}: x must be a contiguous 2-D {dtype} "
-                         f"tensor, got {tuple(x.shape)} {x.dtype}")
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: the kernel needs a CUDA device, got "
-                         f"{x.device}")
-    if rows.dtype != torch.int32 or rows.shape != (x.shape[1],) or \
-            not rows.is_contiguous() or rows.device != x.device:
-        raise ValueError(f"{what}: rows must be a contiguous (M,) int32 "
-                         "tensor on x's device")
-
-
-def _launch(lib: str, x, rows, kmax: int):
+def _launch(launch, what: str, x, rows, kmax: int, dtype):
+    _build.expect(x, f"{what}: x", dtype=dtype, shape=(None, None))
+    _build.expect(rows, f"{what}: rows (M,)", dtype=torch.int32,
+                  shape=(x.shape[1],), device=x.device)
     f, m = x.shape
     out = torch.empty_like(x)
-    fn = getattr(_build.load(lib), f"gsplat_{lib}")
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), rows.data_ptr(), m, f, doubling_depth(kmax),
-                 out.data_ptr(), stream)
-    _build.check(err, f"gsplat_{lib}")
+    launch(x.device, x.data_ptr(), rows.data_ptr(), m, f,
+           doubling_depth(kmax), out.data_ptr())
     return out
 
 
 def segmented_suffix_sum_cuda(x, rows, kmax: int):
     """Launch K4: (F, M) float32, (M,) int32 -> (F, M) float32."""
-    global launches
-    _check(x, rows, torch.float32, "segsum")
-    out = _launch("segsum", x, rows, kmax)
-    launches += 1
-    return out
+    return _launch(_K4, "segsum", x, rows, kmax, torch.float32)
 
 
 def segmented_suffix_sum_packed_cuda(x, rows, kmax: int):
     """Launch K5: (P, M) int32 bf16 pairs, (M,) int32 -> (P, M) int32."""
-    global packed_launches
-    _check(x, rows, torch.int32, "segsum_packed")
-    out = _launch("segsum_packed", x, rows, kmax)
-    packed_launches += 1
-    return out
+    return _launch(_K5, "segsum_packed", x, rows, kmax, torch.int32)
 
 
 def segmented_suffix_sum(x, rows, kmax: int):

@@ -142,11 +142,9 @@ def make_mesh(axis_sizes: dict[str, int], device="cuda") -> Mesh:
 
 # ---- collectives ----------------------------------------------------------
 
-# Collectives issued to the process group by the helpers below (on NCCL one
-# kernel each); a replayed graph adds its own (`ops/cuda/counters.py`).
-collectives = 0
-counters.register(__name__, "collectives")
-
+# The helpers below count each collective they issue to the process group
+# (on NCCL one kernel each) as "collectives" (`ops/cuda/counters.py`); a
+# replayed graph adds its own.
 
 
 def _local(mesh: Mesh, axis: str | None) -> bool:
@@ -160,12 +158,11 @@ def all_reduce_(t: torch.Tensor, mesh: Mesh, axis: str | None = None,
                 op: str = "sum") -> torch.Tensor:
     """t (contiguous) reduced ('sum' or 'max') over the axis (None: every
     rank) in place; returns t."""
-    global collectives
     if not _local(mesh, axis):
         dist = torch.distributed
         red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
         dist.all_reduce(t, op=red, group=mesh.group(axis))
-        collectives += 1
+        counters.bump("collectives")
     return t
 
 
@@ -184,14 +181,13 @@ def any_flag(flag: torch.Tensor, mesh: Mesh, axis: str | None = None):
 
 def all_gather(t: torch.Tensor, mesh: Mesh, axis: str) -> list:
     """[t of each rank along the axis], in the axis's order."""
-    global collectives
     if _local(mesh, axis):
         return [t]
     n = mesh.size_of(axis)
     t = t.contiguous()
     out = [torch.empty_like(t) for _ in range(n)]
     torch.distributed.all_gather(out, t, group=mesh.group(axis))
-    collectives += 1
+    counters.bump("collectives")
     return out
 
 
@@ -199,13 +195,12 @@ def all_to_all(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The tiled all_to_all over dim 0: t is D equal blocks, block i goes to
     rank i of the axis, and block s of the result came from rank s. Its own
     transpose (an involution)."""
-    global collectives
     if _local(mesh, axis):
         return t
     t = t.contiguous()
     out = torch.empty_like(t)
     torch.distributed.all_to_all_single(out, t, group=mesh.group(axis))
-    collectives += 1
+    counters.bump("collectives")
     return out
 
 

@@ -41,10 +41,10 @@ body eagerly instead. For inputs on the CPU the same copy-in, body and
 copy-out run eagerly (the plain version the CPU tests use), only because the
 caller passed CPU tensors.
 
-Launch counts: a replay runs no Python, so the kernel wrappers' counters
+Launch counts: a replay runs no Python, so the table of launch counts
 (`ops/cuda/counters.py`) would see the warm-up alone. A capture records the
-counters' rise during the capture (taken back, since a capture launches
-nothing), and each replay adds it again: the counters stay the number of
+table's rise during the capture (taken back, since a capture launches
+nothing), and each replay adds it again: the counts stay the number of
 launches the card ran. The captured graph's nodes are counted by type once
 (`Entry.nodes`): the launches of one replay, those no wrapper counts too.
 

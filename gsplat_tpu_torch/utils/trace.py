@@ -32,7 +32,7 @@ record and clears it.
 
 A body run eagerly (on the CPU, on gloo) enqueues no mark and writes
 nothing to the ring: its call's record is host-only, its stage spans in
-host ns. A mark's launch counts in `mark_launches` (`ops/cuda/counters.py`).
+host ns. A mark's launch counts as "mark" (`ops/cuda/counters.py`).
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ import time
 import torch
 from torch.profiler import record_function
 
-from gsplat_tpu_torch.ops.cuda import _build, counters
+from gsplat_tpu_torch.ops.cuda import _build
+from gsplat_tpu_torch.ops.cuda._build import INT, INT64, PTR
 
 # Records the ring holds per card (48 bytes each: 768 KiB), and calls the
 # host keeps between drains; marks and calls past them are counted as lost.
@@ -62,23 +63,26 @@ CALL, COPY_IN, COPY_OUT = "call", "copy_in", "copy_out"
 # cuGraphNodeGetType's CUgraphNodeType values by the name of their count.
 NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset"}
 
-# Marks launched, the capture's included (a registered counter: a replay
-# adds its graph's).
-mark_launches = 0
-counters.register(__name__, "mark_launches")
+# The mark (on, cursor, calls done, ring, its records, stage, end, begins
+# call, call delta, count, its bytes, keys), counted as "mark", and the
+# clock's pings (tries, the host's before and after, the card's times).
+_MARK = _build.kernel(
+    "trace_mark", "gsplat_trace_mark",
+    [PTR, PTR, PTR, PTR, INT64, INT, INT, INT, INT, PTR, INT, INT64], "mark")
+_CLOCK = _build.kernel("trace_mark", "gsplat_trace_clock",
+                       [INT, PTR, PTR, PTR], None)
 
 # Stage names by id, the id their index; ids are given on first use.
 _stage_names: list = []
 _stage_ids: dict = {}
 # recording()'s depth; each card's `_Card`; the capture under way; the
 # eager call whose body runs; the host records of eager calls (no card's
-# ring) and those past MAX_CALLS; the loaded mark launcher.
+# ring) and those past MAX_CALLS.
 _depth = 0
 _devices: dict = {}
 _capture = None
 _eager_call = None
 _eager = dict(calls=[], lost=0)
-_mark = None
 
 
 def stage_id(name: str) -> int:
@@ -122,38 +126,17 @@ class _Card:
     clock: list = dataclasses.field(default_factory=list)
 
 
-def _mark_fn():
-    global _mark
-    if _mark is None:
-        fn = _build.load("trace_mark").gsplat_trace_mark
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _mark = fn
-    return _mark
-
-
 def _launch(card: _Card, name: str, end: int = 0, begins_call: int = 0,
             call_delta: int = 0, count: torch.Tensor | None = None,
             keys: int = -1) -> None:
-    global mark_launches
     if count is not None and count.element_size() not in (4, 8):
         raise ValueError(f"trace: a mark's count must be a 4- or 8-byte "
                          f"integer, got {count.dtype}")
-    dev = card.device
-    with torch.cuda.device(dev):
-        err = _mark_fn()(
-            card.on.data_ptr(), card.cursor.data_ptr(),
-            card.calls_done.data_ptr(), card.ring.data_ptr(), RING_RECORDS,
-            stage_id(name), end, begins_call, call_delta,
-            0 if count is None else count.data_ptr(),
-            0 if count is None else count.element_size(), keys,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "gsplat_trace_mark")
-    mark_launches += 1
+    _MARK(card.device, card.on.data_ptr(), card.cursor.data_ptr(),
+          card.calls_done.data_ptr(), card.ring.data_ptr(), RING_RECORDS,
+          stage_id(name), end, begins_call, call_delta,
+          0 if count is None else count.data_ptr(),
+          0 if count is None else count.element_size(), keys)
 
 
 def prepare(device: torch.device) -> _Card:
@@ -181,14 +164,7 @@ def clock_offset(device: torch.device, tries: int = CLOCK_TRIES) -> dict:
     the bracket's width (bracket_ns) and when it was taken (host_ns)."""
     torch.cuda.synchronize(device)
     before, after, dev_t = ((ctypes.c_int64 * tries)() for _ in range(3))
-    fn = _build.load("trace_mark").gsplat_trace_clock
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        err = fn(tries, before, after, dev_t,
-                 torch.cuda.current_stream(device).cuda_stream)
-    _build.check(err, "gsplat_trace_clock")
+    _CLOCK(device, tries, before, after, dev_t)
     i = min(range(tries), key=lambda k: after[k] - before[k])
     mid = (before[i] + after[i]) // 2
     return dict(offset_ns=dev_t[i] - mid, bracket_ns=after[i] - before[i],

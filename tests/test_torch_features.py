@@ -430,11 +430,9 @@ def test_kernel_launch_counters_are_registered():
     """K6's and K7's launches count in `ops/cuda/counters.py` (a replay
     adds its graph's); the plain path on the CPU launches neither."""
     from gsplat_tpu_torch.ops.cuda import counters
-    from gsplat_tpu_torch.ops.cuda import features as fe
 
     before = counters.snapshot()
-    assert {"features.launches", "features.bwd_launches"} <= set(before)
+    assert {"K6", "K7"} <= set(before)
     with torch.no_grad():
         render(FeatureScene(**_fields()), _cam(_view()), _cfg(_rc("f32")))
-    assert (fe.launches, fe.bwd_launches) == (
-        before["features.launches"], before["features.bwd_launches"])
+    assert counters.rise(before, counters.snapshot()) == {}

@@ -224,29 +224,30 @@ def test_captured_keeps_at_most_max_entries_least_recent_first(monkeypatch):
 
 
 def test_launch_counter_registry_reads_rises_and_adds():
-    """`ops/cuda/counters.py` names every kernel module's launch counters;
-    a rise read across a call is what a replay adds back."""
-    from gsplat_tpu_torch.ops.cuda import counters, cull, probes, raster, segsum
+    """`ops/cuda/counters.py` holds every launch count by the kernel
+    table's names; a rise read across a call is what a replay adds back,
+    and a name outside the table is refused."""
+    from gsplat_tpu_torch.ops.cuda import counters
 
     before = counters.snapshot()
-    assert {"cull.launches", "cull.rank_launches", "raster.launches",
-            "raster.packed_launches", "raster.bwd_launches",
-            "raster.bwd_packed_launches", "segsum.launches",
-            "segsum.packed_launches", "probes.gather_launches"} <= set(before)
+    assert set(before) == {
+        "K1", "K1.packed", "K2", "K2.packed", "K3.mask", "K3.compact",
+        "K3.rank", "K3.count", "K3.emit", "K4", "K5", "K6", "K7", "K8", "K9",
+        "P1", "P2", "P3", "P4", "mark", "collectives"}
     assert counters.rise(before, counters.snapshot()) == {}
     try:
-        raster.bwd_launches += 2
-        segsum.packed_launches += 1
+        counters.bump("K2", 2)
+        counters.bump("K5")
         rose = counters.rise(before, counters.snapshot())
-        assert rose == {"raster.bwd_launches": 2, "segsum.packed_launches": 1}
+        assert rose == {"K2": 2, "K5": 1}
         counters.add(rose, 3)
-        assert raster.bwd_launches == before["raster.bwd_launches"] + 8
-        assert segsum.packed_launches == before["segsum.packed_launches"] + 4
+        now = counters.snapshot()
+        assert (now["K2"], now["K5"]) == (before["K2"] + 8, before["K5"] + 4)
+        with pytest.raises(KeyError, match="raster.bwd_launches"):
+            counters.bump("raster.bwd_launches")
     finally:
-        raster.bwd_launches = before["raster.bwd_launches"]
-        segsum.packed_launches = before["segsum.packed_launches"]
-    assert (cull.launches, probes.coldma_launches) == (
-        before["cull.launches"], before["probes.coldma_launches"])
+        counters.add(counters.rise(before, counters.snapshot()), -1)
+    assert counters.snapshot() == before
 
 
 def test_render_loss_and_grad_goes_through_one_entry_per_config(

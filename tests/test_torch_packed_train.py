@@ -42,7 +42,7 @@ from gsplat_tpu_torch.convert import (  # noqa: E402
 )
 from gsplat_tpu_torch.ops import binning  # noqa: E402
 from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs  # noqa: E402
-from gsplat_tpu_torch.ops.cuda import raster, segsum  # noqa: E402
+from gsplat_tpu_torch.ops.cuda import counters, raster  # noqa: E402
 from gsplat_tpu_torch.render.pipeline import render_loss_and_grad  # noqa: E402
 from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step  # noqa: E402
 
@@ -121,10 +121,10 @@ def test_one_bench_default_train_step_matches_jax():
     scene, cam = to_port(jscene, jcam)
     opt = make_optimizer(scene, 1e-2)
     step = make_train_step(RenderConfig(**kw), opt, ssim_weight=0.2)
-    before = (raster.bwd_packed_launches, segsum.packed_launches)
+    before = counters.snapshot()
     loss, aux, (tap, vis) = step(scene, [cam], torch.from_numpy(target))
     # The CPU takes the plain versions: no kernel is launched.
-    assert (raster.bwd_packed_launches, segsum.packed_launches) == before
+    assert counters.rise(before, counters.snapshot()) == {}
 
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
     assert bool(aux["overflow"]) == bool(jaux["overflow"]) is False

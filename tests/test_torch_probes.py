@@ -21,7 +21,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from gsplat_tpu.ops.blend import make_triangular as jax_make_triangular  # noqa: E402
 from gsplat_tpu_torch import micro_kernel_costs  # noqa: E402
-from gsplat_tpu_torch.ops.cuda import probes  # noqa: E402
+from gsplat_tpu_torch.ops.cuda import counters, probes  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 G = 128
@@ -335,14 +335,12 @@ def _cpu_inputs():
 def test_dispatchers_take_the_plain_route_on_the_cpu():
     """CPU tensors never reach a build or a launch: the counts stay."""
     x, tab, idx = _cpu_inputs()
-    before = (probes.transc_launches, probes.tricumsum_launches,
-              probes.gather_launches, probes.coldma_launches)
+    before = counters.snapshot()
     probes.transc(x, "exact3")
     probes.tri_cumsum(x, "high")
     probes.lane_gather(tab, idx)
     probes.column_copy(tab, idx[:2, :G])
-    assert (probes.transc_launches, probes.tricumsum_launches,
-            probes.gather_launches, probes.coldma_launches) == before
+    assert counters.rise(before, counters.snapshot()) == {}
 
 
 def test_kernel_wrappers_refuse_cpu_and_malformed_tensors():

@@ -21,7 +21,7 @@ import torch
 from gsplat_tpu_torch import Camera, RenderConfig, random_scene
 from gsplat_tpu_torch.models.gaussians import GaussianScene
 from gsplat_tpu_torch.ops import projection as P
-from gsplat_tpu_torch.ops.cuda import project as K
+from gsplat_tpu_torch.ops.cuda import counters
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -79,7 +79,7 @@ def test_kernels_against_the_plain_versions(cuda_device, name, degree):
     scene, cam, cfg = _case(name, degree, cuda_device)
     n = scene.num_gaussians
     tap = torch.zeros(n, 2, device=cuda_device)
-    before = (K.launches, K.bwd_launches)
+    before = counters.snapshot()
     with torch.no_grad():
         k = P.project_gaussians(scene, cam, cfg, uv_tap=tap)
         p = P._project_plain(scene, cam, cfg, tap)
@@ -106,7 +106,7 @@ def test_kernels_against_the_plain_versions(cuda_device, name, degree):
     got_m = grads(P.project_gaussians, masked)
     print(f"{name} (SH {degree}, {n} Gaussians, {int(k.mask.sum())} "
           f"visible): K8 {json.dumps(fwd)}; K9 {json.dumps(bwd)}")
-    assert (K.launches, K.bwd_launches) == (before[0] + 3, before[1] + 2)
+    assert counters.rise(before, counters.snapshot()) == {"K8": 3, "K9": 2}
     assert fwd["ok"] and bwd["ok"]
     assert torch.equal(got[5], up[0]) and torch.equal(got_m[5], masked[0])
     for a, b in zip(got_m[:5], got[:5]):
@@ -122,17 +122,19 @@ def test_one_launch_a_frame_and_a_step(cuda_device):
     from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
 
     scene, cam, cfg = _case("random", 3, cuda_device)
-    before = (K.launches, K.bwd_launches)
+    before = counters.snapshot()
     for _ in range(3):
         render_jit(scene, cam, cfg)
-    assert (K.launches, K.bwd_launches) == (before[0] + 3, before[1])
+    rose = counters.rise(before, counters.snapshot())
+    assert (rose.get("K8"), rose.get("K9")) == (3, None)
     target = torch.zeros((1, cfg.height, cfg.width, 3), device=cuda_device)
     step = make_train_step(cfg, make_optimizer(scene, lr=1e-3),
                            ssim_weight=0.2)
     for _ in range(3):
         loss, aux, _ = step(scene, [cam], target)
     assert bool(aux["grads_finite"]) and not bool(aux["overflow"])
-    assert (K.launches, K.bwd_launches) == (before[0] + 6, before[1] + 3)
+    rose = counters.rise(before, counters.snapshot())
+    assert (rose["K8"], rose["K9"]) == (6, 3)
     (entry,) = step.graphs.entries.values()
-    assert entry.launches.get("project.launches") == 1
-    assert entry.launches.get("project.bwd_launches") == 1
+    assert entry.launches.get("K8") == 1
+    assert entry.launches.get("K9") == 1

@@ -27,7 +27,7 @@ from gsplat_tpu_torch.ops.blend import (  # noqa: E402
     init_carry,
     tile_pixel_coords,
 )
-from gsplat_tpu_torch.ops.cuda import raster  # noqa: E402
+from gsplat_tpu_torch.ops.cuda import counters, raster  # noqa: E402
 
 # The configuration of the JAX package's backward test (test_pallas.py).
 KW = dict(width=64, height=64, tile_size=8, max_intersections=1 << 13,
@@ -209,9 +209,9 @@ def test_backward_kernel_wrapper_checks_its_inputs(stream):
     with pytest.raises(ValueError, match="CUDA"):
         raster.raster_bwd_cuda(torch.from_numpy(feats),
                                torch.from_numpy(ranges), g, b, cfg)
-    before = raster.bwd_launches
+    before = counters.snapshot()
     port_grad(feats, ranges, *upstream(), cfg)
-    assert raster.bwd_launches == before
+    assert counters.rise(before, counters.snapshot()) == {}
 
 
 def test_image_to_tiles_inverts_tiles_to_image():

@@ -26,7 +26,7 @@ from gsplat_tpu_torch import (  # noqa: E402
     render,
 )
 from gsplat_tpu_torch.convert import camera_from_numpy, scene_from_numpy  # noqa: E402
-from gsplat_tpu_torch.ops.cuda import _build, cull, raster  # noqa: E402
+from gsplat_tpu_torch.ops.cuda import _build, counters, cull  # noqa: E402
 from gsplat_tpu_torch.ops.projection import project_gaussians  # noqa: E402
 from gsplat_tpu_torch.ops.raster_torch import rasterize_dense_oracle  # noqa: E402
 from gsplat_tpu_torch.render.pipeline import STAGES  # noqa: E402
@@ -185,9 +185,9 @@ def test_packed_streams_are_a_later_slice(fmt):
     scene = random_scene(50, 0, generator=torch.Generator().manual_seed(0),
                          device="cpu")
     cam = Camera.default(64, 64, device="cpu")
-    before = (raster.launches, raster.packed_launches)
+    before = counters.snapshot()
     out = render(scene, cam, RenderConfig(**KW, stream_format=fmt))
-    assert (raster.launches, raster.packed_launches) == before
+    assert counters.rise(before, counters.snapshot()) == {}
     ref = render(scene, cam, RenderConfig(**KW))
     assert not bool(out.overflow) and float(out.image.max()) > 0.01
     assert float((out.image - ref.image).abs().max()) < 0.05
@@ -246,10 +246,10 @@ def test_kernel_wrappers_take_plain_versions_only_on_cpu():
     device that is not CUDA raises."""
     scene = random_scene(80, 1, generator=torch.Generator().manual_seed(1),
                          device="cpu")
-    before = (cull.launches, raster.launches)
+    before = counters.snapshot()
     render(scene, Camera.default(64, 64, device="cpu"),
            RenderConfig(**KW, binning="tiered"))
-    assert (cull.launches, raster.launches) == before
+    assert counters.rise(before, counters.snapshot()) == {}
     meta = torch.zeros((cull.NUM_ROWS, 4), device="meta")
     with pytest.raises(ValueError, match="device"):
         cull.cull_mask_from_params(meta, 8, 8)

@@ -16,7 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from gsplat_tpu.ops.pallas.segsum import segmented_suffix_sum as jax_segsum  # noqa: E402
 from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs  # noqa: E402
-from gsplat_tpu_torch.ops.cuda import segsum  # noqa: E402
+from gsplat_tpu_torch.ops.cuda import counters, segsum  # noqa: E402
 
 KMAX, F = 16, 5
 
@@ -97,10 +97,10 @@ def test_segsum_wrapper_checks_its_inputs(runs):
     with pytest.raises(ValueError, match="CUDA"):
         segsum.segmented_suffix_sum_cuda(torch.from_numpy(x),
                                          torch.from_numpy(rows), KMAX)
-    before = segsum.launches
+    before = counters.snapshot()
     segsum.segmented_suffix_sum(torch.from_numpy(x), torch.from_numpy(rows),
                                 KMAX)
-    assert segsum.launches == before
+    assert counters.rise(before, counters.snapshot()) == {}
 
 
 def _pairs_and_runs(n_runs, max_len, seed, tail=50):
@@ -167,9 +167,9 @@ def test_packed_segsum_wrapper_checks_its_inputs(runs):
     with pytest.raises(ValueError, match="CUDA"):
         segsum.segmented_suffix_sum_packed_cuda(xp, torch.from_numpy(rows),
                                                 KMAX)
-    before = (segsum.launches, segsum.packed_launches)
+    before = counters.snapshot()
     out = segsum.segmented_suffix_sum(xp, torch.from_numpy(rows), KMAX)
-    assert (segsum.launches, segsum.packed_launches) == before
+    assert counters.rise(before, counters.snapshot()) == {}
     assert out.dtype == torch.int32
 
 
