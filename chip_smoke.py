@@ -493,7 +493,7 @@ KERNELS = {
                      "scripts/micro_kernel_costs.py:213"),
     "feat_fwd": (("K6",), "gsplat_tpu_torch/csrc/feat_fwd.cu",
                  "none: no TPU kernel blends more than the colour"),
-    "feat_bwd": (("K7",), "gsplat_tpu_torch/csrc/feat_bwd.cu",
+    "feat_bwd": (("K7", "K7.chunked"), "gsplat_tpu_torch/csrc/feat_bwd.cu",
                  "none: no TPU kernel blends more than the colour"),
     "project_fwd": (("K8",), "gsplat_tpu_torch/csrc/project.cu",
                     "none: XLA fuses the JAX package's jnp projection"),
@@ -1105,14 +1105,16 @@ def check_segsum_layouts(dev) -> None:
 def launch_counts() -> dict:
     """Each kernel's launch count, K3's rank stage (the jumbo grid), count
     and emit stages (the 'packed' binning) alone as "cull_rank",
-    "cull_count" and "cull_emit", and the stage marks as "mark"."""
+    "cull_count" and "cull_emit", K7's launches that walk their channels
+    in passes as "feat_bwd_chunked", and the stage marks as "mark"."""
     from gsplat_tpu_torch.ops.cuda import counters
 
     now = counters.snapshot()
     out = {name: sum(now[n] for n in names)
            for name, (names, _, _) in KERNELS.items()}
     out.update(cull_rank=now["K3.rank"], cull_count=now["K3.count"],
-               cull_emit=now["K3.emit"], mark=now["mark"])
+               cull_emit=now["K3.emit"], feat_bwd_chunked=now["K7.chunked"],
+               mark=now["mark"])
     return out
 
 
@@ -4652,6 +4654,9 @@ FEAT_TRAFFIC = os.path.join(HERE, "splatbench", "traffic", "train-feat.json")
 FEAT_SEED = 22
 FEAT_VIEW = 11
 FEAT_STEPS = 3      # captured train steps of the feature path
+# K7 timed again on the table's first channels, to split its time into
+# the walk and a slope per channel.
+FEAT_SPLIT_CHANNELS = (32, 64, 128)
 
 
 def heaviest_row_index(ranges, cfg) -> int:
@@ -4762,10 +4767,13 @@ def check_features(dev, card: str, by_path: dict, kernels: dict) -> dict:
     slots must be exactly 0); both timed with CUDA events on the whole
     frame (N(0, 1) upstream gradients) beside K1 and K2 on the same stream
     and beside their bounds from the reference's tally
-    (`splatbench/roofline_features.py`). Then the main path "feat3dgs":
+    (`splatbench/roofline_features.py`), and K7 again on the first
+    FEAT_SPLIT_CHANNELS channels of the table, the map and its gradient
+    (the walk and the per-channel slope). Then the main path "feat3dgs":
     FEAT_STEPS captured train steps of the cell's step and one
     `render_jit` frame, its launches counted: K6 one a step and a frame,
-    K7 one a step."""
+    K7 one a step, none of them walking its channels in passes
+    ("K7.chunked")."""
     import torch
 
     from gsplat_tpu_torch.models.gaussians import FeatureScene
@@ -4846,6 +4854,14 @@ def check_features(dev, card: str, by_path: dict, kernels: dict) -> dict:
         K1=cuda_ms(lambda: raster.raster_tiles_cuda(stream, ranges, cfg), 20),
         K2=cuda_ms(lambda: raster.raster_bwd_cuda(
             stream, ranges, g_col, b_total, cfg, pack_out=True), 20))
+    by_channels = {}
+    for c in FEAT_SPLIT_CHANNELS:
+        part = [x[..., :c].contiguous() for x in (table, g_fm, fm)]
+        by_channels[c] = cuda_ms(lambda: FE.feat_bwd_cuda(
+            stream, ranges, gid, part[0], g_col, b_total, part[1], part[2],
+            cfg), 20)
+        del part
+    log(f"[feat_bwd] ms by channels on the same stream: {by_channels}")
     del col, tr, fm, g_col, g_tt, g_fm, b_total, stream, proj, binned
     torch.cuda.empty_cache()
     tally = {}
@@ -4867,6 +4883,7 @@ def check_features(dev, card: str, by_path: dict, kernels: dict) -> dict:
             f"{ms[alone]} ms), bound {bound_ms} ms ({bound_by}: {ops} ops, "
             f"{n_bytes} B): {100.0 * bound_ms / ms[name]}% of it; plain "
             f"walk of one tile row on the CPU {plain_s[name]} s; {card}")
+    kernels["feat_bwd"]["ms_by_channels"] = by_channels
 
     # The main path: the cell's captured train step, then a frame.
     targets = gen.make_targets(traffic["targets"], len(views), rc["height"],
@@ -4899,11 +4916,14 @@ def check_features(dev, card: str, by_path: dict, kernels: dict) -> dict:
 
     by_path["feat3dgs"] = counts = drive("feat3dgs", ("feat_fwd", "feat_bwd"),
                                          feature_path)
+    log(f"[feat3dgs] K7 launches walking their channels in passes "
+        f"(K7.chunked): {counts['feat_bwd_chunked']}")
     if counts["feat_fwd"] != FEAT_STEPS + 1 or \
-            counts["feat_bwd"] != FEAT_STEPS:
+            counts["feat_bwd"] != FEAT_STEPS or counts["feat_bwd_chunked"]:
         raise SystemExit(f"feat3dgs: K6 launched {counts['feat_fwd']} and K7 "
-                         f"{counts['feat_bwd']} times for {FEAT_STEPS} steps "
-                         "and a frame")
+                         f"{counts['feat_bwd']} times ("
+                         f"{counts['feat_bwd_chunked']} in passes) for "
+                         f"{FEAT_STEPS} steps and a frame")
     del scene, fields, targets, teachers, table
     torch.cuda.empty_cache()
     return res

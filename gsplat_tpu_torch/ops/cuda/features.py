@@ -57,6 +57,9 @@ _K7 = _build.kernel(
     "feat_bwd", "gsplat_feat_bwd",
     [PTR, INT, INT64, PTR, PTR, PTR, INT, INT, PTR, PTR, PTR, PTR,
      *_GEOMETRY, PTR, PTR], "K7")
+# Channels one walk of K7 takes; a launch with more walks its channels in
+# passes of that many and counts as "K7.chunked".
+_K7_PASS_CHANNELS = _build.query("feat_bwd", "gsplat_feat_bwd_pass_channels")
 
 
 def _check_table(table, gid, stream) -> None:
@@ -92,7 +95,8 @@ def feat_bwd_cuda(stream, ranges, gid, table, g_colors, b_total, g_fmap,
     """Launch K7: g_colors (T, 3, P) and b_total (T, P), the colour's share
     of K2's inputs, g_fmap the feature map's gradient and fmap the map ->
     (the 9 slot gradients (NUM_FEATURES, max_I) float32, zero on every
-    slot no pixel applied; the feature table's gradient (N, C))."""
+    slot no pixel applied; the feature table's gradient (N, C)). Counts
+    under "K7", or "K7.chunked" where C needs more than one walk."""
     fmt, *quant = _stream_args(stream, ranges, cfg)
     _check_table(table, gid, stream)
     num_tiles, p = cfg.num_tiles, cfg.pixels_per_tile
@@ -113,7 +117,8 @@ def feat_bwd_cuda(stream, ranges, gid, table, g_colors, b_total, g_fmap,
         b_total.data_ptr(), g_fmap.data_ptr(), fmap.data_ptr(), 0,
         cfg.tiles_x, cfg.tile_size, cfg.width, cfg.height, cfg.alpha_clamp,
         cfg.alpha_min, cfg.transmittance_min, *quant, dgeo.data_ptr(),
-        dtable.data_ptr())
+        dtable.data_ptr(),
+        count="K7" if channels <= _K7_PASS_CHANNELS() else "K7.chunked")
     return dgeo, dtable
 
 

@@ -68,17 +68,12 @@ def _stream(scene, cfg, dev):
     return binned, stream
 
 
-@pytest.mark.card
-@pytest.mark.parametrize("fmt,ts", [("f32", 8), ("packed4", 16),
-                                    ("packed16", 32)])
-def test_kernels_against_the_plain_walks(cuda_device, fmt, ts):
-    """K6's colour is K1's bit for bit and its map the plain walk's; K7's
-    slot and table gradients the plain re-walk's, and K2's with no feature
-    gradient."""
-    g = torch.Generator(cuda_device).manual_seed(1)
-    scene = with_features(random_scene(3000, 3, generator=g,
-                                       device=cuda_device), C, 64,
-                          generator=g)
+def _small_frame(dev, fmt, ts, channels):
+    """A 192x128 frame of 3000 random Gaussians with `channels` features,
+    binned and gathered at tile size ts in stream format fmt."""
+    g = torch.Generator(dev).manual_seed(1)
+    scene = with_features(random_scene(3000, 3, generator=g, device=dev),
+                          channels, 64, generator=g)
     cfg = RenderConfig(width=192, height=128, tile_size=ts,
                        max_intersections=1 << 20, block_size=ts,
                        max_per_tile=8192 // ts * ts, binning="packed",
@@ -86,8 +81,23 @@ def test_kernels_against_the_plain_walks(cuda_device, fmt, ts):
                        gather_backward="bf16" if fmt != "f32" else "variadic",
                        grad_readout="bf16" if fmt != "f32" else "f32",
                        segment_sum="pallas")
-    b, stream = _stream(scene, cfg, cuda_device)
-    gid, table = b.sorted_gid, scene.features
+    b, stream = _stream(scene, cfg, dev)
+    return cfg, b, stream, scene.features, g
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("channels", [1, 40, C, "above"])
+@pytest.mark.parametrize("fmt,ts", [("f32", 8), ("packed4", 16),
+                                    ("packed16", 32)])
+def test_kernels_against_the_plain_walks(cuda_device, fmt, ts, channels):
+    """K6's colour is K1's bit for bit and its map the plain walk's; K7's
+    slot and table gradients the plain re-walk's, and K2's with no feature
+    gradient: at one channel, at 40 (a pass of 64 partly filled), at the
+    cell's 128 and at a C past K7's on-chip budget (walked in passes)."""
+    if channels == "above":
+        channels = FE._K7_PASS_CHANNELS() + 72
+    cfg, b, stream, table, g = _small_frame(cuda_device, fmt, ts, channels)
+    gid = b.sorted_gid
     col, tr, fm = FE.feat_fwd_cuda(stream, b.ranges, gid, table, cfg)
     k1c, k1t = RA.raster_tiles_cuda(stream, b.ranges, cfg)
     assert torch.equal(col, k1c) and torch.equal(tr, k1t)
@@ -161,3 +171,49 @@ def test_1080p_view_against_the_reference(cuda_device):
                      / torch.linalg.vector_norm(ref_grads[f]))
             for f in RF.FIELDS}
     assert max(gaps.values()) < 2e-2, gaps
+
+
+def _k7_inputs(dev, channels):
+    """The feature cell's layout on the small frame (32x32 tiles, packed4):
+    K7's stream inputs and N(0, 1) upstream gradients."""
+    cfg, b, stream, table, g = _small_frame(dev, "packed4", 32, channels)
+    col, tr, fm = FE.feat_fwd_cuda(stream, b.ranges, b.sorted_gid, table, cfg)
+    gc = torch.randn(col.shape, device=dev, generator=g)
+    gt = torch.randn(tr.shape, device=dev, generator=g)
+    gf = torch.randn(fm.shape, device=dev, generator=g)
+    b_total = ((gc * col).sum(1) + gt * tr).contiguous()
+    return (stream, b.ranges, b.sorted_gid, table, gc, b_total, gf, fm, cfg)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("channels", [C, "above"])
+def test_k7_slot_gradients_are_the_same_bit_for_bit(cuda_device, channels):
+    """Two K7 launches on one stream: the slot gradients (summed in a fixed
+    warp and cluster order) equal bit for bit; the table gradient (atomic
+    adds in the card's order) within 1e-6 of its largest."""
+    if channels == "above":
+        channels = FE._K7_PASS_CHANNELS() + 72
+    args = _k7_inputs(cuda_device, channels)
+    dgeo1, dtab1 = FE.feat_bwd_cuda(*args)
+    dgeo2, dtab2 = FE.feat_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert float(dgeo1.abs().max()) > 0.0
+    assert torch.equal(dgeo1, dgeo2)
+    gap = float((dtab1 - dtab2).abs().max() / dtab1.abs().max())
+    assert gap <= 1e-6, gap
+
+
+@pytest.mark.card
+def test_k7_chunked_counts_only_past_the_budget(cuda_device):
+    """A launch at the cell's 128 channels walks once and counts under "K7";
+    one past the on-chip budget walks in passes and counts under
+    "K7.chunked"."""
+    from gsplat_tpu_torch.ops.cuda import counters
+
+    assert FE._K7_PASS_CHANNELS() >= C
+    for channels, name in ((C, "K7"),
+                           (FE._K7_PASS_CHANNELS() + 72, "K7.chunked")):
+        args = _k7_inputs(cuda_device, channels)
+        before = counters.snapshot()
+        FE.feat_bwd_cuda(*args)
+        assert counters.rise(before, counters.snapshot()) == {name: 1}
