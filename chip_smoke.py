@@ -345,6 +345,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
      then the main path project, 2 captured bicycle frames and 2 captured
      garden steps: K8 once a frame or step, K9 once a step; the two
      graphs' nodes by type.
+ 24. 2D Gaussian splatting's K10-K13 (`check_surfels`) on the first view
+     of the benchmark's surfel cell (its 1M garden surfels at 1920x1080,
+     seed SURF_SEED): K12 against `_project_surfels_plain` on the card
+     (depth bit-equal; mask, rect and counts equal on >= 99.99% of the
+     surfels; the other outputs within rtol 2e-5 / atol 1e-5), K13
+     against its autograd (>= 99.99% of each field's entries within rtol
+     5e-3 / atol 1e-5); on the heaviest tile row, K10's five maps against
+     the plain walk of each tile (within 2e-4 of max(1, the map's
+     largest)) and K11 with K4's sums against its autograd (each table
+     column's gap of norms within 1e-4, the centre's within 1e-2), K11's
+     slot gradients outside the row 0; all four timed beside the plain
+     versions and their bounds (the reference's tally); then the main path
+     surfels, SURF_STEPS captured train steps and a `render_jit` frame: K12
+     and K10 once a step and a frame, K13 and K11 once a step, K4 twice a
+     step, no 3DGS blend or projection kernel; the step graph's nodes.
      Each phase prints its seconds.
 Then one JSON line of kernel numbers, each kernel with its launches on each
 main path (`launches_by_path`, and their sum as `launches`; K3's rank stage
@@ -499,6 +514,14 @@ KERNELS = {
                     "none: XLA fuses the JAX package's jnp projection"),
     "project_bwd": (("K9",), "gsplat_tpu_torch/csrc/project.cu",
                     "none: XLA fuses the JAX package's jnp projection"),
+    "surfel_fwd": (("K10",), "gsplat_tpu_torch/csrc/surfel_fwd.cu",
+                   "none: no TPU kernel blends surfels"),
+    "surfel_bwd": (("K11",), "gsplat_tpu_torch/csrc/surfel_bwd.cu",
+                   "none: no TPU kernel blends surfels"),
+    "surfel_project_fwd": (("K12",), "gsplat_tpu_torch/csrc/surfel_project.cu",
+                           "none: the JAX package has no surfels"),
+    "surfel_project_bwd": (("K13",), "gsplat_tpu_torch/csrc/surfel_project.cu",
+                           "none: the JAX package has no surfels"),
 }
 PROBES = ("probe_transc", "probe_tricumsum", "probe_gather", "probe_coldma")
 
@@ -5266,6 +5289,367 @@ def check_projection(dev, card: str, by_path: dict, kernels: dict) -> dict:
     return dict(rows=rows, nodes=nodes)
 
 
+# ---- 2D Gaussian splatting's K10-K13 (phase 24) -----------------------------
+
+# The benchmark's surfel cell phase 24 drives: its configuration, traffic,
+# seed and view (the first).
+SURF_CONFIG = os.path.join(HERE, "splatbench", "configs",
+                           "2dgs-garden-1m-1080p.json")
+SURF_TRAFFIC = os.path.join(HERE, "splatbench", "traffic",
+                            "train-2dgs.json")
+SURF_SEED = 24
+SURF_VIEW = 0
+SURF_STEPS = 3      # captured train steps of the surfel path
+# K12 against the plain version: the depth bit-equal; mask, rect and
+# counts equal on SURF_INT_SHARE of the surfels; the differentiable
+# outputs, and uv and conic where the plain version keeps the surfel,
+# within SURF_ATOL + SURF_RTOL |plain|. K13 against autograd of the plain
+# version: PROJECT_RTOL / PROJECT_ATOL on PROJECT_GRAD_SHARE of each
+# field's entries (`compare_projection_grads`).
+SURF_INT_SHARE = 0.9999
+SURF_RTOL, SURF_ATOL = 2e-5, 1e-5
+# K10's maps on a tile row against the plain walk of each of its tiles:
+# each map's largest difference within SURF_MAP_TOL of max(1, the plain
+# map's largest magnitude) (a pixel whose transmittance lands on t_min
+# within a rounding may stop one pair apart in the two walks). K11 with
+# K4's sums: each table column's gap of norms to autograd within
+# SURF_GRAD_TOL, the centre's two columns within SURF_CENTRE_TOL (they
+# take gradient only where the filter wins, on a few pairs of a 1080p row,
+# so a few sums with cancelling terms carry them).
+SURF_MAP_TOL = 2e-4
+SURF_GRAD_TOL = 1e-4
+SURF_CENTRE_TOL = 1e-2
+# The 3DGS kernels, which no surfel path launches.
+GAUSSIAN_KERNELS = ("raster_fwd", "raster_fwd_packed", "raster_bwd",
+                    "raster_bwd_packed", "segsum_packed", "feat_fwd",
+                    "feat_bwd", "project_fwd", "project_bwd")
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def compare_surfel_projection(k, p) -> dict:
+    """K12's ProjectedSurfels `k` against the plain version's `p`: whether
+    the depths are the same bits and the overflow flags agree, the share
+    of surfels whose mask, rect and counts are equal, each float output's
+    largest |k - p| / (SURF_ATOL + SURF_RTOL |p|) (uv and conic where `p`
+    keeps the surfel), and `ok` where all are within SURF_*."""
+    import torch
+
+    from gsplat_tpu_torch.ops import surfels as S
+
+    out = dict(depth=torch.equal(k.depth, p.depth),
+               overflow=bool(k.overflow) == bool(p.overflow))
+    for f in ("mask", "rect", "counts"):
+        eq = getattr(k, f) == getattr(p, f)
+        out[f] = float((eq.all(-1) if eq.dim() > 1 else eq).float().mean())
+    for f in S.SURFEL_OUTPUTS + ("uv", "conic"):
+        a, b = getattr(k, f), getattr(p, f)
+        if f in ("uv", "conic"):
+            a, b = a[p.mask], b[p.mask]
+        r = ((a - b).abs() / (SURF_ATOL + SURF_RTOL * b.abs())).nan_to_num(
+            float("inf"))
+        out[f"{f}_worst"] = float(r.max()) if r.numel() else 0.0
+    out["ok"] = bool(out["depth"] and out["overflow"]
+                     and all(out[f] >= SURF_INT_SHARE
+                             for f in ("mask", "rect", "counts"))
+                     and all(v <= 1.0 for f, v in out.items()
+                             if f.endswith("_worst")))
+    return out
+
+
+def row_only(grads, row: int, cfg):
+    """The five maps' gradients (H, W, ...) with every pixel outside tile
+    row `row` zeroed."""
+    import torch
+
+    y0 = row * cfg.tile_size
+    y1 = min(cfg.height, y0 + cfg.tile_size)
+    out = [torch.zeros_like(g) for g in grads]
+    for o, g in zip(out, grads):
+        o[y0:y1] = g[y0:y1]
+    return out
+
+
+def plain_surfel_row(table, gid, ranges, grads, row: int, cfg) -> dict:
+    """The plain walk (`ops/surfels.py::_walk_plain`) of each tile of tile
+    row `row` alone, on the tensors' device: the row's five maps (image,
+    trans, normal sum, depth sum, distortion), each (y1 - y0, W, k); the
+    table's gradient (N, 18) by autograd from the five maps' gradients
+    `grads` (H, W, ...) on the row; the forward's and the backward's
+    seconds."""
+    import torch
+
+    from gsplat_tpu_torch.ops import surfels as S
+
+    dev = table.device
+    ts = cfg.tile_size
+    y0 = row * ts
+    y1 = min(cfg.height, y0 + ts)
+    leaf = table.detach().clone().requires_grad_(True)
+    dtable = torch.zeros_like(table)
+    maps = [torch.zeros((y1 - y0, cfg.width) + tuple(g.shape[2:]),
+                        device=dev) for g in grads]
+    fwd_s = bwd_s = 0.0
+    for tx in range(cfg.tiles_x):
+        t = row * cfg.tiles_x + tx
+        _sync(dev)
+        t0 = time.perf_counter()
+        planes = S._walk_plain(leaf, gid, ranges[t:t + 2], cfg,
+                               tile_offset=t)
+        _sync(dev)
+        fwd_s += time.perf_counter() - t0
+        ys = torch.arange(ts, device=dev)[:, None] + y0
+        xs = torch.arange(ts, device=dev)[None, :] + tx * ts
+        inside = ((ys < cfg.height) & (xs < cfg.width)).reshape(-1)
+        yy = ys.clamp_max(cfg.height - 1).expand(ts, ts).reshape(-1)[inside]
+        xx = xs.clamp_max(cfg.width - 1).expand(ts, ts).reshape(-1)[inside]
+        loss = 0.0
+        for plane, g, m in zip(planes, grads, maps):
+            k = plane.shape[-1]
+            mine = plane[0][inside]
+            m[yy - y0, xx] = mine.detach().reshape((-1,) + m.shape[2:])
+            loss = loss + (mine * g[yy, xx].reshape(-1, k)).sum()
+        if not (torch.is_tensor(loss) and loss.requires_grad):
+            continue  # a tile with no slot
+        t0 = time.perf_counter()
+        (d,) = torch.autograd.grad(loss, leaf, allow_unused=True)
+        if d is not None:
+            dtable += d
+        _sync(dev)
+        bwd_s += time.perf_counter() - t0
+    return dict(maps=maps, dtable=dtable, rows=(y0, y1), fwd_s=fwd_s,
+                bwd_s=bwd_s)
+
+
+def compare_surfel_row(outs, dtable, plain: dict) -> dict:
+    """K10's maps `outs` (the whole frame's) on the row and the table's
+    gradient `dtable` (K11 and K4 from the row's upstream gradients)
+    against `plain_surfel_row`'s: each map's largest difference over
+    max(1, the plain map's largest magnitude), each table column's gap of
+    norms, and `ok` where they are within SURF_MAP_TOL, SURF_GRAD_TOL and
+    (the centre's columns) SURF_CENTRE_TOL."""
+    import torch
+
+    from gsplat_tpu_torch.ops import surfels as S
+
+    y0, y1 = plain["rows"]
+    maps = [float((o[y0:y1] - m).abs().max())
+            / max(1.0, float(m.abs().max()))
+            for o, m in zip(outs, plain["maps"])]
+    want = plain["dtable"]
+    gap = ((dtable - want).norm(dim=0)
+           / want.norm(dim=0).clamp_min(1e-12)).tolist()
+    centre = (S.TAB_C, S.TAB_C + 1)
+    rest = [g for i, g in enumerate(gap) if i not in centre]
+    out = dict(maps=maps, columns=gap)
+    out["ok"] = bool(max(maps) <= SURF_MAP_TOL and max(rest) <= SURF_GRAD_TOL
+                     and max(gap[i] for i in centre) <= SURF_CENTRE_TOL
+                     and bool(torch.isfinite(dtable).all()))
+    return out
+
+
+def check_surfels(dev, card: str, by_path: dict, kernels: dict) -> dict:
+    """Phase 24: K12, K13, K10 and K11 on the first view of the benchmark's
+    surfel cell (its 1M garden surfels, RenderConfig and seed SURF_SEED,
+    1920x1080). K12 against `_project_surfels_plain` on the card
+    (`compare_surfel_projection`); K13 for N(0, 1) upstream gradients
+    against autograd of the plain version (`compare_projection_grads`);
+    on the heaviest tile row, K10's maps and the table's gradient of K11
+    and K4 (upstream gradients N(0, 1) on the row, zero elsewhere) against
+    the plain walk of each tile (`plain_surfel_row`,
+    `compare_surfel_row`), and K11's slot gradients outside the row's
+    slots 0; the four kernels timed with CUDA events (K10 and K11 on the
+    whole frame) beside the plain versions (the projection's on the whole
+    frame, the walk's on the row) and beside their bounds from the
+    reference's tally of the view (`splatbench/roofline_surfels.py`).
+    Then the main path "surfels": SURF_STEPS captured train steps of the
+    cell's step and one `render_jit` frame, its launches counted from 0:
+    K12 and K10 once a step and a frame, K13 and K11 once a step, K4 twice
+    a step (the gather backward's two passes of 9 rows), none of
+    GAUSSIAN_KERNELS."""
+    import torch
+
+    from gsplat_tpu_torch.models.gaussians import SurfelScene
+    from gsplat_tpu_torch.ops import surfels as S
+    from gsplat_tpu_torch.ops.binning import bin_gaussians
+    from gsplat_tpu_torch.ops.cuda import surfels as SK
+    from gsplat_tpu_torch.ops.projection import sh_degree
+    from gsplat_tpu_torch.render.pipeline import render_jit
+    from gsplat_tpu_torch.train.loop import make_optimizer, make_train_step
+    from splatbench import gen, port, roofline_surfels
+    from splatbench.reference import render as ref_render
+    from splatbench.reference import surfels as ref_surfels
+
+    with open(SURF_CONFIG) as f:
+        config = json.load(f)
+    with open(SURF_TRAFFIC) as f:
+        traffic = json.load(f)
+    rc, tc, sc = config["render"], config["train"], config["surfels"]
+    cfg = port.render_config(rc)
+    fields = gen.make_scene(config, SURF_SEED, dev)
+    fields["log_scales"] = fields["log_scales"][:, :2].contiguous()
+    scene = SurfelScene(**fields)
+    n = scene.num_gaussians
+    views = gen.view_matrices(traffic["poses"])
+    cams = [port.camera(v, rc["width"], rc["height"], dev)
+            for v in views[SURF_VIEW:SURF_VIEW + SURF_STEPS]]
+    cam = cams[0]
+    flat = tuple(getattr(scene, f.name)
+                 for f in dataclasses.fields(SurfelScene))
+    cam_t = tuple(getattr(cam, f) for f in SK.CAMERA_FIELDS)
+    degree = sh_degree(scene, cfg)
+    gen_t = torch.Generator(device=dev).manual_seed(SURF_SEED)
+
+    # K12 and K13 on the whole frame.
+    with torch.no_grad():
+        k = S.project_surfels(scene, cam, cfg)
+        p, plain_fwd_ms = timed_once(
+            lambda: S._project_surfels_plain(scene, cam, cfg))
+    fwd = compare_surfel_projection(k, p)
+    del p
+    g = [torch.randn(getattr(k, f).shape, generator=gen_t, device=dev)
+         for f in S.SURFEL_OUTPUTS]
+    leaves = [t.detach().clone().requires_grad_(True) for t in flat]
+    q = S._project_surfels_plain(SurfelScene(*leaves), cam, cfg)
+    want, plain_bwd_ms = timed_once(lambda: torch.autograd.grad(
+        [getattr(q, f) for f in S.SURFEL_OUTPUTS], leaves, g))
+    del q, leaves
+    got = SK.surfel_project_bwd_cuda(flat, cam_t, cfg, degree, *g)
+    bwd = compare_projection_grads(got, want)
+    del got, want
+    ms = dict(
+        surfel_project_fwd=cuda_ms(lambda: SK.surfel_project_fwd_cuda(
+            flat, cam_t, cfg, degree), 20),
+        surfel_project_bwd=cuda_ms(lambda: SK.surfel_project_bwd_cuda(
+            flat, cam_t, cfg, degree, *g), 20))
+    del g
+    log(f"[K12/K13 2dgs 1080p] {n} surfels, {int(k.mask.sum())} kept, view "
+        f"{SURF_VIEW}: K12 against the plain version {fwd}; K13 against "
+        f"autograd of it {bwd}")
+    if not (fwd["ok"] and bwd["ok"]):
+        raise SystemExit("K12/K13: kernel outside the stated tolerance of "
+                         "the plain version")
+
+    # K10 and K11 on the heaviest tile row, and timed on the frame.
+    with torch.no_grad():
+        binned = bin_gaussians(k, cfg)
+        table = S.surfel_table(k)
+    del k
+    if bool(binned.overflow):
+        raise SystemExit("surfels: the view overflowed its stream")
+    gid, ranges = binned.sorted_gid, binned.ranges
+    outs, aux = SK.surfel_fwd_cuda(table, gid, ranges, cfg)
+    ups = [torch.randn(o.shape, generator=gen_t, device=dev) for o in outs]
+    row = heaviest_row_index(ranges, cfg)
+    ups_row = row_only(ups, row, cfg)
+    t0, t1 = row * cfg.tiles_x, (row + 1) * cfg.tiles_x
+    s0, s1 = int(ranges[t0]), int(ranges[t1])
+    dslot = SK.surfel_bwd_cuda(table, gid, ranges, outs, aux, ups_row, cfg)
+    outside = int((dslot[:, :s0] != 0).sum() + (dslot[:, s1:] != 0).sum())
+    del dslot
+    leaf = table.clone().requires_grad_(True)
+    maps = S._RasterizeSurfels.apply(
+        leaf, gid, binned.sorted_gidk, binned.gauss_offsets,
+        binned.gauss_counts, ranges, cfg)
+    (have,) = torch.autograd.grad(maps, leaf, ups_row)
+    del maps, leaf
+    plain = plain_surfel_row(table, gid, ranges, ups_row, row, cfg)
+    res = compare_surfel_row(outs, have, plain)
+    log(f"[K10/K11 2dgs 1080p] {int(binned.num_intersections)} "
+        f"intersections; tile row {row} (slots {s0}..{s1}) against the plain "
+        f"walk of each tile on the card ({plain['fwd_s']} s forward, "
+        f"{plain['bwd_s']} s backward): {res}; K11's slot gradients outside "
+        f"the row nonzero: {outside}")
+    if not (res["ok"] and outside == 0):
+        raise SystemExit("K10/K11: kernel outside the stated tolerance of "
+                         "the plain walk, or K11 nonzero off the row")
+    plain_ms = dict(surfel_fwd=1e3 * plain["fwd_s"],
+                    surfel_bwd=1e3 * plain["bwd_s"],
+                    surfel_project_fwd=plain_fwd_ms,
+                    surfel_project_bwd=plain_bwd_ms)
+    del plain, have, ups_row
+    ms.update(
+        surfel_fwd=cuda_ms(lambda: SK.surfel_fwd_cuda(table, gid, ranges,
+                                                      cfg), 20),
+        surfel_bwd=cuda_ms(lambda: SK.surfel_bwd_cuda(
+            table, gid, ranges, outs, aux, ups, cfg), 20))
+    del outs, aux, ups, table, binned, gid, ranges
+    torch.cuda.empty_cache()
+
+    # Bounds from the reference's tally of the same view.
+    tally = {}
+    rcam = ref_render.camera(views[SURF_VIEW], rc["width"], rc["height"],
+                             dev)
+    ref_surfels.render(fields, rcam, rc, sc, tally=tally)
+    torch.cuda.empty_cache()
+    work = roofline_surfels.work(tally, rc, n, fields["sh"].shape[1])
+    for name, key in (("surfel_fwd", "K10"), ("surfel_bwd", "K11"),
+                      ("surfel_project_fwd", "K12"),
+                      ("surfel_project_bwd", "K13")):
+        ops, n_bytes = work[key]
+        bound_ms, bound_by = bound(n_bytes, ops)
+        kernels[name].update(
+            ms=ms[name], bound_ms=bound_ms, bound_by=bound_by,
+            roofline_pct=100.0 * bound_ms / ms[name], library_ms=None,
+            plain_ms=plain_ms[name],
+            plain_of="the heaviest tile row" if key in ("K10", "K11")
+            else "the frame")
+        log(f"[{name}] {ms[name]} ms, bound {bound_ms} ms ({bound_by}: "
+            f"{ops} ops, {n_bytes} B): {100.0 * bound_ms / ms[name]}% of "
+            f"it; plain {plain_ms[name]} ms "
+            f"({kernels[name]['plain_of']}); {card}")
+    log(f"[surfels] the reference's tally of view {SURF_VIEW}: {tally}")
+
+    # The main path: the cell's captured train step, then a frame.
+    targets = gen.make_targets(traffic["targets"], len(views), rc["height"],
+                               rc["width"], SURF_SEED, dev,
+                               range(SURF_VIEW, SURF_VIEW + SURF_STEPS))
+    nodes = {}
+
+    def surfel_path():
+        opt = make_optimizer(scene, lr=tc["lr"])
+        step = make_train_step(cfg, opt, ssim_weight=tc["ssim_weight"],
+                               lambda_dist=sc["lambda_dist"],
+                               lambda_normal=sc["lambda_normal"])
+        for i in range(SURF_STEPS):
+            loss, aux, _ = step(scene, [cams[i]], targets[i:i + 1],
+                                tc["active_sh_degree"])
+            log(f"[surfels] step {i}: loss {float(loss)}, overflow "
+                f"{bool(aux['overflow'])}, grads finite "
+                f"{bool(aux['grads_finite'])}")
+            if bool(aux["overflow"]) or not bool(aux["grads_finite"]) or \
+                    not math.isfinite(float(loss)):
+                raise SystemExit(f"surfels: step {i} overflowed or went "
+                                 "non-finite")
+        (entry,) = step.graphs.entries.values()
+        nodes["step"] = entry.nodes
+        out = render_jit(scene, cams[0], cfg)
+        if bool(out.overflow) or not all(
+                bool(torch.isfinite(getattr(out, f)).all())
+                for f in ("image", "normals", "depth", "distortion")):
+            raise SystemExit("surfels: render_jit's frame failed")
+
+    by_path["surfels"] = counts = drive(
+        "surfels", ("surfel_fwd", "surfel_bwd", "surfel_project_fwd",
+                    "surfel_project_bwd", "segsum"), surfel_path)
+    log(f"[surfels] step graph nodes at capture: {nodes['step']}; {card}")
+    expect = dict(surfel_fwd=SURF_STEPS + 1, surfel_project_fwd=SURF_STEPS + 1,
+                  surfel_bwd=SURF_STEPS, surfel_project_bwd=SURF_STEPS,
+                  segsum=2 * SURF_STEPS, **dict.fromkeys(GAUSSIAN_KERNELS, 0))
+    wrong = {k: counts[k] for k, v in expect.items() if counts[k] != v}
+    if wrong:
+        raise SystemExit(f"surfels: launches {wrong} for {SURF_STEPS} steps "
+                         f"and a frame, expected {expect}")
+    del scene, fields, targets, flat
+    torch.cuda.empty_cache()
+    return dict(fwd=fwd, bwd=bwd, row=res, nodes=nodes)
+
+
 def drive(path, needs, fn):
     """Run one main path with the launch counts set to 0 just before and
     read just after; fail unless each kernel in `needs` was launched."""
@@ -5870,6 +6254,13 @@ def run(dev) -> int:
     t0 = time.perf_counter()
     check_projection(dev, card, by_path, kernels)
     log(f"[phase 23] {time.perf_counter() - t0:.1f} s")
+
+    # 24. 2D Gaussian splatting's K10-K13 against the plain versions on
+    # the surfel cell's first view, and their launches on a captured step
+    # and frame.
+    t0 = time.perf_counter()
+    check_surfels(dev, card, by_path, kernels)
+    log(f"[phase 24] {time.perf_counter() - t0:.1f} s")
 
     for stage in ("rank", "count", "emit"):
         kernels["cull"][f"{stage}_launches_by_path"] = {

@@ -497,6 +497,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "distilled from 512-channel teacher maps at a "
                         "quarter of each side, decoded from the target's "
                         "own features (0 = off)")
+    p.add_argument("--surfels", action="store_true",
+                   help="2D Gaussian splatting: train surfels (two scales "
+                        "a Gaussian) with the distortion and normal "
+                        "regularisers; --out gets the fields (torch.save)")
     _common_flags(p)
     p.set_defaults(fn=cmd_train)
     return parser

@@ -9,6 +9,10 @@ color as SH coefficients (N, K, 3).
 arXiv:2312.03203): a view-independent feature vector per Gaussian, blended
 beside the colour, and the 1x1 decoder that maps a rendered feature map to
 the teacher's channels.
+
+`SurfelScene` holds 2D Gaussian splatting's surfels (Huang et al. 2024,
+arXiv:2403.17888): the same five fields, with two log-scales a surfel, the
+scales of its two tangent axes (the first two columns of the rotation).
 """
 
 from __future__ import annotations
@@ -87,6 +91,27 @@ class FeatureScene(GaussianScene):
                             features=features,
                             decoder_weight=self.decoder_weight,
                             decoder_bias=self.decoder_bias)
+
+
+@dataclasses.dataclass
+class SurfelScene(GaussianScene):
+    """2D Gaussian splatting's surfels: means (N, 3), log_scales (N, 2) of
+    the tangent axes t_u, t_v (the first two columns of R(quats); the
+    normal is t_u x t_v), quats (N, 4), opacity_logits (N,) and sh (N, K,
+    3), as GaussianScene's."""
+
+    def pad_to(self, capacity: int) -> "SurfelScene":
+        """GaussianScene.pad_to, with two log-scales a surfel."""
+        return SurfelScene(**vars(GaussianScene.pad_to(self, capacity)))
+
+
+def as_surfels(scene: GaussianScene) -> SurfelScene:
+    """The surfels of a scene of 3D Gaussians: each Gaussian's first two
+    log-scales and its quaternion as they are (the third axis becomes the
+    normal)."""
+    return SurfelScene(means=scene.means, log_scales=scene.log_scales[:, :2],
+                       quats=scene.quats, opacity_logits=scene.opacity_logits,
+                       sh=scene.sh)
 
 
 # The fields FeatureScene adds, in order.

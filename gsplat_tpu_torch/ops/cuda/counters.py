@@ -1,7 +1,7 @@
 """One table of launch counts by name.
 
 The names are the kernel table's (`PERF.md` §6): K1 and K2 on a float32 or
-a packed stream, K3's five stages, K4-K9 (K7 as "K7.chunked" where its
+a packed stream, K3's five stages, K4-K13 (K7 as "K7.chunked" where its
 channels need more than one walk), the probes P1-P4, the stage marks of
 `utils/trace.py` and the collectives of `parallel/sharding.py`.
 A launch counts under exactly one name, after its launch succeeded
@@ -18,8 +18,8 @@ from __future__ import annotations
 
 NAMES = ("K1", "K1.packed", "K2", "K2.packed", "K3.mask", "K3.compact",
          "K3.rank", "K3.count", "K3.emit", "K4", "K5", "K6", "K7",
-         "K7.chunked", "K8", "K9", "P1", "P2", "P3", "P4", "mark",
-         "collectives")
+         "K7.chunked", "K8", "K9", "K10", "K11", "K12", "K13", "P1", "P2",
+         "P3", "P4", "mark", "collectives")
 
 _table = dict.fromkeys(NAMES, 0)
 

@@ -34,6 +34,13 @@ colour with the same weights: the blend is then kernel K6 and its backward
 K7 (`ops/cuda/features.py`), reading each slot's feature row by its
 Gaussian id, and the output carries the (H, W, C) feature map. A scene
 without features takes the path above unchanged.
+
+A `SurfelScene` (2D Gaussian splatting, arXiv:2403.17888) projects its
+surfels with kernel K12 (backward K13), bins them by their reachable
+ellipse (`ops/surfels.py`), gathers them into an (N, 18) table read by
+each slot's id, and blends with kernel K10 (backward K11, then the gather
+backward's K4): the output carries the normal map, the expected depth,
+the distortion and alpha beside the image.
 """
 
 from __future__ import annotations
@@ -43,7 +50,11 @@ import dataclasses
 import torch
 
 from gsplat_tpu_torch.config import RenderConfig
-from gsplat_tpu_torch.models.gaussians import FeatureScene, GaussianScene
+from gsplat_tpu_torch.models.gaussians import (
+    FeatureScene,
+    GaussianScene,
+    SurfelScene,
+)
 from gsplat_tpu_torch.ops.binning import (
     bin_gaussians,
     features_f32,
@@ -54,6 +65,12 @@ from gsplat_tpu_torch.ops.cuda.features import rasterize_features
 from gsplat_tpu_torch.ops.cuda.raster import rasterize_packed16, rasterize_tiles
 from gsplat_tpu_torch.ops.projection import ProjectedGaussians, project_gaussians
 from gsplat_tpu_torch.ops.stream16 import gather_packed
+from gsplat_tpu_torch.ops.surfels import (
+    expected_depth,
+    project_surfels,
+    rasterize_surfels,
+    surfel_table,
+)
 from gsplat_tpu_torch.train.losses import l1
 from gsplat_tpu_torch.utils.graphs import Captured
 from gsplat_tpu_torch.utils.trace import on_grad, stage
@@ -71,6 +88,13 @@ class RenderOutput:
     gauss_counts: torch.Tensor       # (N,) int32 post-cull candidates per Gaussian
     features: torch.Tensor | None = None  # (H, W, C) feature map of a
     #                                     #   FeatureScene, else None
+    # A SurfelScene's maps, else None: the normal map sum w n (view
+    # space), the expected depth sum w z / alpha, the distortion and
+    # alpha = 1 - transmittance.
+    normals: torch.Tensor | None = None     # (H, W, 3)
+    depth: torch.Tensor | None = None       # (H, W)
+    distortion: torch.Tensor | None = None  # (H, W)
+    alpha: torch.Tensor | None = None       # (H, W)
 
 
 def render_with_projection(
@@ -82,6 +106,8 @@ def render_with_projection(
 ) -> tuple[RenderOutput, ProjectedGaussians]:
     """`render`, and the projection it rendered from (the train step reads
     its tile counts for visibility instead of projecting a second time)."""
+    if isinstance(scene, SurfelScene):
+        return _render_surfels(scene, camera, cfg, background)
     table = scene.features if isinstance(scene, FeatureScene) else None
     with stage("render.project"):
         proj = project_gaussians(scene, camera, cfg, uv_tap=uv_tap)
@@ -122,6 +148,45 @@ def render_with_projection(
         gauss_counts=binned.gauss_counts,
         features=fmap,
     )
+    return out, proj
+
+
+def _render_surfels(scene: SurfelScene, camera: Camera, cfg: RenderConfig,
+                    background=None):
+    """`render_with_projection` of a SurfelScene. The blend reads each
+    slot's surfel from the (N, 18) float32 table by its id and sums float32
+    slot gradients, so a configuration that selects another stream or a
+    bf16 gradient path is refused."""
+    if (cfg.stream_format != "f32" or cfg.gather_backward == "bf16"
+            or cfg.grad_readout != "f32"):
+        raise ValueError(
+            "surfels: the blend reads a float32 table by slot id and sums "
+            "float32 slot gradients; set stream_format='f32', "
+            "grad_readout='f32' and a float32 gather_backward (got "
+            f"{cfg.stream_format!r}, {cfg.grad_readout!r}, "
+            f"{cfg.gather_backward!r})")
+    with stage("render.project"):
+        proj = project_surfels(scene, camera, cfg)
+    with stage("render.bin") as bin_stage, torch.no_grad():
+        binned = bin_gaussians(proj, cfg)
+        bin_stage.payload(binned.num_intersections, binned.keys_sorted)
+    with stage("render.gather"):
+        table = surfel_table(proj)
+        on_grad(table, "render.project.backward")
+    with stage("render.blend"):
+        image, trans, normals, dsum, dist = rasterize_surfels(table, binned,
+                                                              cfg)
+        alpha = 1.0 - trans
+        depth = expected_depth(dsum, alpha)
+        if background is not None:
+            image = image + trans[..., None] * background
+    on_grad(image, "render.blend.backward")
+    out = RenderOutput(
+        image=image, transmittance=trans,
+        num_intersections=binned.num_intersections,
+        overflow=binned.overflow,
+        gauss_counts=binned.gauss_counts, normals=normals, depth=depth,
+        distortion=dist, alpha=alpha)
     return out, proj
 
 
@@ -188,20 +253,26 @@ def render_jit(scene: GaussianScene, camera: Camera, cfg: RenderConfig,
     buffers (`utils/graphs.py`).
     On the CPU the same call runs eagerly. The outputs are new tensors,
     outside autograd. A FeatureScene's feature table is read where it lies
-    too, and the output carries its feature map."""
+    too, and the output carries its feature map; a SurfelScene's output
+    carries its normal, depth, distortion and alpha maps."""
     inputs = scene_camera_inputs(scene, camera)
     if background is not None:
         inputs.append(background)
     n = len(SCENE_FIELDS)
     key = (cfg, background is not None)
     table = scene.features if isinstance(scene, FeatureScene) else None
+    surfels = isinstance(scene, SurfelScene)
     if table is not None:
         inputs.insert(n, table)
         key += ("features",)
+    if surfels:
+        key += ("surfels",)
 
     def body(*flat):
         if table is None:
             s, c, rest = split_inputs(flat)
+            if surfels:
+                s = SurfelScene(**vars(s))
         else:
             s, c, rest = split_inputs(flat[:n] + flat[n + 1:])
             s = FeatureScene(*flat[:n], features=flat[n])

@@ -28,6 +28,15 @@ the map's gradient, where "train.backward" resumes). Its features and
 decoder are Adam groups of their own. The step's backward runs with
 cuBLAS's TF32 off, so the decoder's gradient GEMMs are float32 as its
 forward is.
+
+A `SurfelScene` trains 2D Gaussian splatting (Huang et al. 2024,
+arXiv:2403.17888): the loss adds lambda_dist (LAMBDA_DIST by default)
+times the mean distortion and lambda_normal (LAMBDA_NORMAL) times the
+mean normal error (`train/losses.py::surfel_regularizers`), from step 0,
+in a stage "train.regularize" whose backward is marked
+"train.regularize.backward" (to the depth map's gradient, where
+"train.backward" resumes). `fit` takes no densification, checkpoints or
+mesh for surfels yet.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from gsplat_tpu_torch.models.gaussians import (
     FEATURE_FIELDS,
     FeatureScene,
     GaussianScene,
+    SurfelScene,
 )
 from gsplat_tpu_torch.ops.binning import _normalize_tier_plan
 from gsplat_tpu_torch.ops.camera import Camera
@@ -53,7 +63,12 @@ from gsplat_tpu_torch.render.pipeline import (
     SCENE_FIELDS,
     render_with_projection,
 )
-from gsplat_tpu_torch.train.losses import decoded_l1, fp32_matmuls, rgb_loss
+from gsplat_tpu_torch.train.losses import (
+    decoded_l1,
+    fp32_matmuls,
+    rgb_loss,
+    surfel_regularizers,
+)
 from gsplat_tpu_torch.utils.graphs import Captured
 from gsplat_tpu_torch.utils.trace import on_grad, stage
 
@@ -73,6 +88,10 @@ DECODER_LR = 1e-4
 FEATURE_WEIGHT = 1.0
 # The teacher's channels in `train_from_cli`: LSeg's CLIP embedding.
 TEACHER_CHANNELS = 512
+# 2D Gaussian splatting's regulariser weights (alpha_d for unbounded
+# scenes, beta), as the paper is recalled.
+LAMBDA_DIST = 100.0
+LAMBDA_NORMAL = 0.05
 
 
 def param_fields(scene: GaussianScene) -> tuple:
@@ -119,9 +138,11 @@ class SceneAdam(torch.optim.Adam):
     tensors, Adam's step counts stay on the device, and before each update
     the "means" rate is computed there (in float64) from the device count
     `count`. On the CPU the rates are floats, set from the host count, as
-    torch's non-capturable Adam wants them; `updates` reads either count."""
+    torch's non-capturable Adam wants them; `updates` reads either count.
+    `surfels`: the groups are a SurfelScene's (`make_optimizer`), whose
+    step adds 2D Gaussian splatting's regularisers."""
 
-    def __init__(self, groups, decay=None):
+    def __init__(self, groups, decay=None, surfels: bool = False):
         dev = groups[0]["params"][0].device
         capturable = dev.type == "cuda"
         if capturable:
@@ -131,6 +152,7 @@ class SceneAdam(torch.optim.Adam):
         super().__init__(groups, betas=(0.9, 0.999), eps=1e-8,
                          capturable=capturable)
         self.decay = decay
+        self.surfels = surfels
         self.count = (torch.zeros((), dtype=torch.float64, device=dev)
                       if capturable else None)
         self._updates = 0
@@ -202,7 +224,7 @@ def make_optimizer(
                              "tensor; pass a scene of plain tensors")
         param.requires_grad_(True)
         groups.append(dict(params=[param], lr=rates[name], name=name))
-    return SceneAdam(groups, decay)
+    return SceneAdam(groups, decay, surfels=isinstance(scene, SurfelScene))
 
 
 def check_params(scene: GaussianScene, params) -> None:
@@ -245,9 +267,30 @@ def trains_features(optimizer: SceneAdam) -> bool:
     return any(g["name"] == "features" for g in optimizer.param_groups)
 
 
+def trains_surfels(optimizer: SceneAdam) -> bool:
+    """Whether `make_optimizer` made the optimizer for a SurfelScene."""
+    return optimizer.surfels
+
+
+def _surfel_weights(optimizer: SceneAdam, lambda_dist: float | None,
+                    lambda_normal: float | None):
+    """(lambda_dist, lambda_normal) for a SurfelScene's optimizer, each
+    LAMBDA_DIST or LAMBDA_NORMAL where None; None for any other optimizer,
+    which takes neither weight."""
+    if not trains_surfels(optimizer):
+        if lambda_dist is not None or lambda_normal is not None:
+            raise ValueError("train step: lambda_dist and lambda_normal "
+                             "weigh a SurfelScene's regularisers, and only "
+                             "its")
+        return None
+    return (float(LAMBDA_DIST if lambda_dist is None else lambda_dist),
+            float(LAMBDA_NORMAL if lambda_normal is None else lambda_normal))
+
+
 def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
                      ssim_weight: float,
-                     feature_weight: float = FEATURE_WEIGHT):
+                     feature_weight: float = FEATURE_WEIGHT,
+                     surfel_weights: tuple | None = None):
     """(body, band_mask, params) of the train step.
 
     body(scene, cameras, targets, mask=None) -> (loss, aux, (tap_grads,
@@ -257,7 +300,9 @@ def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
     parameters' and the (N, 2) zero leaf `tap` of the densification
     trigger, made once) are zeroed and accumulated in place, so each keeps
     its storage from the first step on, as a captured step needs.
-    band_mask is `sh_mask_fn`'s."""
+    band_mask is `sh_mask_fn`'s. surfel_weights (lambda_dist,
+    lambda_normal), for a SurfelScene, add its regularisers to each
+    view's loss."""
     tier_klos = tuple(
         k_lo for k_lo, _, budget in _normalize_tier_plan(
             cfg.tier_spec, cfg.max_tiles_per_gaussian, 1)
@@ -282,6 +327,19 @@ def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
                                                    uv_tap=tap)
             with stage("train.loss"):
                 loss_v = rgb_loss(out.image, target, ssim_weight)
+            if surfel_weights is not None:
+                with stage("train.regularize"):
+                    # The regularisers' backward ends at the gradient of
+                    # this view of the depth (its node is the stage's
+                    # first, so autograd runs it after the stage's other
+                    # nodes and before the image loss's).
+                    depth = out.depth.view(out.depth.shape)
+                    on_grad(depth, "train.backward")
+                    reg = surfel_regularizers(
+                        out.normals, depth, out.distortion, out.alpha,
+                        camera.focal, *surfel_weights)
+                    on_grad(reg, "train.regularize.backward")
+                loss_v = loss_v + reg
             if teachers is not None:
                 with stage("train.decode"):
                     fmap = out.features.permute(2, 0, 1)[None]
@@ -321,8 +379,10 @@ def _train_step_body(cfg: RenderConfig, optimizer: SceneAdam,
             "grads_finite_leaves": leaf_ok,
             "tier_members": torch.stack(members).amax(0),
         }
+        # A SurfelScene's render takes no tap: its gradient reads 0.
+        tap_grad = tap.grad if tap.grad is not None else torch.zeros_like(tap)
         return (loss.detach(), aux,
-                (tap.grad, torch.stack(visible).any(0)))
+                (tap_grad, torch.stack(visible).any(0)))
 
     return body, sh_mask_fn(params), params
 
@@ -409,20 +469,25 @@ def _teachers_checked(step, featured: bool):
 
 def make_eager_train_step(cfg: RenderConfig, optimizer: SceneAdam,
                           ssim_weight: float = 0.2,
-                          feature_weight: float = FEATURE_WEIGHT):
+                          feature_weight: float = FEATURE_WEIGHT,
+                          lambda_dist: float | None = None,
+                          lambda_normal: float | None = None):
     """`make_train_step`'s step run eagerly, op by op: the body the
     captured step captures, with the same interface. The profile scripts
     (`scripts/profile_torch_train*.py`) read its spans, and `chip_smoke.py`
     holds the captured step to it."""
     return _teachers_checked(
-        eager_step(*_train_step_body(cfg, optimizer, ssim_weight,
-                                     feature_weight)),
+        eager_step(*_train_step_body(
+            cfg, optimizer, ssim_weight, feature_weight,
+            _surfel_weights(optimizer, lambda_dist, lambda_normal))),
         trains_features(optimizer))
 
 
 def make_train_step(cfg: RenderConfig, optimizer: SceneAdam,
                     ssim_weight: float = 0.2,
-                    feature_weight: float = FEATURE_WEIGHT):
+                    feature_weight: float = FEATURE_WEIGHT,
+                    lambda_dist: float | None = None,
+                    lambda_normal: float | None = None):
     """Single-device train step over a small batch of views, unrolled (one
     render per view, as the JAX step unrolls its batch), dispatched as one
     program as the JAX package's jitted `_step`: on a CUDA device a CUDA
@@ -453,12 +518,20 @@ def make_train_step(cfg: RenderConfig, optimizer: SceneAdam,
     A FeatureScene's optimizer (`make_optimizer`): the step takes
     teachers= (B, D, h, w), the teachers' maps of the views (any float
     dtype, read as float32), and the loss adds feature_weight (gamma) times
-    each view's `decoded_l1`; the teachers are an input of the graph."""
+    each view's `decoded_l1`; the teachers are an input of the graph.
+
+    A SurfelScene's optimizer: the loss adds lambda_dist (LAMBDA_DIST
+    where None) times the mean distortion and lambda_normal (LAMBDA_NORMAL)
+    times the mean normal error of each view
+    (`train/losses.py::surfel_regularizers`); any other optimizer refuses
+    the two weights."""
+    surfel_weights = _surfel_weights(optimizer, lambda_dist, lambda_normal)
     body, band_mask, params = _train_step_body(cfg, optimizer, ssim_weight,
-                                               feature_weight)
+                                               feature_weight, surfel_weights)
     featured = trains_features(optimizer)
     key = (cfg, float(ssim_weight)) + (
-        ("features", float(feature_weight)) if featured else ())
+        ("features", float(feature_weight)) if featured else ()) + (
+        ("surfels",) + surfel_weights if surfel_weights else ())
     return _teachers_checked(masked_step(
         captured_step(body, params, "train_step", key), band_mask), featured)
 
@@ -616,6 +689,11 @@ def fit(
                      or resume):
         raise ValueError("fit: a FeatureScene trains on one device without "
                          "densification or checkpoints")
+    if isinstance(scene, SurfelScene) and (
+            mesh is not None or densify_every or checkpoint_every or resume):
+        raise ValueError("fit: a SurfelScene (2D Gaussian splatting) trains "
+                         "on one device without densification or "
+                         "checkpoints")
     from gsplat_tpu_torch.train.densify import (
         accumulate_grads,
         densify_and_prune_jit,
@@ -1018,7 +1096,12 @@ def train_from_cli(args) -> int:
     args.seed + 2; each view's teacher is its rendered feature map decoded
     at a quarter of the image's sides (stored as bfloat16), and the fit
     trains C features per Gaussian and a decoder of its own; they are
-    saved beside the PLY (`<out>.features.pt`)."""
+    saved beside the PLY (`<out>.features.pt`).
+
+    With args.surfels (2D Gaussian splatting) the target and the initial
+    scene are surfels (each Gaussian's first two log-scales), the fit adds
+    the distortion and normal regularisers, and the trained surfels'
+    fields are saved to args.out with torch.save (no PLY for surfels)."""
     from gsplat_tpu_torch.cli import _build_cfg, _load_scene
     from gsplat_tpu_torch.io.ply import save_ply
     from gsplat_tpu_torch.models.gaussians import random_scene
@@ -1030,6 +1113,14 @@ def train_from_cli(args) -> int:
     cfg = _build_cfg(args, args.width, args.height)
     target_scene = _load_scene(args)
     channels = getattr(args, "features", 0)
+    surfels = getattr(args, "surfels", False)
+    if surfels and (channels or args.densify_every):
+        raise ValueError("train: --surfels takes neither --features nor "
+                         "densification")
+    if surfels:
+        from gsplat_tpu_torch.models.gaussians import as_surfels
+
+        target_scene = as_surfels(target_scene)
     if channels:
         from gsplat_tpu_torch.models.gaussians import with_features
 
@@ -1079,6 +1170,8 @@ def train_from_cli(args) -> int:
     init.means = place_init(init.means, center, radius)
     if channels:
         init = with_features(init, channels, TEACHER_CHANNELS, gen)
+    if surfels:
+        init = as_surfels(init)
     if args.densify_every:
         capacity = args.capacity or 2 * init.num_gaussians
         init = init.pad_to(capacity)
@@ -1125,7 +1218,11 @@ def train_from_cli(args) -> int:
     print(f"final view-0 PSNR: {final_psnr:.2f} dB")
     if eval_fn is not None:
         print(f"final held-out metrics: {eval_fn(trained, args.steps)}")
-    save_ply(trained, args.out)
+    if surfels:
+        torch.save({f: getattr(trained, f).cpu() for f in SCENE_FIELDS},
+                   args.out)
+    else:
+        save_ply(trained, args.out)
     print(f"saved {args.out}")
     if channels:
         path = f"{args.out}.features.pt"

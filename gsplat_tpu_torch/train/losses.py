@@ -18,6 +18,13 @@ matrix and a bias) and held to the teacher by L1. The decoder is one dense
 float32 GEMM (cuBLAS), run with TF32 off (`fp32_matmuls`), as the
 configuration states float32; autograd runs its backward GEMMs where the
 caller's backward runs, which the train step puts under the same context.
+
+2D Gaussian splatting's regularisers (Huang et al. 2024, arXiv:2403.17888,
+section 4.2): lambda_dist times the mean of the rendered distortion, and
+lambda_normal times the mean of 1 - N_r . N_d, N_r the rendered normal map
+and N_d the normal of the expected depth map's points
+(`depth_to_normal`) times alpha, detached (the authors' code as
+recalled); both in view space, where their dot product is the world's.
 """
 
 from __future__ import annotations
@@ -162,6 +169,35 @@ def decoded_l1(fmap: torch.Tensor, teacher: torch.Tensor,
     bias (D,), the 1x1 decoder."""
     y = decode_map(fmap, weight, bias, teacher.shape[-2:])
     return torch.mean(torch.abs(y - teacher.float()))
+
+
+def depth_to_normal(depth: torch.Tensor, focal: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) view-space normals of a view-depth map (H, W): each pixel
+    (x, y) unprojected to depth ((x - W / 2) / fx, (y - H / 2) / fy, 1),
+    central differences along the rows and the columns, their cross product
+    normalised (facing the camera for a surface that does); 0 on the
+    one-pixel border. focal: (2,) (fx, fy) on the map's device."""
+    h, w = depth.shape
+    dev = depth.device
+    rx = (torch.arange(w, device=dev, dtype=torch.float32) - 0.5 * w) / focal[0]
+    ry = (torch.arange(h, device=dev, dtype=torch.float32) - 0.5 * h) / focal[1]
+    pts = torch.stack([depth * rx[None, :], depth * ry[:, None], depth], -1)
+    d_row = pts[2:, 1:-1] - pts[:-2, 1:-1]
+    d_col = pts[1:-1, 2:] - pts[1:-1, :-2]
+    n = F.normalize(torch.cross(d_row, d_col, dim=-1), dim=-1)
+    return F.pad(n, (0, 0, 1, 1, 1, 1))
+
+
+def surfel_regularizers(normals: torch.Tensor, depth: torch.Tensor,
+                        distortion: torch.Tensor, alpha: torch.Tensor,
+                        focal: torch.Tensor, lambda_dist: float,
+                        lambda_normal: float) -> torch.Tensor:
+    """lambda_dist mean(distortion) + lambda_normal mean(1 - N_r . N_d):
+    normals (H, W, 3) the rendered normal map, depth (H, W) the expected
+    depth, alpha (H, W), N_d = depth_to_normal(depth) alpha (detached)."""
+    n_d = depth_to_normal(depth, focal) * alpha.detach()[..., None]
+    normal_loss = torch.mean(1.0 - (normals * n_d).sum(-1))
+    return lambda_dist * torch.mean(distortion) + lambda_normal * normal_loss
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

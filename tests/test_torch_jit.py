@@ -233,8 +233,8 @@ def test_launch_counter_registry_reads_rises_and_adds():
     assert set(before) == {
         "K1", "K1.packed", "K2", "K2.packed", "K3.mask", "K3.compact",
         "K3.rank", "K3.count", "K3.emit", "K4", "K5", "K6", "K7",
-        "K7.chunked", "K8", "K9", "P1", "P2", "P3", "P4", "mark",
-        "collectives"}
+        "K7.chunked", "K8", "K9", "K10", "K11", "K12", "K13", "P1", "P2",
+        "P3", "P4", "mark", "collectives"}
     assert counters.rise(before, counters.snapshot()) == {}
     try:
         counters.bump("K2", 2)

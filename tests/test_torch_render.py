@@ -265,7 +265,8 @@ def test_kernels_build_on_first_use_only(monkeypatch):
         "cull.cu", "feat_bwd.cu", "feat_fwd.cu", "probe_coldma.cu",
         "probe_gather.cu", "probe_transc.cu",
         "probe_tricumsum.cu", "project.cu", "raster_bwd.cu", "raster_fwd.cu", "segsum.cu",
-        "segsum_packed.cu", "trace_mark.cu"]
+        "segsum_packed.cu", "surfel_bwd.cu", "surfel_fwd.cu",
+        "surfel_project.cu", "trace_mark.cu"]
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
     monkeypatch.setattr(_build, "DEFAULT_NVCC", "/nonexistent/nvcc")
     with pytest.raises(RuntimeError, match="nvcc"):
