@@ -18,7 +18,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      emit stages (`check_packed_stages`) on the same rows at a 4.1M-slot
      stream, whole frame, without the cull and on a band of half the tile
      rows: 0 differing entries, their times beside their bounds, the mask
-     stage's and the plain versions', and their launch counts;
+     stage's and the plain versions', and their launch counts; and the
+     'tiered' route's tier count and tier emit (`check_tier_stages`) on the
+     bench ladder's rows of that view, whole frame and a band of half the
+     tile rows, into the 4.1M-slot stream and one 1000 slots short of the
+     candidates: 0 differing entries, as many slots written as kept, their
+     times beside their bounds and the plain versions', their launches;
   4. K1 blend at the bench shape on the port's own binned stream, float32
      and packed4: kernel against the plain tiled walk (of the unpacked
      stream) on the card, PSNR >= 60 dB and >= 99.99% of pixels within 1e-4
@@ -57,8 +62,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      against its plain version (mask, rank and counts, 0 differing entries
      each), timed beside the route it replaced (the mask stage, cumsum,
      sum), and on the same rows bounded at K 1024 (the viewer preset's
-     K_jumbo; lanes kept, 0 differing entries); K1 and K2 (packed4, bf16
-     pairs out)
+     K_jumbo; lanes kept, 0 differing entries); the tier count and tier
+     emit as in 3 on its base and jumbo tiers' rows (the jumbo rows keep
+     candidates); K1 and K2 (packed4, bf16 pairs out)
      on its view-0 stream, whose jumbo splats make the longest segments,
      against their plain versions with the tolerances of 4 and 5; and K5
      and K4 at depth 2048 on K2's pairs of that stream (K4 on the pairs
@@ -406,6 +412,11 @@ CULL_OUT_BYTES = {"mask": (1, 0), "compact": (4, 4), "rank": (5, 4),
 # top, 4 bytes per 32 lanes).
 EMIT_SLOT_BYTES = 12
 EMIT_ROW_BYTES = 24
+# K3's tier count and tier emit: bytes per tier row (the count read, its
+# kept count written; the emit reads its offset) besides the emit's 12 per
+# kept slot.
+TIER_COUNT_ROW_BYTES = 8
+TIER_EMIT_ROW_BYTES = 4
 # K1: FP32 operations per (pixel, Gaussian) pair a pixel walks: 12 for the
 # offset, the quadratic and its test on every walked pair, about 15 more
 # (one exp) for the pairs that pass it -- about 20 on average.
@@ -477,7 +488,8 @@ CLI_STEPS = 180
 CLI_RESET_EVERY = 90
 
 # K3's stages in the table of launch counts (ops/cuda/counters.py).
-K3_STAGES = ("K3.mask", "K3.compact", "K3.rank", "K3.count", "K3.emit")
+K3_STAGES = ("K3.mask", "K3.compact", "K3.rank", "K3.count", "K3.emit",
+             "K3.tier_count", "K3.tier_emit")
 # The kernels, in the order of the JSON line: name -> (its names in the
 # table of launch counts, summed where the kernel is every stage; source;
 # the TPU kernel it replaces).
@@ -899,6 +911,96 @@ def check_packed_stages(proj, cfg, tag: str) -> dict:
     return out
 
 
+def check_tier_stages(proj, cfg, tag: str, short: int = 1000) -> dict:
+    """K3's tier count and tier emit (the 'tiered' binning's compaction) on
+    `binning._tier_rows` of proj at cfg, against their plain versions (every
+    tier's lane grid, on the card), entry for entry: the whole frame and the
+    lower half of the tile rows as a band, each emitted into a stream of
+    cfg.max_intersections slots and into one `short` slots short of the
+    candidates. Then the kernels' times beside their bounds (the emit's
+    with and without its wrapper's two fills), the plain versions' times,
+    and the launches counted. Exits if any entry differs, a stream holds
+    other than min(candidates, slots) written slots, or, with jumbo tiers,
+    the jumbo rows keep nothing."""
+    import torch
+
+    from gsplat_tpu_torch.ops import binning
+    from gsplat_tpu_torch.ops.cuda import counters, cull
+
+    n_tiles, max_slots = cfg.num_tiles, cfg.max_intersections
+    sentinel = binning.SENTINEL_KEY
+    half = (cfg.tiles_y // 2) * cfg.tiles_x
+    before = counters.snapshot()
+    out = {"max_slots": max_slots}
+    for name, lo in (("frame", None), ("band", half)):
+        with torch.no_grad():
+            rows, _, _ = binning._tier_rows(proj, cfg, n_tiles - (lo or 0),
+                                            lo)
+        got = cull.cull_tier_count_cuda(rows)
+        want, count_plain_ms = timed_once(
+            lambda: cull.cull_tier_count_plain(rows))
+        offsets = (torch.cumsum(got, 0) - got).to(torch.int32)
+        total = int(got.sum())
+        base_rows = sum(t[3] for t in rows.tiers if t[0] != cull.TIER_JUMBO)
+        row = dict(tiers=len(rows.tiers), rows=got.numel(), kept=total,
+                   jumbo_kept=int(got[base_rows:].sum()),
+                   count_differ=int((got != want).sum()),
+                   count_plain_ms=count_plain_ms, emit={})
+        if total <= short:
+            raise SystemExit(f"K3 tier count/emit {tag}: {total} candidates "
+                             f"in the {name}, too few to cut {short} short")
+        for cut, slots in (("full", max_slots), ("short", total - short)):
+            egot = cull.cull_tier_emit_cuda(rows, offsets, slots, sentinel)
+            ewant, emit_plain_ms = timed_once(
+                lambda: cull.cull_tier_emit_plain(rows, offsets, slots,
+                                                  sentinel))
+            row["emit"][cut] = dict(
+                slots=slots, written=int((egot[1] >= 0).sum()),
+                want_written=min(total, slots),
+                differ=[int((g != w).sum()) for g, w in zip(egot, ewant)],
+                plain_ms=emit_plain_ms)
+            del egot, ewant
+        out[name] = row
+        if name == "frame":
+            keys, gidk = cull.cull_tier_emit_cuda(rows, offsets, max_slots,
+                                                  sentinel)
+            out["count_ms"] = cuda_ms(
+                lambda: cull.cull_tier_count_cuda(rows), 20)
+            out["emit_ms"] = cuda_ms(lambda: cull._tier_launch(
+                rows, None, offsets, max_slots, keys, gidk), 20)
+            out["emit_fill_ms"] = cuda_ms(lambda: cull.cull_tier_emit_cuda(
+                rows, offsets, max_slots, sentinel), 20)
+            out["count_bound_ms"], out["count_bound_by"] = bound(
+                got.numel() * TIER_COUNT_ROW_BYTES, 0)
+            out["emit_bound_ms"], out["emit_bound_by"] = bound(
+                got.numel() * TIER_EMIT_ROW_BYTES
+                + min(total, max_slots) * EMIT_SLOT_BYTES, 0)
+            del keys, gidk
+        del rows, got, want, offsets
+    # Per variant 1 count and 2 emits (the two streams), the frame's one
+    # more for its timing, then its 21 timed counts and 42 timed emits
+    # (cuda_ms warms up once).
+    rose = counters.rise(before, counters.snapshot())
+    out["launches"] = dict(tier_count=rose.get("K3.tier_count", 0),
+                           tier_emit=rose.get("K3.tier_emit", 0))
+    log(f"[K3 tier count/emit {tag}] {json.dumps(out)}")
+    variants = [out[v] for v in ("frame", "band")]
+    if any(v["count_differ"] or any(any(e["differ"]) or e["written"]
+                                    != e["want_written"]
+                                    for e in v["emit"].values())
+           for v in variants):
+        raise SystemExit(f"K3 tier count/emit {tag}: kernel differs from "
+                         "the plain version")
+    if cfg.max_tiles_jumbo and not out["frame"]["jumbo_kept"]:
+        raise SystemExit(f"K3 tier count/emit {tag}: the jumbo rows keep "
+                         "nothing")
+    if out["launches"] != {"tier_count": 2 + 21, "tier_emit": 5 + 42}:
+        raise SystemExit(f"K3 tier count/emit {tag}: launches "
+                         f"{out['launches']}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def cull_nan_rows(params, rows_per_field: int = 64):
     """Hand-made K3 rows: the first rows of `params` whose walk bound is
     positive, each of the 10 parameters NaN in its own group of
@@ -1127,16 +1229,21 @@ def check_segsum_layouts(dev) -> None:
 
 def launch_counts() -> dict:
     """Each kernel's launch count, K3's rank stage (the jumbo grid), count
-    and emit stages (the 'packed' binning) alone as "cull_rank",
-    "cull_count" and "cull_emit", K7's launches that walk their channels
-    in passes as "feat_bwd_chunked", and the stage marks as "mark"."""
+    and emit stages (the 'packed' binning) and tier count and emit stages
+    (the 'tiered' binning) alone as "cull_rank", "cull_count",
+    "cull_emit", "cull_tier_count" and "cull_tier_emit", K7's launches that
+    walk their channels in passes as "feat_bwd_chunked", and the stage
+    marks as "mark"."""
     from gsplat_tpu_torch.ops.cuda import counters
 
     now = counters.snapshot()
     out = {name: sum(now[n] for n in names)
            for name, (names, _, _) in KERNELS.items()}
     out.update(cull_rank=now["K3.rank"], cull_count=now["K3.count"],
-               cull_emit=now["K3.emit"], feat_bwd_chunked=now["K7.chunked"],
+               cull_emit=now["K3.emit"],
+               cull_tier_count=now["K3.tier_count"],
+               cull_tier_emit=now["K3.tier_emit"],
+               feat_bwd_chunked=now["K7.chunked"],
                mark=now["mark"])
     return out
 
@@ -5794,6 +5901,9 @@ def run(dev) -> int:
     # K3's count and emit stages (the 'packed' binning) on the same rows.
     kernels["cull"].update(packed_bench=check_packed_stages(proj, cfg,
                                                             "bench"))
+    # Its tier count and tier emit (the 'tiered' binning) on the bench
+    # ladder's rows of the same projection.
+    kernels["cull"].update(tier_bench=check_tier_stages(proj, cfg, "bench"))
 
     # 4. K1 blend at the bench shape on the port's own binned stream: the
     # float32 stream and the packed4 stream of the same binning. The walk
@@ -5954,6 +6064,10 @@ def run(dev) -> int:
         raise SystemExit("K3 jumbo K 1024: kernel differs from the plain "
                          "version, or no lane was kept")
     del got, want, jparams, jbound
+    # The tier count and tier emit on the bench ladder's rows and the jumbo
+    # tiers' rows of the realistic view.
+    kernels["cull"].update(tier_jumbo=check_tier_stages(proj, rcfg,
+                                                        "realistic jumbo"))
 
     with torch.no_grad():
         rbinned = binning.bin_gaussians(proj, rcfg)
@@ -6262,7 +6376,7 @@ def run(dev) -> int:
     check_surfels(dev, card, by_path, kernels)
     log(f"[phase 24] {time.perf_counter() - t0:.1f} s")
 
-    for stage in ("rank", "count", "emit"):
+    for stage in ("rank", "count", "emit", "tier_count", "tier_emit"):
         kernels["cull"][f"{stage}_launches_by_path"] = {
             p: c[f"cull_{stage}"] for p, c in by_path.items()}
     for name in kernels:

@@ -20,6 +20,10 @@ import dataclasses
 # The blend kernels' largest tile, 32x32: 16 warps, each a 32x2 strip
 # (csrc/blend.cuh); their C entry points refuse a larger tile.
 MAX_PIXELS_PER_TILE = 1024
+# The tiered binning's tiers, base and jumbo together: the tier count and
+# emit kernel takes their table as a kernel argument of this many entries
+# (csrc/cull.cu, kMaxTiers).
+MAX_TIERS = 32
 
 
 def cdiv(a: int, b: int) -> int:
@@ -31,6 +35,41 @@ def parse_tier_spec(text: str) -> tuple:
     legacy '8,5,16' -> (8, 5, 16) (the forms of the root bench's flag)."""
     return tuple(tuple(int(y) for y in x.split(":")) if ":" in x else int(x)
                  for x in text.split(","))
+
+
+def _normalize_tier_plan(spec, kmax: int, n: int):
+    """tier_spec -> [(k_lo, k_hi, budget_rows | None), ...].
+
+    Legacy form (K0, div1, div2): dense K0-slot tier + pools of N/div1 rows
+    over slots [K0, 4*K0) and N/div2 rows over [4*K0, K_max).
+    General form ((k_hi, div), ...): cumulative slot boundaries; div == 0
+    means a dense tier (all N rows), else a pool of N//div rows."""
+    if spec and isinstance(spec[0], (tuple, list)):
+        plan = []
+        k_lo = 0
+        for k_hi, div in spec:
+            k_hi = min(int(k_hi), kmax)
+            if k_hi <= k_lo:
+                continue
+            plan.append(
+                (k_lo, k_hi, None if div == 0 else max(n // int(div), 1))
+            )
+            k_lo = k_hi
+        if k_lo < kmax:  # implicit final tier to K_max, reuse last divisor
+            last_div = spec[-1][1] if spec else 0
+            plan.append(
+                (k_lo, kmax, None if last_div == 0 else max(n // int(last_div), 1))
+            )
+        return plan
+    k0, d1, d2 = spec
+    k1 = min(4 * k0, kmax)
+    plan = [(0, min(k0, kmax), None)]
+    if kmax > k0:
+        plan.append((k0, k1, max(n // d1, 1)))
+    if kmax > k1:
+        plan.append((k1, kmax, max(n // d2, 1)))
+    return plan
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,6 +233,16 @@ class RenderConfig:
                 raise ValueError(
                     "jumbo_tier_spec k_hi values must ascend and end at "
                     f"max_tiles_jumbo ({self.max_tiles_jumbo}); got {ks}"
+                )
+        if self.binning == "tiered":
+            tiers = len(_normalize_tier_plan(
+                self.tier_spec, self.max_tiles_per_gaussian, 1))
+            if self.max_tiles_jumbo:
+                tiers += len(self.jumbo_tier_spec)
+            if tiers > MAX_TIERS:
+                raise ValueError(
+                    f"tier_spec and jumbo_tier_spec make {tiers} tiers; the "
+                    f"CUDA tier count and emit take at most {MAX_TIERS}"
                 )
         if self.quant_ranges is not None and (
             not isinstance(self.quant_ranges, tuple)

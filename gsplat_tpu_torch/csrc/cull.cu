@@ -31,6 +31,14 @@
 // gidk = g << kb | k (int32). The caller fills the stream first (with the
 // sentinel key, -1) and sorts it after; in lane order (Gaussian-major, k
 // ascending) the stable sort gives the ties of a stable sort of every lane.
+// A third kernel, `cull_kernel_tier`, is the tiered route's count and emit:
+// it runs no cull either, and reads what the compact and rank stages wrote
+// (compact_k, the jumbo grid's mask and krank). Its rows are the tiers'
+// rows in the order the tiered route emits them (base tiers in ladder
+// order, then the jumbo tiers); counted, scanned by the caller and emitted
+// at their offsets, the kept lanes are those of every tier's (rows, width)
+// lane grid, concatenated, in that order, so a stable sort of the
+// max_slots keys ties as the stable sort of every grid's lanes did.
 //
 // What bounds it on an H100: the bytes it writes. At the bench shape (N =
 // 1M, kmax = 64) the compact stage writes 256 MB of compact_k and 4 MB of
@@ -48,7 +56,9 @@
 // slots); 0.55 ms with the caller's fill. Keeping the ballots (48 MB at
 // bicycle) spares the emit a second walk of the cull, which alone costs
 // more than the whole emit (PERF.md, K3 count and emit; an H100 80GB HBM3
-// at 700 W).
+// at 700 W). The tiered count reads 4 B a base row (no band) and a jumbo
+// row's lanes; the tiered emit writes 12 B a kept slot and reads 16 to 32 B
+// of compact_k a base row, 5 B a jumbo lane.
 //
 // Design: a warp walks rows one after another, in chunks of 32 lanes
 // (consecutive k). The warp's lanes first load up to 32 rows' parameters
@@ -354,6 +364,124 @@ __global__ void cull_kernel_emit(const float* __restrict__ params,
   }
 }
 
+// The tiered route's rows, in emission order: the base tiers (dense: row i
+// is Gaussian i; pool: row i is ids_pool[i]) in ladder order, then the
+// jumbo tiers (row j is ids_r[j] and row j of the rank stage's grid).
+// Tier t holds the rows [start[t], start[t + 1]) and the lanes [k_lo[t],
+// k_hi[t]) of each. RenderConfig refuses a ladder of more tiers
+// (config.py, MAX_TIERS).
+constexpr int kMaxTiers = 32;
+enum TierKind { kDense = 0, kPool = 1, kJumbo = 2 };
+struct Tiers {
+  int64_t start[kMaxTiers + 1];
+  int k_lo[kMaxTiers], k_hi[kMaxTiers], kind[kMaxTiers];
+  int num, num_base;  // tiers; of them base tiers, which come first
+};
+
+// What the tiered count and emit read of a row's Gaussian: its walk's
+// origin, width and k div w multiplier, as load_row has them.
+__device__ __forceinline__ Row walk_row(const float* __restrict__ params,
+                                        int64_t n, int64_t g, int kmax) {
+  Row q;
+  q.x0 = params[R_X0 * n + g];
+  q.y0 = params[R_Y0 * n + g];
+  q.w = params[R_W * n + g];
+  const bool int_w = q.w >= 1.f && q.w <= (float)kMagicLimit &&
+                     q.w == floorf(q.w) && kmax <= kMagicLimit;
+  const uint32_t w = int_w ? (uint32_t)q.w : 1u;
+  q.magic = int_w ? ((1u << 24) + w - 1u) / w : 0u;
+  return q;
+}
+
+// The tiered route's count (row_counts set: each row's kept lanes) and emit
+// (row_counts null: each kept lane at slot offsets[row] + its rank in the
+// row, those below max_slots). A base row keeps its lanes k in [k_lo,
+// min(k_hi, counts[g])), the tile of walk index compact_k[g, k], gidk g << kb
+// | k; a jumbo row the lanes k in [k_lo, k_hi) that the rank stage's mask
+// holds, the tile of walk index k, gidk g << kb | krank[j, k]. With a band
+// only the lanes whose tile lies in [tile_lo, tile_hi) are kept. key = (tile
+// - tile_lo) << depth_bits | depth_q[g]. Base rows are a thread each (a
+// dense row has 4 to 8 lanes), jumbo rows a warp each (up to 1024 lanes,
+// read 32 at a time): the first base_blocks blocks take the base rows.
+__global__ void __launch_bounds__(256) cull_kernel_tier(
+    const Tiers tiers, const float* __restrict__ params, int64_t n,
+    const int64_t* __restrict__ depth_q, const int32_t* __restrict__ counts,
+    const int32_t* __restrict__ compact_k, int kmax,
+    const int64_t* __restrict__ ids_pool, const int64_t* __restrict__ ids_r,
+    const uint8_t* __restrict__ maskj, const int32_t* __restrict__ krank,
+    int jumbo, int tiles_x, int band, int tile_lo, int tile_hi,
+    int depth_bits, int kb, unsigned base_blocks,
+    int32_t* __restrict__ row_counts, const int32_t* __restrict__ offsets,
+    int64_t max_slots, int64_t* __restrict__ keys,
+    int32_t* __restrict__ gidk) {
+  const bool count = row_counts != nullptr;
+  if (blockIdx.x < base_blocks) {
+    const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (r >= tiers.start[tiers.num_base]) return;
+    int t = 0;
+    while (r >= tiers.start[t + 1]) ++t;
+    const int64_t i = r - tiers.start[t];
+    const int64_t g = tiers.kind[t] == kDense ? i : ids_pool[i];
+    const int k_lo = tiers.k_lo[t];
+    const int k_hi = min(tiers.k_hi[t], counts[g]);
+    if (count && !band) {
+      row_counts[r] = max(k_hi - k_lo, 0);
+      return;
+    }
+    const Row q = walk_row(params, n, g, kmax);
+    const int64_t dq = count ? 0 : depth_q[g];
+    int64_t slot = count ? 0 : offsets[r];
+    int kept = 0;
+    for (int k = k_lo; k < k_hi; ++k) {
+      float tx, ty;
+      walk_tile(q, compact_k[g * kmax + k], tx, ty);
+      const int tile = tile_id(tx, ty, tiles_x);
+      if (band && (tile < tile_lo || tile >= tile_hi)) continue;
+      ++kept;
+      if (count) continue;
+      if (slot >= max_slots) break;
+      keys[slot] = ((int64_t)(tile - tile_lo) << depth_bits) | dq;
+      gidk[slot] = (int32_t)((g << kb) | k);
+      ++slot;
+    }
+    if (count) row_counts[r] = kept;
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int64_t r = tiers.start[tiers.num_base] +
+      (((int64_t)(blockIdx.x - base_blocks) * blockDim.x + threadIdx.x) >> 5);
+  if (r >= tiers.start[tiers.num]) return;  // the whole warp
+  int t = tiers.num_base;
+  while (r >= tiers.start[t + 1]) ++t;
+  const int64_t j = r - tiers.start[t];
+  const int64_t g = ids_r[j];
+  const Row q = walk_row(params, n, g, jumbo);
+  const int64_t dq = count ? 0 : depth_q[g];
+  const int64_t slot0 = count ? 0 : offsets[r];
+  const unsigned below_me = (1u << lane) - 1u;
+  int carry = 0;  // kept lanes of the earlier chunks
+  for (int c = tiers.k_lo[t]; c < tiers.k_hi[t]; c += 32) {
+    if (!count && slot0 + carry >= max_slots) break;
+    const int k = c + lane;
+    bool kept = k < tiers.k_hi[t] && maskj[j * jumbo + k];
+    int tile = 0;
+    if (kept) {
+      float tx, ty;
+      walk_tile(q, k, tx, ty);
+      tile = tile_id(tx, ty, tiles_x);
+      kept = !band || (tile >= tile_lo && tile < tile_hi);
+    }
+    const unsigned ballot = __ballot_sync(kFull, kept);
+    const int64_t slot = slot0 + carry + __popc(ballot & below_me);
+    if (!count && kept && slot < max_slots) {
+      keys[slot] = ((int64_t)(tile - tile_lo) << depth_bits) | dq;
+      gidk[slot] = (int32_t)((g << kb) | krank[j * jumbo + k]);
+    }
+    carry += __popc(ballot);
+  }
+  if (count && lane == 0) row_counts[r] = carry;
+}
+
 // Warps of the row walk: rows per warp 32 at kmax 64 (the parameter loads
 // of a row are shared by 32 rows' walks), down to 1 at kmax 2048 (so the
 // jumbo grid still has a warp per row); 256 threads a block.
@@ -417,6 +545,47 @@ extern "C" int gsplat_cull_emit(const float* params, const uint32_t* ballots,
                        0, (cudaStream_t)stream>>>(
         params, ballots, offsets, depth_q, n, kmax, tiles_x, tile_lo,
         depth_bits, kb, max_slots, keys, gidk);
+  }
+  return (int)cudaGetLastError();
+}
+
+// table: the tiers' row starts (num_tiers + 1), then their k_lo, k_hi and
+// kinds (num_tiers each), read on the host. row_counts set: the count;
+// else the emit into keys and gidk, which the caller has filled.
+extern "C" int gsplat_cull_tier(const int64_t* table, int num_tiers,
+                                int num_base, const float* params, int64_t n,
+                                const int64_t* depth_q, const int32_t* counts,
+                                const int32_t* compact_k, int kmax,
+                                const int64_t* ids_pool, const int64_t* ids_r,
+                                const uint8_t* maskj, const int32_t* krank,
+                                int jumbo, int tiles_x, int band, int tile_lo,
+                                int tile_hi, int depth_bits, int kb,
+                                int32_t* row_counts, const int32_t* offsets,
+                                int64_t max_slots, int64_t* keys,
+                                int32_t* gidk, void* stream) {
+  if (num_tiers < 1 || num_tiers > kMaxTiers || num_base < 0 ||
+      num_base > num_tiers)
+    return (int)cudaErrorInvalidValue;
+  Tiers tiers = {};
+  for (int t = 0; t <= num_tiers; ++t) tiers.start[t] = table[t];
+  for (int t = 0; t < num_tiers; ++t) {
+    tiers.k_lo[t] = (int)table[num_tiers + 1 + t];
+    tiers.k_hi[t] = (int)table[2 * num_tiers + 1 + t];
+    tiers.kind[t] = (int)table[3 * num_tiers + 1 + t];
+  }
+  tiers.num = num_tiers;
+  tiers.num_base = num_base;
+  const int64_t base_rows = tiers.start[num_base];
+  const int64_t jumbo_rows = tiers.start[num_tiers] - base_rows;
+  const int64_t base_blocks = (base_rows + kThreads - 1) / kThreads;
+  const int64_t blocks = base_blocks + (jumbo_rows * 32 + kThreads - 1) /
+                                           kThreads;
+  if (blocks > 0 && (row_counts != nullptr || max_slots > 0)) {
+    cull_kernel_tier<<<(unsigned)blocks, kThreads, 0,
+                       (cudaStream_t)stream>>>(
+        tiers, params, n, depth_q, counts, compact_k, kmax, ids_pool, ids_r,
+        maskj, krank, jumbo, tiles_x, band, tile_lo, tile_hi, depth_bits, kb,
+        (unsigned)base_blocks, row_counts, offsets, max_slots, keys, gidk);
   }
   return (int)cudaGetLastError();
 }

@@ -7,7 +7,8 @@ mode, with the jumbo tiers of `max_tiles_jumbo`), with `'packed'` and
 `'sort'` as oracles, the single-device `'scatter'` mode, and the
 host-side capacity reports `tier_occupancy` and `diagnose_overflow`. The
 exact ellipse-tile cull runs through kernel K3
-(`ops/cuda/cull.py`), which also compacts each row of the tiers' walk, the
+(`ops/cuda/cull.py`), which also compacts each row of the tiers' walk and
+writes the kept candidates of both compacting routes, the
 backward's segmented suffix sum through kernel K4 (`ops/cuda/segsum.py`),
 or K5 over bf16 pairs on the `gather_backward='bf16'` path. Differences
 from the JAX package:
@@ -28,6 +29,17 @@ from the JAX package:
     the same, but the slots kept are the first max_intersections
     candidates in Gaussian order, where the JAX package keeps the lowest
     keys.
+  - `'tiered'` compacts before it sorts too: its tiers' rows, in the order
+    the JAX package concatenates their (rows, width) lane grids (the base
+    tiers in ladder order, a dense tier's rows by Gaussian, a pool's by the
+    shared count ranking, then the jumbo tiers' rows by the area ranking;
+    a row's candidates k ascending), are counted by K3's tier count, an
+    exclusive scan gives each row its offset, and K3's tier emit writes
+    the kept candidates there, so the stable sort orders max_intersections
+    keys where the JAX package sorts every tier lane. Without capacity
+    overflow the stream is the JAX package's, tie for tie; on overflow the
+    slots kept are the first max_intersections candidates in that order,
+    where the JAX package keeps the lowest keys.
   - The gather backward's strategies 'variadic', 'permute' and 'c64' are
     one code path here (see `_GatherSlots`), and so are its segment sums
     'doubling' and 'pallas' (see `gather_slots_bwd`).
@@ -58,14 +70,20 @@ import math
 
 import torch
 
-from gsplat_tpu_torch.config import RenderConfig
+from gsplat_tpu_torch.config import RenderConfig, _normalize_tier_plan
 from gsplat_tpu_torch.ops.bf16_pairs import pack_bf16_pairs, unpack_bf16_pairs
 from gsplat_tpu_torch.ops.cuda.cull import (
+    TIER_DENSE,
+    TIER_JUMBO,
+    TIER_POOL,
+    TierRows,
     cull_compact_from_params,
     cull_count_from_params,
     cull_emit_from_params,
     cull_params,
     cull_rank_from_params,
+    cull_tier_count,
+    cull_tier_emit,
     rank_from_mask,
     tile_cull_mask,
 )
@@ -179,88 +197,61 @@ def _rect_cull_mask(proj, cfg: RenderConfig):
     return k < proj.counts[:, None]
 
 
-def _compact_candidates(proj, cfg: RenderConfig):
+def _compact_candidates(proj, cfg: RenderConfig, params=None):
     """(compact_k (N, K_max) int32: each Gaussian's surviving rect-walk k in
     ascending order, then K_max; counts (N,) int32 of them): one K3 launch
-    (its compact stage) when the cull is enabled. Without the cull the
-    survivors are k < counts, already in order, so nothing is sorted."""
+    (its compact stage, on `params`, else `cull_params`' rows) when the
+    cull is enabled. Without the cull the survivors are k < counts, already
+    in order, so nothing is sorted."""
     kmax = cfg.max_tiles_per_gaussian
     if cfg.tile_culling:
-        return cull_compact_from_params(cull_params(proj, cfg), kmax,
-                                        cfg.tile_size)
+        if params is None:
+            params = cull_params(proj, cfg)
+        return cull_compact_from_params(params, kmax, cfg.tile_size)
     k = torch.arange(kmax, dtype=torch.int32, device=proj.counts.device)
     counts = torch.clamp(proj.counts, 0, kmax).to(torch.int32)
     return torch.where(k[None, :] < counts[:, None], k, kmax), counts
 
 
-def _normalize_tier_plan(spec, kmax: int, n: int):
-    """tier_spec -> [(k_lo, k_hi, budget_rows | None), ...].
-
-    Legacy form (K0, div1, div2): dense K0-slot tier + pools of N/div1 rows
-    over slots [K0, 4*K0) and N/div2 rows over [4*K0, K_max).
-    General form ((k_hi, div), ...): cumulative slot boundaries; div == 0
-    means a dense tier (all N rows), else a pool of N//div rows."""
-    if spec and isinstance(spec[0], (tuple, list)):
-        plan = []
-        k_lo = 0
-        for k_hi, div in spec:
-            k_hi = min(int(k_hi), kmax)
-            if k_hi <= k_lo:
-                continue
-            plan.append(
-                (k_lo, k_hi, None if div == 0 else max(n // int(div), 1))
-            )
-            k_lo = k_hi
-        if k_lo < kmax:  # implicit final tier to K_max, reuse last divisor
-            last_div = spec[-1][1] if spec else 0
-            plan.append(
-                (k_lo, kmax, None if last_div == 0 else max(n // int(last_div), 1))
-            )
-        return plan
-    k0, d1, d2 = spec
-    k1 = min(4 * k0, kmax)
-    plan = [(0, min(k0, kmax), None)]
-    if kmax > k0:
-        plan.append((k0, k1, max(n // d1, 1)))
-    if kmax > k1:
-        plan.append((k1, kmax, max(n // d2, 1)))
-    return plan
-
-
-def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig,
-                       n_local: int, tile_start: int | None = None):
-    """Tiered candidate expansion straight to (key, gidk) sort operands:
-    every Gaussian gets a dense tier of candidate slots; Gaussians with more
-    surviving tiles take rows in budgeted pools (prefixes of one shared
+def _tier_rows(proj: ProjectedGaussians, cfg: RenderConfig, n_local: int,
+               tile_start: int | None = None):
+    """The tiered route's rows, in the order their candidates are emitted,
+    and what the candidates are made of (`cull.TierRows`): every Gaussian
+    gets a dense tier of candidate slots; Gaussians with more surviving
+    tiles take rows in budgeted pools (prefixes of one shared
     count-descending ranking). Tiers enumerate only the tiles that survive
-    the cull (a per-row compaction of the cull mask). With tile_start, only
-    the tiles [tile_start, tile_start + n_local) stay valid, re-based to
-    local ids; tier membership and pool budgets still follow the global
-    culled counts, as in the JAX package.
+    the cull (K3's compaction of each row). With tile_start, only the tiles
+    [tile_start, tile_start + n_local) are kept, re-based to local ids; tier
+    membership and pool budgets still follow the global culled counts, as
+    in the JAX package.
 
-    Returns (key (M,) int64 with SENTINEL_KEY for invalid, gidk (M,) int32,
-    total () int32 valid count, pool_overflow () bool, counts (N,) int32 of
-    candidates within the tile range)."""
+    K3's parameter rows (`cull_params`) are built whether or not the cull
+    runs: the tier stages read the walk's origin and width from them.
+
+    Returns (rows, pool_overflow () bool, counts (N,) int32 of candidates
+    within the tile range: the gather backward's run lengths)."""
     n = proj.mask.shape[0]
     dev = proj.mask.device
     kmax = cfg.max_tiles_per_gaussian
-    kb = _kbits(kmax_eff(cfg))
     depth_bits = _check_depth_bits(cfg.num_tiles)
 
     rect_w = torch.clamp_min(proj.rect[:, 2] - proj.rect[:, 0], 1)
+    # K3's parameter rows, built without the cull too: the tier stages read
+    # each row's walk origin and width (x0, y0, w) from them.
+    params = cull_params(proj, cfg)
     # (N, kmax): surviving k ascending, then kmax; culled counts.
-    compact_k, counts = _compact_candidates(proj, cfg)
+    compact_k, counts = _compact_candidates(proj, cfg, params)
     if cfg.max_tiles_jumbo:
         # Splats whose raw rect exceeds the base walk go to the jumbo tiers
-        # (`_jumbo_candidates`); zeroing their base counts takes them out of
-        # every base tier and pool, so nothing is emitted twice.
+        # (`_jumbo_rows`); zeroing their base counts takes them out of every
+        # base tier and pool, so nothing is emitted twice.
         area_raw = (torch.clamp_min(proj.rect[:, 2] - proj.rect[:, 0], 0)
                     * torch.clamp_min(proj.rect[:, 3] - proj.rect[:, 1], 0))
         area_raw = torch.where(proj.mask, area_raw, 0)
         is_jumbo = area_raw > kmax
         counts = torch.where(is_jumbo, 0, counts)
 
-    tiers = _normalize_tier_plan(cfg.tier_spec, kmax, n)
+    plan = _normalize_tier_plan(cfg.tier_spec, kmax, n)
     if tile_start is None:
         gcounts = counts
     else:
@@ -277,70 +268,44 @@ def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig,
                        dim=1, dtype=torch.int32)
 
     # One count-descending ranking shared by every pool tier: memberships
-    # are nested, so the members of any pool tier are a prefix of it.
-    pool_budgets = [b for _, _, b in tiers if b is not None]
-    # Per-row depth quantization, broadcast into the 2-D keys.
-    depth_q = _depth_q(proj.depth, depth_bits)
+    # are nested, so the members of any pool tier are a prefix of it. Rows
+    # past a tier's true member count have counts <= k_lo and keep nothing;
+    # members ranked past the budget are dropped and flagged.
+    pool_budgets = [b for _, _, b in plan if b is not None]
+    ids_pool = None
     if pool_budgets:
         ids_pool = torch.sort(-counts, stable=False).indices[: max(pool_budgets)]
-        pool_rows = torch.stack(
-            [rect_w, proj.rect[:, 0], proj.rect[:, 1], counts], 1
-        )[ids_pool]  # (bmax, 4), one row gather for every pool tier
-        pool_dq = depth_q[ids_pool]
-
-    key_l, gidk_l = [], []
-    total = torch.zeros((), dtype=torch.int32, device=dev)
+    tiers = []
     pool_overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    for k_lo, k_hi, budget in tiers:
-        kk = torch.arange(k_lo, k_hi, dtype=torch.int32, device=dev)[None, :]
+    for k_lo, k_hi, budget in plan:
         if budget is None:
-            # Dense tier: rows are Gaussians.
-            ids_c = torch.arange(n, dtype=torch.int64, device=dev)
-            ck = compact_k[:, k_lo:k_hi]
-            row_w = rect_w[:, None]
-            row_x0, row_y0 = proj.rect[:, 0:1], proj.rect[:, 1:2]
-            row_dq = depth_q[:, None]
-            row_counts = counts[:, None]
+            tiers.append((TIER_DENSE, k_lo, k_hi, n))
         else:
-            # Prefix of the shared ranking. Rows past the true member count
-            # have counts <= k_lo, so every kk fails kk < row_counts.
-            # Members ranked past the budget are dropped and flagged.
             pool_overflow = pool_overflow | ((counts > k_lo).sum() > budget)
-            ids_c = ids_pool[:budget]
-            ck = compact_k[ids_c, k_lo:k_hi]
-            row_w = pool_rows[:budget, 0:1]
-            row_x0 = pool_rows[:budget, 1:2]
-            row_y0 = pool_rows[:budget, 2:3]
-            row_dq = pool_dq[:budget, None]
-            row_counts = pool_rows[:budget, 3:4]
-        cky, ckx = _rect_divmod(ck, row_w)
-        tile = (row_y0 + cky) * cfg.tiles_x + (row_x0 + ckx)
-        valid = kk < row_counts
-        if tile_start is not None:
-            valid = valid & (tile >= tile_start) & (tile < tile_start + n_local)
-            tile = tile - tile_start
-        key = (tile.to(torch.int64) << depth_bits) | row_dq
-        key = torch.where(valid, key, torch.full_like(key, SENTINEL_KEY))
-        gidk = ((ids_c[:, None] << kb) | kk).to(torch.int32)
-        total = total + valid.sum(dtype=torch.int32)
-        key_l.append(key.reshape(-1))
-        gidk_l.append(gidk.expand(key.shape).reshape(-1))
+            tiers.append((TIER_POOL, k_lo, k_hi, min(budget, n)))
 
+    ids_r = maskj = krank = None
     if cfg.max_tiles_jumbo:
-        jkey_l, jgidk_l, jtotal, jovf, gcounts = _jumbo_candidates(
-            proj, cfg, rect_w, area_raw, is_jumbo, gcounts, depth_bits, kb,
-            n_local, tile_start)
-        key_l += jkey_l
-        gidk_l += jgidk_l
-        total = total + jtotal
+        ids_r, maskj, krank, jtiers, jovf, gcounts = _jumbo_rows(
+            proj, cfg, rect_w, area_raw, is_jumbo, gcounts, n_local,
+            tile_start)
+        tiers += jtiers
         pool_overflow = pool_overflow | jovf
 
-    return torch.cat(key_l), torch.cat(gidk_l), total, pool_overflow, gcounts
+    rows = TierRows(
+        tiers=tuple(tiers), params=params,
+        depth_q=_depth_q(proj.depth, depth_bits), counts=counts,
+        compact_k=compact_k, ids_pool=ids_pool, ids_r=ids_r, maskj=maskj,
+        krank=krank, tiles_x=cfg.tiles_x,
+        band=None if tile_start is None else (tile_start,
+                                              tile_start + n_local),
+        depth_bits=depth_bits, kb=_kbits(kmax_eff(cfg)))
+    return rows, pool_overflow, gcounts
 
 
-def _jumbo_candidates(proj: ProjectedGaussians, cfg: RenderConfig, rect_w,
-                      area_raw, is_jumbo, counts, depth_bits: int, kb: int,
-                      n_local: int, tile_start: int | None = None):
+def _jumbo_rows(proj: ProjectedGaussians, cfg: RenderConfig, rect_w,
+                area_raw, is_jumbo, counts, n_local: int,
+                tile_start: int | None = None):
     """The jumbo tiers (`cfg.max_tiles_jumbo`, port of
     `gsplat_tpu.ops.binning._jumbo_candidates`): full enumeration of the
     raw rect walk, up to max_tiles_jumbo tiles, for the splats whose rect
@@ -350,11 +315,11 @@ def _jumbo_candidates(proj: ProjectedGaussians, cfg: RenderConfig, rect_w,
     k_lo, within its row budget. Membership past a budget, or a rect past
     max_tiles_jumbo, sets the overflow flag.
 
-    With tile_start, only the lanes on the tiles [tile_start, tile_start +
-    n_local) stay valid, re-based to local ids, and only they are counted.
-
-    Returns (key chunks, gidk chunks, total, overflow, counts with the jumbo
-    splats' culled counts added: the gather backward's run lengths)."""
+    Returns (ids_r (J,) int64 ranking, maskj (J, max_tiles_jumbo) bool,
+    krank (J, max_tiles_jumbo) int32 (each kept lane's rank in its row: the
+    gidk candidate index, so keys stay unique and below the suffix sum's
+    depth), the tiers (TIER_JUMBO, k_lo, k_hi, rows), overflow, counts with
+    the jumbo splats' culled counts within the tile range added)."""
     jumbo = cfg.max_tiles_jumbo
     jspec = list(cfg.jumbo_tier_spec)
     budgets = [b for _, b in jspec]
@@ -372,40 +337,54 @@ def _jumbo_candidates(proj: ProjectedGaussians, cfg: RenderConfig, rect_w,
     # which live in the base tiers.
     bound = torch.where(is_jumbo, torch.clamp_max(area_raw, jumbo), 0)
     kj = torch.arange(jumbo, dtype=torch.int32, device=dev)[None, :]
-    ky_r, kx_r = _rect_divmod(kj, rect_w[ids_r][:, None])
-    # The mask, each lane's rank among the splat's surviving tiles (the
-    # gidk candidate index, so keys stay unique and below the suffix sum's
-    # depth) and the culled counts: one K3 launch (its rank stage).
+    # The mask, the ranks and the culled counts: one K3 launch (its rank
+    # stage).
     if cfg.tile_culling:
         params = cull_params(proj, cfg, counts=bound)[:, ids_r].contiguous()
         maskj, krank, jcounts = cull_rank_from_params(params, jumbo,
                                                       cfg.tile_size)
     else:
         maskj, krank, jcounts = rank_from_mask(kj < bound[ids_r][:, None])
-    tile_j = ((proj.rect[ids_r, 1:2] + ky_r) * cfg.tiles_x
-              + (proj.rect[ids_r, 0:1] + kx_r))
     if tile_start is not None:
-        maskj = maskj & (tile_j >= tile_start) & (tile_j < tile_start + n_local)
-        jcounts = maskj.sum(dim=1, dtype=torch.int32)
-        tile_j = tile_j - tile_start
+        ky_r, kx_r = _rect_divmod(kj, rect_w[ids_r][:, None])
+        tile_j = ((proj.rect[ids_r, 1:2] + ky_r) * cfg.tiles_x
+                  + (proj.rect[ids_r, 0:1] + kx_r))
+        jcounts = (maskj & (tile_j >= tile_start)
+                   & (tile_j < tile_start + n_local)).sum(
+                       dim=1, dtype=torch.int32)
     counts = counts.index_add(0, ids_r, jcounts)
-    key_j = ((tile_j.to(torch.int64) << depth_bits)
-             | _depth_q(proj.depth[ids_r], depth_bits)[:, None])
-    gidk_j = ((ids_r[:, None] << kb) | krank).to(torch.int32)
 
-    key_l, gidk_l = [], []
-    total = torch.zeros((), dtype=torch.int32, device=dev)
+    tiers = []
     k_lo = 0
     for k_hi, budget in jspec:
         # Membership in [k_lo, k_hi) is area > k_lo, over all jumbo splats.
         overflow = overflow | ((is_jumbo & (area_raw > k_lo)).sum() > budget)
-        valid = maskj[:budget, k_lo:k_hi]
-        key = torch.where(valid, key_j[:budget, k_lo:k_hi], SENTINEL_KEY)
-        total = total + valid.sum(dtype=torch.int32)
-        key_l.append(key.reshape(-1))
-        gidk_l.append(gidk_j[:budget, k_lo:k_hi].reshape(-1))
+        tiers.append((TIER_JUMBO, k_lo, k_hi, min(budget, ids_r.numel())))
         k_lo = k_hi
-    return key_l, gidk_l, total, overflow, counts
+    return ids_r, maskj, krank, tiers, overflow, counts
+
+
+def _tiered_candidates(proj: ProjectedGaussians, cfg: RenderConfig,
+                       n_local: int, tile_start: int | None = None):
+    """binning='tiered': the candidates of every tier row (`_tier_rows`),
+    compacted before the sort. K3's tier count counts each row's kept
+    candidates, an exclusive scan gives each row its offset, and K3's tier
+    emit writes them in emission order (the tiers in order, a row's
+    candidates k ascending) into the first of cfg.max_intersections slots:
+    key = local tile << depth_bits | depth_q, gidk = gid << kbits | k (a
+    jumbo candidate's k its rank among the splat's surviving tiles); the
+    rest SENTINEL_KEY and -1, and candidates past the slots dropped.
+
+    Returns (key (max_I,) int64, gidk (max_I,) int32, total () int32
+    candidate count, pool_overflow () bool, counts (N,) int32 of candidates
+    within the tile range)."""
+    rows, pool_overflow, gcounts = _tier_rows(proj, cfg, n_local, tile_start)
+    row_counts = cull_tier_count(rows)
+    offsets = (torch.cumsum(row_counts, 0) - row_counts).to(torch.int32)
+    key, gidk = cull_tier_emit(rows, offsets, cfg.max_intersections,
+                               SENTINEL_KEY)
+    return (key, gidk, row_counts.sum(dtype=torch.int32), pool_overflow,
+            gcounts)
 
 
 def _packed_candidates(proj: ProjectedGaussians, cfg: RenderConfig,

@@ -23,19 +23,27 @@ into FMAs, so the two agree bit for bit. The stages:
   - emit: from those ballots and the rows' exclusive offsets, each kept
     lane's (tile, depth) key and gid << kb | k at slot offset + rank of a
     stream of max_slots, the rest the sentinel key and -1 (`cull_emit_*`:
-    the second half; no cull, no walk past the kept lanes).
+    the second half; no cull, no walk past the kept lanes);
+  - tier count and tier emit: the same two halves for the tiered route,
+    over the rows of its tiers (`TierRows`) and from what the compact and
+    rank stages wrote (`cull_tier_count_*`, `cull_tier_emit_*`).
 
 The plain compact and rank versions are the mask followed by the torch ops
 the kernel's stage replaces (`compact_from_mask`, `rank_from_mask`); the
 plain count and emit are the mask, the band and the scatter written out
-(`ballots_from_mask`, `mask_from_ballots`, `walk_tiles`).
+(`ballots_from_mask`, `mask_from_ballots`, `walk_tiles`); the plain tier
+count and emit build every tier's lane grid, as the tiered route did before
+it compacted (`tier_lanes`), and count or scatter its kept lanes.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
-from gsplat_tpu_torch.config import RenderConfig
+from gsplat_tpu_torch.config import MAX_TIERS, RenderConfig
 from gsplat_tpu_torch.ops.cuda import _build
 from gsplat_tpu_torch.ops.cuda._build import FLOAT, INT, INT64, PTR
 
@@ -56,6 +64,14 @@ _EMIT = _build.kernel(
     "cull", "gsplat_cull_emit",
     [PTR, PTR, PTR, PTR, INT64, INT, INT, INT, INT, INT, INT64, PTR, PTR],
     "K3.emit")
+# Counts under "K3.tier_count" or "K3.tier_emit", by its mode.
+_TIER = _build.kernel(
+    "cull", "gsplat_cull_tier",
+    [PTR, INT, INT, PTR, INT64, PTR, PTR, PTR, INT, PTR, PTR, PTR, PTR, INT,
+     INT, INT, INT, INT, INT, INT, PTR, PTR, INT64, PTR, PTR], None)
+
+# The kinds of the tiered route's tiers (csrc/cull.cu, TierKind).
+TIER_DENSE, TIER_POOL, TIER_JUMBO = 0, 1, 2
 
 
 def cull_params(proj, cfg: RenderConfig, counts=None) -> torch.Tensor:
@@ -159,6 +175,14 @@ def walk_tiles(params: torch.Tensor, kmax: int, tiles_x: int) -> torch.Tensor:
     """(10, R) rows -> (R, kmax) int32 tile id y * tiles_x + x of every lane
     of the rect walk (meaningful where the lane is within the walk)."""
     k = torch.arange(kmax, dtype=torch.float32, device=params.device)[None, :]
+    return tiles_at(params, k, tiles_x)
+
+
+def tiles_at(params: torch.Tensor, k: torch.Tensor,
+             tiles_x: int) -> torch.Tensor:
+    """(10, R) rows and rect-walk indices k, (R, W) or (1, W) -> (R, W)
+    int32 tile ids y * tiles_x + x of those lanes."""
+    k = k.to(torch.float32)
     w = params[R_W][:, None]
     ky = torch.floor((k + 0.5) / w)
     kx = k - ky * w
@@ -222,6 +246,91 @@ def cull_emit_plain(params: torch.Tensor, ballots: torch.Tensor,
     out_gidk = torch.full((max_slots,), -1, dtype=torch.int32, device=dev)
     keys[slot[mask]] = key[mask]
     out_gidk[slot[mask]] = gidk[mask]
+    return keys, out_gidk
+
+
+@dataclasses.dataclass
+class TierRows:
+    """The tiered route's rows and what their lanes are made of
+    (`ops/binning.py::_tier_rows`). `tiers` holds (kind, k_lo, k_hi, rows)
+    in the order the rows are emitted: the base tiers in ladder order
+    (TIER_DENSE: row i is Gaussian i; TIER_POOL: row i is Gaussian
+    ids_pool[i]), then the jumbo tiers (row j is Gaussian ids_r[j] and row
+    j of maskj and krank). A row's lanes are k in [k_lo, k_hi)."""
+
+    tiers: tuple
+    params: torch.Tensor     # (10, N) `cull_params` rows: x0, y0, w read
+    depth_q: torch.Tensor    # (N,) int64 depth bits of the keys
+    counts: torch.Tensor     # (N,) int32 base-tier candidates (jumbo: 0)
+    compact_k: torch.Tensor  # (N, kmax) int32, the compact stage's
+    ids_pool: torch.Tensor | None  # (P,) int64, the pools' ranking
+    ids_r: torch.Tensor | None     # (J,) int64, the jumbo tiers' ranking
+    maskj: torch.Tensor | None     # (J, jumbo) bool, the rank stage's mask
+    krank: torch.Tensor | None     # (J, jumbo) int32, its ranks
+    tiles_x: int
+    band: tuple | None       # (tile_lo, tile_hi) kept, or None: every tile
+    depth_bits: int
+    kb: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.device
+
+
+def tier_lanes(rows: TierRows):
+    """Each tier's (key (R, W) int64, gidk (R, W) int32, valid (R, W) bool)
+    lane grid, in emission order. A base lane k of Gaussian g walks to
+    compact_k[g, k] and has gidk g << kb | k, valid where k < counts[g]; a
+    jumbo lane k of row j walks to k and has gidk g << kb | krank[j, k],
+    valid where maskj[j, k]; with a band, valid only on its tiles. key =
+    (tile - tile_lo) << depth_bits | depth_q[g]."""
+    dev = rows.device
+    tile_lo = 0 if rows.band is None else rows.band[0]
+    for kind, k_lo, k_hi, n_rows in rows.tiers:
+        kk = torch.arange(k_lo, k_hi, dtype=torch.int64, device=dev)[None, :]
+        if kind == TIER_JUMBO:
+            gid = rows.ids_r[:n_rows]
+            walk = kk
+            valid = rows.maskj[:n_rows, k_lo:k_hi]
+            cand = rows.krank[:n_rows, k_lo:k_hi].to(torch.int64)
+        else:
+            gid = (torch.arange(n_rows, device=dev) if kind == TIER_DENSE
+                   else rows.ids_pool[:n_rows])
+            walk = rows.compact_k[gid, k_lo:k_hi]
+            valid = kk < rows.counts[gid][:, None]
+            cand = kk
+        tile = tiles_at(rows.params[:, gid], walk, rows.tiles_x).to(
+            torch.int64)
+        if rows.band is not None:
+            valid = valid & (tile >= rows.band[0]) & (tile < rows.band[1])
+        key = (((tile - tile_lo) << rows.depth_bits)
+               | rows.depth_q[gid][:, None])
+        gidk = ((gid[:, None] << rows.kb) | cand).to(torch.int32)
+        yield key, gidk.expand(key.shape), valid
+
+
+def cull_tier_count_plain(rows: TierRows) -> torch.Tensor:
+    """(rows,) int32: each tier row's kept lanes, in emission order."""
+    return torch.cat([valid.sum(dim=1, dtype=torch.int32)
+                      for _, _, valid in tier_lanes(rows)])
+
+
+def cull_tier_emit_plain(rows: TierRows, offsets: torch.Tensor,
+                         max_slots: int, sentinel: int):
+    """Each row's kept lanes at slots offsets[row] + their rank in the row
+    (those below max_slots): (keys (max_slots,) int64, gidk (max_slots,)
+    int32); the sentinel and -1 elsewhere."""
+    dev = rows.device
+    keys = torch.full((max_slots,), sentinel, dtype=torch.int64, device=dev)
+    out_gidk = torch.full((max_slots,), -1, dtype=torch.int32, device=dev)
+    start = 0
+    for (key, gidk, valid), tier in zip(tier_lanes(rows), rows.tiers):
+        slot = (offsets[start:start + tier[3]].to(torch.int64)[:, None]
+                + torch.cumsum(valid, dim=1, dtype=torch.int64) - 1)
+        kept = valid & (slot < max_slots)
+        keys[slot[kept]] = key[kept]
+        out_gidk[slot[kept]] = gidk[kept]
+        start += tier[3]
     return keys, out_gidk
 
 
@@ -298,9 +407,84 @@ def cull_emit_cuda(params: torch.Tensor, ballots: torch.Tensor,
     return keys, gidk
 
 
+def _tier_launch(rows: TierRows, row_counts, offsets, max_slots: int,
+                 keys, gidk) -> None:
+    """One launch of the tier stage: the count into row_counts, or (None)
+    the emit into keys and gidk."""
+    params, tiers = rows.params, rows.tiers
+    _check_params(params)
+    n, dev = params.shape[1], params.device
+    kinds = [t[0] for t in tiers]
+    num_base = sum(k != TIER_JUMBO for k in kinds)
+    if not 1 <= len(tiers) <= MAX_TIERS or TIER_JUMBO in kinds[:num_base]:
+        raise ValueError(f"cull tier: 1 to {MAX_TIERS} tiers, the jumbo "
+                         f"tiers last; got kinds {kinds}")
+    kmax = rows.compact_k.shape[1]
+    checks = [("depth_q", rows.depth_q, torch.int64, (n,)),
+              ("counts", rows.counts, torch.int32, (n,)),
+              ("compact_k", rows.compact_k, torch.int32, (n, kmax))]
+    ranked = {TIER_DENSE: n, TIER_POOL: 0, TIER_JUMBO: 0}
+    if rows.ids_pool is not None:
+        checks.append(("ids_pool", rows.ids_pool, torch.int64, (None,)))
+        ranked[TIER_POOL] = rows.ids_pool.numel()
+    jumbo = 0
+    if rows.ids_r is not None:
+        j, jumbo = rows.maskj.shape
+        checks += [("ids_r", rows.ids_r, torch.int64, (j,)),
+                   ("maskj", rows.maskj, torch.bool, (j, jumbo)),
+                   ("krank", rows.krank, torch.int32, (j, jumbo))]
+        ranked[TIER_JUMBO] = j
+    if offsets is not None:
+        checks.append(("offsets", offsets, torch.int32,
+                       (sum(t[3] for t in tiers),)))
+    for name, t, dtype, shape in checks:
+        _build.expect(t, f"cull tier: {name}", dtype=dtype, shape=shape,
+                      device=dev)
+    for kind, _, _, n_rows in tiers:
+        if n_rows > ranked[kind]:
+            raise ValueError(f"cull tier: a tier of kind {kind} has {n_rows} "
+                             f"rows, its ranking {ranked[kind]}")
+    starts = [0]
+    for t in tiers:
+        starts.append(starts[-1] + t[3])
+    table = (ctypes.c_int64 * (4 * len(tiers) + 1))(
+        *starts, *(t[1] for t in tiers), *(t[2] for t in tiers), *kinds)
+    tile_lo, tile_hi = rows.band or (0, 0)
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    _TIER(dev, ctypes.addressof(table), len(tiers), num_base,
+          params.data_ptr(), n, rows.depth_q.data_ptr(),
+          rows.counts.data_ptr(), rows.compact_k.data_ptr(), kmax,
+          ptr(rows.ids_pool), ptr(rows.ids_r), ptr(rows.maskj),
+          ptr(rows.krank), jumbo, rows.tiles_x, int(rows.band is not None),
+          tile_lo, tile_hi, rows.depth_bits, rows.kb, ptr(row_counts),
+          ptr(offsets), max_slots, ptr(keys), ptr(gidk),
+          count="K3.tier_count" if row_counts is not None else "K3.tier_emit")
+
+
+def cull_tier_count_cuda(rows: TierRows) -> torch.Tensor:
+    """The tier count stage: (rows,) int32 kept lanes a row."""
+    row_counts = torch.empty((sum(t[3] for t in rows.tiers),),
+                             dtype=torch.int32, device=rows.device)
+    _tier_launch(rows, row_counts, None, 0, None, None)
+    return row_counts
+
+
+def cull_tier_emit_cuda(rows: TierRows, offsets: torch.Tensor,
+                        max_slots: int, sentinel: int):
+    """The tier emit stage: the rows' offsets -> (keys, gidk)."""
+    dev = rows.device
+    keys = torch.full((max_slots,), sentinel, dtype=torch.int64, device=dev)
+    gidk = torch.full((max_slots,), -1, dtype=torch.int32, device=dev)
+    _tier_launch(rows, None, offsets, max_slots, keys, gidk)
+    return keys, gidk
+
+
 def _dispatch(plain, cuda, params, *args):
     """The CUDA kernel for a CUDA tensor, the plain version for a CPU
-    tensor."""
+    tensor (params: the rows of parameters, or a `TierRows`)."""
     if params.device.type == "cpu":
         return plain(params, *args)
     if params.device.type == "cuda":
@@ -344,6 +528,19 @@ def cull_emit_from_params(params: torch.Tensor, ballots: torch.Tensor,
     return _dispatch(cull_emit_plain, cull_emit_cuda, params, ballots,
                      offsets, depth_q, kmax, tiles_x, tile_lo, depth_bits,
                      kb, max_slots, sentinel)
+
+
+def cull_tier_count(rows: TierRows) -> torch.Tensor:
+    """(rows,) int32 kept lanes of each tier row: the tier count stage."""
+    return _dispatch(cull_tier_count_plain, cull_tier_count_cuda, rows)
+
+
+def cull_tier_emit(rows: TierRows, offsets: torch.Tensor, max_slots: int,
+                   sentinel: int):
+    """The rows' exclusive offsets -> (keys (max_slots,) int64, gidk
+    (max_slots,) int32): the tier emit stage."""
+    return _dispatch(cull_tier_emit_plain, cull_tier_emit_cuda, rows,
+                     offsets, max_slots, sentinel)
 
 
 def tile_cull_mask(proj, cfg: RenderConfig) -> torch.Tensor:

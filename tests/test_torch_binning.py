@@ -22,11 +22,14 @@ from gsplat_tpu.ops.pallas.cull import cull_mask_from_params as jax_cull_rows  #
 from gsplat_tpu.ops.pallas.cull import cull_params as jax_cull_params  # noqa: E402
 from gsplat_tpu.ops.pallas.cull import tile_cull_mask_pallas  # noqa: E402
 from gsplat_tpu.ops.projection import project_gaussians as jax_project  # noqa: E402
-from gsplat_tpu_torch import RenderConfig  # noqa: E402
+from gsplat_tpu_torch import Camera, RenderConfig, random_scene  # noqa: E402
 from gsplat_tpu_torch.convert import camera_from_numpy, scene_from_numpy  # noqa: E402
 from gsplat_tpu_torch.ops import binning as tbin  # noqa: E402
 from gsplat_tpu_torch.ops.cuda import cull  # noqa: E402
+from gsplat_tpu_torch.models.gaussians import GaussianScene  # noqa: E402
 from gsplat_tpu_torch.ops.projection import project_gaussians  # noqa: E402
+
+import tiered_oracle  # noqa: E402
 
 BASE = dict(width=64, height=64, tile_size=8, max_intersections=1 << 13,
             max_tiles_per_gaussian=64, block_size=8, max_per_tile=512,
@@ -234,12 +237,17 @@ def test_tiered_pool_budget_overflows_like_jax():
 
 
 def test_capacity_overflow_like_jax():
+    """A stream too small for the candidates: the flag, the total and the
+    per-Gaussian counts as the JAX package's. The slots kept differ: the
+    first max_intersections candidates in emission order where the JAX
+    package keeps the lowest keys (held in
+    `test_tiered_capacity_overflow_keeps_the_first_candidates`)."""
     kw = dict(BASE, binning="tiered", max_intersections=64)
     proj, cfg, jproj, jcfg = both(kw)
     b = tbin.bin_gaussians(proj, cfg)
     jb = jbin.bin_gaussians(jproj, jcfg)
     assert bool(b.overflow) and int(b.num_intersections) > 64
-    assert_binned_equal(b, jb)
+    assert_binned_equal(b, jb, exact_ranges=False)
 
 
 def test_gather_features_matches_jax():
@@ -523,6 +531,168 @@ def test_packed_capacity_overflow_keeps_the_first_candidates():
     assert bool((key[1:] >= key[:-1]).all())
     assert int(got.ranges[-1]) == 64
     assert not torch.equal(got.sorted_gidk, want.sorted_gidk)
+
+
+TIER_LADDERS = {"legacy": (8, 5, 16),
+                "bench": ((4, 0), (8, 2), (16, 6), (32, 25), (64, 50))}
+# Jumbo tiers past a base K_max of 16 on the 8 x 8 tile grid.
+TIER_JUMBO = dict(max_tiles_per_gaussian=16, max_tiles_jumbo=64,
+                  jumbo_tier_spec=((32, 24), (48, 12), (64, 8)))
+
+
+def tier_case(ladder, jumbo, tile_culling, **kw):
+    """The port's projection of a random scene of 400 Gaussians, 30 of them
+    large and opaque (every base tier, every pool and, with the jumbo tiers,
+    two of them hold candidates), its depths rounded to quarters so that
+    many keys tie; and its tiered config."""
+    cfg = RenderConfig(**dict(BASE, binning="tiered",
+                              tier_spec=TIER_LADDERS[ladder],
+                              tile_culling=tile_culling,
+                              **(TIER_JUMBO if jumbo else {}), **kw))
+    scene = random_scene(400, 1, generator=torch.Generator().manual_seed(7),
+                         device="cpu")
+    log_scales = scene.log_scales + 1.0
+    log_scales[:30] = -0.5
+    opacity = scene.opacity_logits.clone()
+    opacity[:30] = 1.0
+    scene = GaussianScene(scene.means, log_scales, scene.quats, opacity,
+                          scene.sh)
+    proj = project_gaussians(scene, Camera.default(64, 64, device="cpu"), cfg)
+    proj = dataclasses.replace(proj, depth=torch.round(proj.depth * 4) / 4)
+    return proj, cfg
+
+
+@pytest.mark.parametrize("band,bands", [(None, 1), (0, 4), (2, 4), (1, 2)])
+@pytest.mark.parametrize("tile_culling", [True, False])
+@pytest.mark.parametrize("jumbo", [False, True])
+@pytest.mark.parametrize("ladder", ["legacy", "bench"])
+def test_tiered_binning_equals_the_lane_grids(ladder, jumbo, tile_culling,
+                                              band, bands):
+    """The tiered route (K3's tier count, the exclusive scan, its tier
+    emit, a stable sort of max_intersections slots) equals the stable sort
+    of every tier's lane grid, concatenated (`tiered_oracle.dense_tiered`,
+    the route before it compacted), bit for bit in every field, on the full
+    frame and on the sharded paths' bands, with the cull and without, with
+    the jumbo tiers and without. Before the sort, the slots hold the grids'
+    valid lanes in their concatenation order: the plain tier stages."""
+    proj, cfg = tier_case(ladder, jumbo, tile_culling)
+    n_tiles, t0 = cfg.num_tiles, None
+    args = {}
+    if band is not None:
+        n_tiles = cfg.num_tiles // bands
+        t0 = band * n_tiles
+        args = dict(tile_start=t0, num_local_tiles=n_tiles)
+    got = tbin.bin_gaussians(proj, cfg, **args)
+    want, key, gidk = tiered_oracle.dense_tiered(proj, cfg, t0, n_tiles)
+    assert not bool(got.overflow) and int(got.num_intersections) > 0
+    for f in BINNED_FIELDS:
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.dtype == w.dtype and torch.equal(g, w), f
+    assert got.keys_sorted == cfg.max_intersections
+    total = int(got.num_intersections)
+    skey = tbin.pack_tile_depth_key(got.sorted_tile, proj.depth[
+        got.sorted_gid.long()], cfg.num_tiles)[:total]
+    assert int((skey[1:] == skey[:-1]).sum()) > 10  # ties are tested
+    valid = key != tbin.SENTINEL_KEY
+    ckey, cgidk, ctotal, _, _ = tbin._tiered_candidates(proj, cfg, n_tiles, t0)
+    assert int(ctotal) == total == int(valid.sum())
+    assert torch.equal(ckey[:total], key[valid])
+    assert torch.equal(cgidk[:total], gidk[valid])
+    assert bool((ckey[total:] == tbin.SENTINEL_KEY).all())
+    assert bool((cgidk[total:] == -1).all())
+    if band is None:  # every kind of tier emits
+        rows, _, _ = tbin._tier_rows(proj, cfg, n_tiles)
+        per_row = cull.cull_tier_count(rows).split([t[3] for t in rows.tiers])
+        kept = {}
+        for (kind, *_), c in zip(rows.tiers, per_row):
+            kept[kind] = kept.get(kind, 0) + int(c.sum())
+        assert all(kept.values()) and len(kept) == 2 + jumbo
+
+
+def test_tiered_capacity_overflow_keeps_the_first_candidates():
+    """A stream too small for the candidates: overflow and the total as the
+    lane grids' and the JAX package's; the slots kept are the first
+    max_intersections candidates in emission order (the grids keep the
+    lowest keys), distinct, valid, and in (tile, depth) order."""
+    kw = dict(BASE, binning="tiered", tier_spec=TIER_LADDERS["bench"],
+              max_intersections=64)
+    proj, cfg, jproj, jcfg = both(kw, scale_shift=0.5)
+    got = tbin.bin_gaussians(proj, cfg)
+    want, key, gidk = tiered_oracle.dense_tiered(proj, cfg)
+    jb = jbin.bin_gaussians(jproj, jcfg)
+    assert bool(got.overflow) and bool(want.overflow) and bool(jb.overflow)
+    assert int(got.num_intersections) == int(want.num_intersections) == \
+        int(jb.num_intersections) > 64
+    for f in ("gauss_counts", "gauss_offsets"):
+        assert torch.equal(getattr(got, f), getattr(want, f))
+    valid = key != tbin.SENTINEL_KEY
+    first = gidk[valid][:64]             # concatenation order
+    assert torch.equal(torch.sort(got.sorted_gidk).values,
+                       torch.sort(first).values)
+    assert torch.unique(got.sorted_gidk).numel() == 64
+    assert bool((got.sorted_tile < cfg.num_tiles).all())
+    skey = tbin.pack_tile_depth_key(got.sorted_tile,
+                                    proj.depth[got.sorted_gid.long()],
+                                    cfg.num_tiles)
+    assert bool((skey[1:] >= skey[:-1]).all())
+    assert int(got.ranges[-1]) == 64
+    assert not torch.equal(got.sorted_gidk, want.sorted_gidk)
+    ckey, cgidk, _, _, _ = tbin._tiered_candidates(proj, cfg, cfg.num_tiles)
+    assert torch.equal(ckey, key[valid][:64])
+    assert torch.equal(cgidk, first)
+
+
+@pytest.mark.parametrize("fault", [None, "count", "emit", "short"])
+def test_chip_smoke_tier_stage_check(monkeypatch, fault):
+    """chip_smoke's check of the tier count and tier emit
+    (`check_tier_stages`), with the plain stages counted as the kernels are
+    standing in for the kernels, passes them on the bench ladder with the
+    jumbo tiers, and exits on a row's count one off, on one emitted gidk
+    changed, and on a stream cut short that loses its last slot."""
+    import chip_smoke as cs
+
+    from gsplat_tpu_torch.ops.cuda import counters
+
+    proj, cfg = tier_case("bench", True, True)
+
+    def count(rows):
+        counters.bump("K3.tier_count")
+        out = cull.cull_tier_count_plain(rows)
+        if fault == "count":
+            out[int(out.argmax())] -= 1
+        return out
+
+    def emit(rows, offsets, slots, sentinel):
+        counters.bump("K3.tier_emit")
+        keys, gidk = cull.cull_tier_emit_plain(rows, offsets, slots, sentinel)
+        written = int((gidk >= 0).sum())
+        if fault == "emit":
+            gidk[written // 2] ^= 1
+        if fault == "short" and written == slots:
+            keys[-1], gidk[-1] = sentinel, -1
+        return keys, gidk
+
+    def launch(rows, row_counts, offsets, slots, keys, gidk):
+        k, g = emit(rows, offsets, slots, tbin.SENTINEL_KEY)
+        keys.copy_(k)
+        gidk.copy_(g)
+
+    monkeypatch.setattr(cull, "cull_tier_count_cuda", count)
+    monkeypatch.setattr(cull, "cull_tier_emit_cuda", emit)
+    monkeypatch.setattr(cull, "_tier_launch", launch)
+    monkeypatch.setattr(cs, "timed_once", lambda fn: (fn(), 0.0))
+    monkeypatch.setattr(cs, "cuda_ms",
+                        lambda fn, iters: [fn() for _ in range(iters + 1)]
+                        and 0.0)
+    if fault is None:
+        out = cs.check_tier_stages(proj, cfg, "cpu", short=8)
+        assert out["frame"]["jumbo_kept"] > 0
+        assert out["band"]["kept"] > 8
+        for v in ("frame", "band"):
+            assert out[v]["emit"]["short"]["written"] == out[v]["kept"] - 8
+    else:
+        with pytest.raises(SystemExit, match="differs"):
+            cs.check_tier_stages(proj, cfg, "cpu", short=8)
 
 
 def random_cull_rows(n, kmax, seed):

@@ -10,7 +10,7 @@ pytest.importorskip("jax")
 
 from gsplat_tpu import RenderConfig as JaxConfig  # noqa: E402
 from gsplat_tpu_torch import RenderConfig  # noqa: E402
-from gsplat_tpu_torch.config import MAX_PIXELS_PER_TILE, cdiv  # noqa: E402
+from gsplat_tpu_torch.config import MAX_PIXELS_PER_TILE, MAX_TIERS, cdiv  # noqa: E402
 
 # Fields that select TPU machinery with no counterpart in the port.
 DROPPED = {"impl", "pallas_interpret"}
@@ -86,6 +86,26 @@ def test_blend_kernel_thread_limit_replaces_vmem_guard():
     with pytest.raises(ValueError, match="1024"):
         RenderConfig(width=128, height=128, tile_size=64, block_size=8,
                      max_per_tile=256)
+
+
+def test_tier_kernel_limit_on_the_ladder():
+    """The tiered binning's CUDA tier count and emit take at most MAX_TIERS
+    tiers, base and jumbo together (the implicit last base tier counted):
+    RenderConfig refuses more, and counts jumbo tiers only with
+    max_tiles_jumbo."""
+    assert MAX_TIERS == 32
+    ladder = tuple((k, 0) for k in range(2, 66, 2))  # 32 tiers to K 64
+    RenderConfig(binning="tiered", max_tiles_per_gaussian=64,
+                 tier_spec=ladder, jumbo_tier_spec=((128, 8),))
+    with pytest.raises(ValueError, match="33 tiers"):
+        RenderConfig(binning="tiered", max_tiles_per_gaussian=64,
+                     tier_spec=ladder, max_tiles_jumbo=128,
+                     jumbo_tier_spec=((128, 8),))
+    with pytest.raises(ValueError, match="33 tiers"):  # the implicit one
+        RenderConfig(binning="tiered", max_tiles_per_gaussian=66,
+                     tier_spec=ladder)
+    RenderConfig(binning="packed", max_tiles_per_gaussian=66,
+                 tier_spec=ladder)
 
 
 @pytest.mark.parametrize("field", sorted(DROPPED))

@@ -33,6 +33,7 @@ from gsplat_tpu_torch.convert import (  # noqa: E402
     scene_from_numpy,
     scene_to_numpy,
 )
+from gsplat_tpu_torch.ops import binning as tbin  # noqa: E402
 from gsplat_tpu_torch.render.pipeline import (  # noqa: E402
     render,
     render_loss,
@@ -48,6 +49,8 @@ from gsplat_tpu_torch.train.loop import (  # noqa: E402
     sh_band_mask,
 )
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+import tiered_oracle  # noqa: E402
 
 SCENE_FIELDS = ("means", "log_scales", "quats", "opacity_logits", "sh")
 CAM_FIELDS = ("view", "proj", "full_proj", "cam_pos", "focal", "tan_fov",
@@ -120,9 +123,31 @@ def test_scene_and_tap_gradients_match_jax(kw, jax_impls):
                                    rtol=RTOL, atol=ATOL)
 
 
-def test_render_loss_with_aux_matches_jax():
-    """The L1 loss and the capacity flags, on a stream too small for the
-    scene so that overflow is set."""
+def first_lanes(proj, cfg, n_local, tile_start=None):
+    """`binning._tiered_candidates` from the lane grids: every tier's valid
+    lanes in concatenation order (`tiered_oracle.tiered_lanes`), the first
+    max_intersections of them kept, the rest of the slots SENTINEL_KEY and
+    -1."""
+    key, gidk, total, ovf, counts = tiered_oracle.tiered_lanes(
+        proj, cfg, n_local, tile_start)
+    valid = key != tbin.SENTINEL_KEY
+    kept_key = key[valid][: cfg.max_intersections]
+    kept_gidk = gidk[valid][: cfg.max_intersections]
+    out_key = torch.full((cfg.max_intersections,), tbin.SENTINEL_KEY,
+                         dtype=torch.int64)
+    out_gidk = torch.full((cfg.max_intersections,), -1, dtype=torch.int32)
+    out_key[: kept_key.numel()] = kept_key
+    out_gidk[: kept_gidk.numel()] = kept_gidk
+    return out_key, out_gidk, total, ovf, counts
+
+
+def test_render_loss_with_aux_matches_jax(monkeypatch):
+    """The L1 loss and the capacity flags, and on a stream too small for
+    the scene, so that overflow is set, the flags and a loss that is not
+    JAX's: the tiered route keeps the first max_intersections candidates in
+    emission order where the JAX package keeps the lowest keys
+    (`ops/binning.py`). That loss is held to the render of the lane grids'
+    first max_intersections valid lanes in concatenation order."""
     jscene = jax_random_scene(jax.random.key(8), 150, sh_degree=2)
     jcam = JaxCamera.default(64, 64)
     scene, cam = to_port(jscene, jcam)
@@ -133,7 +158,15 @@ def test_render_loss_with_aux_matches_jax():
                                          RenderConfig(**kw))
         jl, jaux = jax_render_loss_with_aux(jscene, jcam, jnp.asarray(target),
                                             JaxConfig(**kw, **JAX_JNP))
-        np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+        if bool(aux["overflow"]):
+            with monkeypatch.context() as m:
+                m.setattr(tbin, "_tiered_candidates", first_lanes)
+                want, _ = render_loss_with_aux(
+                    scene, cam, torch.from_numpy(target), RenderConfig(**kw))
+            np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+            assert abs(float(loss) - float(jl)) > 1e-5 * abs(float(jl))
+        else:
+            np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
         assert float(render_loss(scene, cam, torch.from_numpy(target),
                                  RenderConfig(**kw))) == float(loss)
         assert bool(aux["overflow"]) == bool(jaux["overflow"])
